@@ -1,0 +1,168 @@
+"""Padded mini-batch subgraph containers + base dataflow
+(counterpart: euler_tpu/dataflow/base.py).
+
+Hop i holds exactly batch * prod(fanouts[:i]) node slots, invalid slots
+carry a mask, and every downstream op is a fixed-shape gather or segment
+op. A `Block` is the bipartite edge set between hop i+1 ("src", the
+sampled neighbors) and hop i ("dst").
+
+Dataflows build batches of numpy arrays on the host; `to_device` moves a
+batch onto a torch device. uint64 node ids stay in numpy: only the int32
+rows and indices, the masks and the f32 arrays become tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Block:
+    """Edges from a src node table into a dst node table (one hop)."""
+
+    edge_src: np.ndarray | torch.Tensor  # int32[E] rows into the src hop table
+    edge_dst: np.ndarray | torch.Tensor  # int32[E] rows into the dst hop table
+    edge_w: np.ndarray | torch.Tensor  # f32[E] edge weights (0 where masked)
+    mask: np.ndarray | torch.Tensor  # bool[E] valid-edge mask
+    n_src: int
+    n_dst: int
+    # >0 when edges are grid-structured (dst row i owns slots
+    # [i*grid, (i+1)*grid)); unlocks the fused gather_weighted_sum path
+    grid: int = 0
+
+
+@dataclasses.dataclass
+class MiniBatch:
+    """One padded multi-hop subgraph batch.
+
+    feats[i]  — f32[N_i, F] node features of hop i (hop 0 = roots)
+    masks[i]  — bool[N_i] node validity
+    blocks[i] — edges hop i+1 → hop i  (len == num hops)
+    root_idx  — int32[B] root node ids
+    labels    — optional f32[B, L] supervised targets
+    hop_ids   — optional int32 per-hop node ids (host only)
+    """
+
+    feats: tuple
+    masks: tuple
+    blocks: tuple
+    root_idx: np.ndarray | torch.Tensor
+    labels: np.ndarray | torch.Tensor | None = None
+    hop_ids: tuple | None = None
+
+
+def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def to_device(batch: MiniBatch, device) -> MiniBatch:
+    """The batch with every array as a tensor on `device` (the port's
+    counterpart of the JAX `Estimator._put` + `hydrate_blocks`). hop_ids
+    stay on the host: no model of the port reads them on the device."""
+    device = torch.device(device)
+    blocks = tuple(
+        dataclasses.replace(
+            b,
+            edge_src=_tensor(b.edge_src, device),
+            edge_dst=_tensor(b.edge_dst, device),
+            edge_w=_tensor(np.asarray(b.edge_w, np.float32), device),
+            mask=_tensor(b.mask, device),
+        )
+        for b in batch.blocks
+    )
+    return MiniBatch(
+        feats=tuple(_tensor(f, device) for f in batch.feats),
+        masks=tuple(_tensor(m, device) for m in batch.masks),
+        blocks=blocks,
+        root_idx=_tensor(batch.root_idx, device),
+        labels=None if batch.labels is None else _tensor(batch.labels, device),
+        hop_ids=batch.hop_ids,
+    )
+
+
+def gather_unique(ids_list, fetch):
+    """Cross-hop unique-ID coalescing: ONE deduplicated fetch covers every
+    hop, results scattered back by inverse index. `fetch(uniq)` sees each
+    id once; because the fetched verbs are deterministic per id, the
+    result is bit-identical to fetching each hop directly."""
+    arrs = [np.asarray(a).reshape(-1) for a in ids_list]
+    flat = np.concatenate(arrs) if arrs else np.empty(0, np.uint64)
+    uniq, inv = np.unique(flat, return_inverse=True)
+    out_flat = np.asarray(fetch(uniq))[inv]
+    offs = np.cumsum([0] + [a.size for a in arrs])
+    return [out_flat[offs[i] : offs[i + 1]] for i in range(len(arrs))]
+
+
+class DataFlow:
+    """Base: fetches features and labels; subclasses build the hop
+    structure. query(roots) → MiniBatch of numpy arrays (host)."""
+
+    def __init__(
+        self,
+        graph,
+        feature_names: list[str],
+        label_feature: str | None = None,
+        rng: np.random.Generator | None = None,
+    ):
+        self.graph = graph
+        self.feature_names = list(feature_names)
+        self.label_feature = label_feature
+        self.rng = rng if rng is not None else np.random.default_rng()
+
+    def node_feats_hops(self, ids_list) -> tuple:
+        """Per-hop dense features, with ids deduplicated across hops
+        before the fetch."""
+        if not self.feature_names:
+            return tuple(
+                np.zeros((len(np.asarray(i)), 0), np.float32) for i in ids_list
+            )
+        return tuple(
+            gather_unique(
+                ids_list,
+                lambda u: self.graph.get_dense_feature(u, self.feature_names),
+            )
+        )
+
+    def labels_of(self, ids: np.ndarray) -> np.ndarray | None:
+        if self.label_feature is None:
+            return None
+        return self.graph.get_dense_feature(ids, [self.label_feature])
+
+    def query(self, roots: np.ndarray) -> MiniBatch:
+        raise NotImplementedError
+
+    def query_padded(
+        self, roots: np.ndarray, batch_size: int
+    ) -> tuple[MiniBatch, int]:
+        """query() at a FIXED root count: pads `roots` to `batch_size` by
+        repeating the final id, so callers with variable request sizes
+        (serving buckets) always run one shape per bucket. Returns
+        (batch, n_valid); rows [n_valid:] of the output are padding."""
+        roots = np.asarray(roots, dtype=np.uint64)
+        n = len(roots)
+        if n == 0 or n > batch_size:
+            raise ValueError(
+                f"need 1..{batch_size} roots for this bucket, got {n}"
+            )
+        if n < batch_size:
+            roots = np.concatenate(
+                [roots, np.repeat(roots[-1:], batch_size - n)]
+            )
+        return self.query(roots), n
+
+
+def fanout_block(batch: int, fanout: int, w: np.ndarray, mask: np.ndarray) -> Block:
+    """Block for sampled fanout: src j feeds dst j // fanout."""
+    e = batch * fanout
+    return Block(
+        edge_src=np.arange(e, dtype=np.int32),
+        edge_dst=np.repeat(np.arange(batch, dtype=np.int32), fanout),
+        edge_w=w.reshape(-1).astype(np.float32),
+        mask=mask.reshape(-1),
+        n_src=e,
+        n_dst=batch,
+        grid=fanout,
+    )

@@ -1,0 +1,90 @@
+"""Sampled-fanout dataflow (GraphSAGE) with padded static shapes
+(counterpart: euler_tpu/dataflow/sage.py, dense feature mode)."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from euler_tpu_torch.dataflow.base import (
+    DataFlow,
+    MiniBatch,
+    fanout_block,
+    gather_unique,
+)
+from euler_tpu_torch.graph.store import DEFAULT_ID
+
+
+class SageDataFlow(DataFlow):
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        edge_types=None,
+        fanouts=(10, 10),
+        label_feature=None,
+        rng=None,
+    ):
+        super().__init__(graph, feature_names, label_feature, rng)
+        self.edge_types = edge_types
+        self.fanouts = list(fanouts)
+
+    def query(self, roots: np.ndarray) -> MiniBatch:
+        roots = np.asarray(roots, dtype=np.uint64)
+        fused = getattr(self.graph, "fanout_with_rows", None)
+        if fused is not None:
+            # fused path: one call yields every hop's ids, weights, masks
+            # AND global feature rows
+            hop_ids, hop_w, _, hop_masks, hop_rows = fused(
+                roots, self.edge_types, self.fanouts, rng=self.rng
+            )
+            return self._from_fused(roots, hop_ids, hop_w, hop_masks, hop_rows)
+        hop_ids = [roots]
+        hop_masks = [roots != DEFAULT_ID]
+        blocks = []
+        cur = roots
+        for k in self.fanouts:
+            nbr, w, _, mask, _ = self.graph.sample_neighbor(
+                cur, self.edge_types, k, rng=self.rng
+            )
+            blocks.append(fanout_block(len(cur), k, w, mask))
+            cur = nbr.reshape(-1)
+            hop_ids.append(cur)
+            hop_masks.append(mask.reshape(-1))
+        # padded slots hold DEFAULT_ID → feature fetch returns zeros
+        return MiniBatch(
+            feats=self.node_feats_hops(hop_ids),
+            masks=tuple(hop_masks),
+            blocks=tuple(blocks),
+            root_idx=roots.astype(np.int64).astype(np.int32),
+            labels=self.labels_of(roots),
+            hop_ids=tuple(ids.astype(np.int64).astype(np.int32) for ids in hop_ids),
+        )
+
+    def _from_fused(self, roots, hop_ids, hop_w, hop_masks, hop_rows) -> MiniBatch:
+        # hop-0 validity matches the per-hop path (any non-default id
+        # counts, even if absent from the store — its features are zero)
+        hop_masks = [roots != DEFAULT_ID] + list(hop_masks[1:])
+        blocks = []
+        width = len(roots)
+        for k, w, mask in zip(self.fanouts, hop_w[1:], hop_masks[1:]):
+            blocks.append(fanout_block(width, k, w, mask))
+            width *= k
+        if self.feature_names and hasattr(self.graph, "get_dense_by_rows"):
+            # reuse the rows the fanout already resolved, deduplicated
+            # across hops: a hot node's row is read once per batch
+            feats = tuple(
+                gather_unique(
+                    hop_rows,
+                    lambda u: self.graph.get_dense_by_rows(u, self.feature_names),
+                )
+            )
+        else:
+            feats = self.node_feats_hops(hop_ids)
+        return MiniBatch(
+            feats=feats,
+            masks=tuple(hop_masks),
+            blocks=tuple(blocks),
+            root_idx=roots.astype(np.int64).astype(np.int32),
+            labels=self.labels_of(roots),
+            hop_ids=tuple(ids.astype(np.int64).astype(np.int32) for ids in hop_ids),
+        )

@@ -1,0 +1,5 @@
+from euler_tpu_torch.datasets.synthetic import (  # noqa: F401
+    random_graph,
+    shard_arrays,
+    synthetic_meta,
+)

@@ -1,0 +1,371 @@
+"""In-memory columnar graph shard + multi-shard facade, numpy only
+(counterpart: euler_tpu/graph/store.py).
+
+This is the part of the JAX package's store that the serving path runs:
+id lookup, weighted root and neighbor sampling, the fused multi-hop
+fanout with feature rows, and dense feature reads. The numpy draw order
+is the JAX package's exactly, so a seed gives the same sample in both
+packages (held by tests/test_torch_graph_flow.py).
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+
+from euler_tpu_torch.graph import format as tformat
+from euler_tpu_torch.graph.meta import DENSE, GraphMeta
+
+DEFAULT_ID = np.uint64(0xFFFFFFFFFFFFFFFF)  # padding sentinel for node ids
+
+
+def _rng(rng) -> np.random.Generator:
+    return rng if rng is not None else np.random.default_rng()
+
+
+class _WeightedSampler:
+    """O(log n) vectorized weighted sampling via prefix sums (built
+    lazily on first draw)."""
+
+    def __init__(self, weights: np.ndarray):
+        self._weights = np.asarray(weights)
+        self.total = float(np.sum(self._weights, dtype=np.float64))
+        self.n = len(self._weights)
+        self._cum: np.ndarray | None = None
+
+    @property
+    def cum(self) -> np.ndarray:
+        if self._cum is None:
+            self._cum = np.concatenate(
+                [[0.0], np.cumsum(self._weights, dtype=np.float64)]
+            )
+        return self._cum
+
+    def sample(self, count: int, rng) -> np.ndarray:
+        if self.n == 0 or self.total <= 0:
+            return np.zeros(count, dtype=np.int64)
+        target = _rng(rng).random(count) * self.total
+        return np.clip(
+            np.searchsorted(self.cum, target, side="right") - 1, 0, self.n - 1
+        )
+
+
+class _CSR:
+    """Per-edge-type adjacency with cumulative weights for row sampling."""
+
+    def __init__(self, indptr, dst, w, eidx):
+        self.indptr = np.asarray(indptr)
+        self.dst = np.asarray(dst)
+        self.w = np.asarray(w)
+        self.eidx = np.asarray(eidx)
+        self._cum = None  # lazy (8 B/edge)
+
+    @property
+    def cum(self) -> np.ndarray:
+        if self._cum is None:
+            self._cum = np.concatenate(
+                [[0.0], np.cumsum(self.w, dtype=np.float64)]
+            )
+        return self._cum
+
+    def degrees(self, rows: np.ndarray) -> np.ndarray:
+        return self.indptr[rows + 1] - self.indptr[rows]
+
+    def row_weight(self, rows: np.ndarray) -> np.ndarray:
+        return self.cum[self.indptr[rows + 1]] - self.cum[self.indptr[rows]]
+
+    def sample_in_rows(self, rows: np.ndarray, rng) -> np.ndarray:
+        """One weighted neighbor element index (global) per entry of `rows`."""
+        s, e = self.indptr[rows], self.indptr[rows + 1]
+        lo, hi = self.cum[s], self.cum[e]
+        target = lo + _rng(rng).random(len(rows)) * (hi - lo)
+        j = np.searchsorted(self.cum, target, side="right") - 1
+        return np.clip(j, s, np.maximum(s, e - 1))
+
+
+class GraphStore:
+    """One graph shard served from columnar arrays."""
+
+    def __init__(self, meta: GraphMeta, arrays: dict[str, np.ndarray], part: int = 0):
+        self.meta = meta
+        self.part = part
+        self.node_ids = np.asarray(arrays["node_ids"])
+        self.node_types = np.asarray(arrays["node_types"])
+        self.node_weights = np.asarray(arrays["node_weights"])
+        self.num_nodes = len(self.node_ids)
+        self.arrays = arrays
+        self.adj = [
+            _CSR(
+                arrays[f"adj_{t}_indptr"],
+                arrays[f"adj_{t}_dst"],
+                arrays[f"adj_{t}_w"],
+                arrays[f"adj_{t}_eidx"],
+            )
+            for t in range(meta.num_edge_types)
+        ]
+        self._samplers_n: dict[int, _WeightedSampler] = {}
+
+    def lookup(self, ids: np.ndarray) -> np.ndarray:
+        """External u64 ids → local rows; -1 for missing (vectorized)."""
+        ids = np.asarray(ids, dtype=np.uint64)
+        if self.num_nodes == 0:
+            return np.full(len(ids), -1, dtype=np.int64)
+        pos = np.searchsorted(self.node_ids, ids)
+        pos = np.clip(pos, 0, self.num_nodes - 1)
+        ok = self.node_ids[pos] == ids
+        return np.where(ok, pos, -1).astype(np.int64)
+
+    def _node_sampler(self, node_type: int) -> _WeightedSampler:
+        key = -1 if node_type < 0 else int(node_type)
+        if key >= self.meta.num_node_types:
+            raise IndexError(f"node type {key} out of range")
+        s = self._samplers_n.get(key)
+        if s is None:
+            w = (
+                self.node_weights
+                if key < 0
+                else np.where(self.node_types == key, self.node_weights, 0.0)
+            )
+            s = self._samplers_n.setdefault(key, _WeightedSampler(w))
+        return s
+
+    def sample_node(self, count: int, node_type: int = -1, rng=None) -> np.ndarray:
+        sampler = self._node_sampler(node_type)
+        rowz = sampler.sample(count, rng)
+        if sampler.total <= 0:
+            return np.full(count, DEFAULT_ID, dtype=np.uint64)
+        return self.node_ids[rowz]
+
+    def node_type(self, ids: np.ndarray) -> np.ndarray:
+        rows = self.lookup(ids)
+        out = np.full(len(rows), -1, dtype=np.int32)
+        ok = rows >= 0
+        out[ok] = self.node_types[rows[ok]]
+        return out
+
+    def _csrs(self, edge_types) -> list:
+        types = (
+            range(self.meta.num_edge_types)
+            if edge_types is None
+            else edge_types
+        )
+        return [(t, self.adj[t]) for t in types]
+
+    def sample_neighbor(self, ids, edge_types=None, count: int = 10, rng=None):
+        """Weighted neighbor sampling with replacement.
+
+        Returns (nbr_ids u64[n,count], weights f32[n,count], types
+        i32[n,count], mask bool[n,count], eidx i64[n,count]).
+        """
+        rng = _rng(rng)
+        ids = np.asarray(ids, dtype=np.uint64)
+        rows = self.lookup(ids)
+        n = len(rows)
+        csrs = self._csrs(edge_types)
+        safe = np.maximum(rows, 0)
+        # per (node, type) total weights → type choice per draw
+        tot = np.stack([c.row_weight(safe) for _, c in csrs], axis=1)  # [n, T]
+        tot[rows < 0] = 0.0
+        row_total = tot.sum(axis=1)
+        mask_any = row_total > 0
+        cum_t = np.cumsum(tot, axis=1)
+        u = rng.random((n, count)) * row_total[:, None]
+        type_choice = (u[:, :, None] >= cum_t[:, None, :]).sum(axis=2)  # [n,count]
+        type_choice = np.minimum(type_choice, len(csrs) - 1)
+
+        nbr = np.full((n, count), DEFAULT_ID, dtype=np.uint64)
+        w = np.zeros((n, count), dtype=np.float32)
+        tt = np.full((n, count), -1, dtype=np.int32)
+        eidx = np.full((n, count), -1, dtype=np.int64)
+        for k, (t, c) in enumerate(csrs):
+            sel = (type_choice == k) & mask_any[:, None] & (rows >= 0)[:, None]
+            if not sel.any() or len(c.dst) == 0:
+                continue
+            r_sel = np.repeat(safe, count).reshape(n, count)[sel]
+            has = c.degrees(r_sel) > 0
+            j = c.sample_in_rows(r_sel[has], rng)
+            flat = np.zeros(sel.sum(), dtype=np.int64)
+            flat[has] = j
+            vals = np.where(has, c.dst[flat], DEFAULT_ID)
+            nbr[sel] = vals
+            w[sel] = np.where(has, c.w[flat], 0.0).astype(np.float32)
+            tt[sel] = np.where(has, t, -1)
+            eidx[sel] = np.where(has, c.eidx[flat], -1)
+        mask = nbr != DEFAULT_ID
+        return nbr, w, tt, mask, eidx
+
+    def get_dense_feature(self, ids, names: list[str]) -> np.ndarray:
+        """[n, sum(dims)] f32; missing nodes → zeros."""
+        return self.get_dense_by_rows(self.lookup(ids), names)
+
+    def get_dense_by_rows(self, rows, names) -> np.ndarray:
+        """Dense node features by pre-resolved local rows (-1 → zeros)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        specs = [self.meta.feature_spec(nm, node=True) for nm in names]
+        cols = []
+        safe = np.maximum(rows, 0)
+        for spec in specs:
+            vals = self.arrays[f"nf_{DENSE}_{spec.fid}"]
+            out = np.asarray(vals[safe], dtype=np.float32)
+            out[rows < 0] = 0.0
+            cols.append(out)
+        return np.concatenate(cols, axis=1) if cols else np.zeros((len(rows), 0), np.float32)
+
+
+class Graph:
+    """Multi-shard facade over in-process shards: ids are scattered to
+    their owner shard (`id % P`), queried, and gathered back in input
+    order. All methods accept and return padded numpy batches."""
+
+    def __init__(self, meta: GraphMeta, shards: list[GraphStore]):
+        self.meta = meta
+        self.shards = shards
+        self.num_shards = len(shards)
+        # shard-weighted root sampling
+        self._node_shard_w = np.asarray(meta.node_weight_sums, dtype=np.float64)
+
+    @classmethod
+    def load(cls, directory: str, mmap: bool = True) -> "Graph":
+        """A graph dir (`euler.meta.json` + `part_<p>/` tensor dirs)."""
+        meta = GraphMeta.load(directory)
+        shards = [
+            GraphStore(
+                meta,
+                tformat.read_arrays(os.path.join(directory, f"part_{p}"), mmap),
+                part=p,
+            )
+            for p in range(meta.num_partitions)
+        ]
+        return cls(meta, shards)
+
+    def _scatter_gather(self, ids, fn):
+        """fn(shard, sub_ids) → tuple/array, gathered to input order."""
+        ids = np.asarray(ids, dtype=np.uint64)
+        shards = self.shards
+        num = len(shards)
+        if num == 1 or len(ids) == 0:
+            return fn(shards[0], ids)
+        owner = (ids % np.uint64(num)).astype(np.int64)
+        index = [np.nonzero(owner == s)[0] for s in range(num)]
+        parts = [
+            fn(shards[s], ids[sel]) if len(sel) else None
+            for s, sel in enumerate(index)
+        ]
+        # find a template result to size outputs
+        template = next(p for p in parts if p is not None)
+        single = not isinstance(template, tuple)
+        outs = []
+        n = len(ids)
+        for a in (template,) if single else template:
+            out = np.zeros((n,) + a.shape[1:], dtype=a.dtype)
+            if a.dtype == np.uint64:
+                out[:] = DEFAULT_ID
+            elif a.dtype in (np.int32, np.int64):
+                out[:] = -1
+            outs.append(out)
+        for s, sel in enumerate(index):
+            if parts[s] is None:
+                continue
+            res = (parts[s],) if single else parts[s]
+            for o, a in zip(outs, res):
+                o[sel] = a
+        return outs[0] if single else tuple(outs)
+
+    def sample_node(self, count: int, node_type: int = -1, rng=None) -> np.ndarray:
+        rng = _rng(rng)
+        if isinstance(node_type, str):
+            node_type = self.meta.node_type_id(node_type)
+        shards = self.shards
+        if len(shards) == 1:
+            return shards[0].sample_node(count, node_type, rng)
+        w = (
+            self._node_shard_w.sum(axis=1)
+            if node_type < 0
+            else self._node_shard_w[:, node_type]
+        )
+        picks = _WeightedSampler(w).sample(count, rng)
+        out = np.empty(count, dtype=np.uint64)
+        for s, sh in enumerate(shards):
+            sel = picks == s
+            if sel.any():
+                out[sel] = sh.sample_node(int(sel.sum()), node_type, rng)
+        return out
+
+    def node_type(self, ids) -> np.ndarray:
+        return self._scatter_gather(ids, lambda sh, i: sh.node_type(i))
+
+    def _shard_rngs(self, rng) -> list:
+        """One independent child generator per shard, split up-front."""
+        seeds = _rng(rng).integers(0, 2**63 - 1, size=self.num_shards)
+        return [np.random.default_rng(int(s)) for s in seeds]
+
+    def sample_neighbor(self, ids, edge_types=None, count=10, rng=None):
+        rngs = self._shard_rngs(rng)
+        return self._scatter_gather(
+            ids,
+            lambda sh, i: sh.sample_neighbor(i, edge_types, count, rngs[sh.part]),
+        )
+
+    def fanout_with_rows(self, ids, edge_types, counts, rng=None):
+        """Fused multi-hop fanout incl. global feature rows: one
+        owner-scattered sampling round per hop, then one batched
+        row-resolve round over every hop's ids. Returns (hop_ids, hop_w,
+        hop_tt, hop_mask, hop_rows) lists over hops 0..len(counts)."""
+        rng = _rng(rng)
+        ids = np.asarray(ids, dtype=np.uint64)
+        hop_ids = [ids]
+        hop_w = [np.ones(len(ids), np.float32)]
+        hop_tt = [np.asarray(self.node_type(ids), np.int32)]
+        hop_mask = [ids != DEFAULT_ID]
+        cur = ids
+        for c in counts:
+            nbr, w, tt, mask, _ = self.sample_neighbor(
+                cur, edge_types, int(c), rng=rng
+            )
+            cur = nbr.reshape(-1)
+            hop_ids.append(cur)
+            hop_w.append(w.reshape(-1).astype(np.float32))
+            hop_tt.append(tt.reshape(-1).astype(np.int32))
+            hop_mask.append(mask.reshape(-1))
+        all_rows = np.asarray(
+            self.lookup_rows(np.concatenate(hop_ids)), np.int64
+        )
+        offs = np.r_[0, np.cumsum([len(h) for h in hop_ids])]
+        hop_rows = [
+            all_rows[offs[i] : offs[i + 1]] for i in range(len(hop_ids))
+        ]
+        return hop_ids, hop_w, hop_tt, hop_mask, hop_rows
+
+    def get_dense_by_rows(self, rows, names) -> np.ndarray:
+        """Dense features by pre-resolved global rows (-1 → zeros); rows
+        are shard-major (the `lookup_rows` space)."""
+        rows = np.asarray(rows, dtype=np.int64)
+        if self.num_shards == 1:
+            return self.shards[0].get_dense_by_rows(rows, names)
+        offsets = self._shard_row_offsets()
+        owner = np.searchsorted(offsets, rows, side="right") - 1  # -1 → -1
+        dims = sum(self.meta.feature_spec(nm, node=True).dim for nm in names)
+        out = np.zeros((len(rows), dims), np.float32)
+        for s, sh in enumerate(self.shards):
+            sel = np.nonzero(owner == s)[0]
+            if not len(sel):
+                continue
+            out[sel] = sh.get_dense_by_rows(rows[sel] - offsets[s], names)
+        return out
+
+    def get_dense_feature(self, ids, names) -> np.ndarray:
+        return self._scatter_gather(ids, lambda sh, i: sh.get_dense_feature(i, names))
+
+    def _shard_row_offsets(self) -> np.ndarray:
+        return np.cumsum([0] + [s.num_nodes for s in self.shards])
+
+    def lookup_rows(self, ids) -> np.ndarray:
+        """u64 ids → global dense rows (shard-major order); -1 for missing."""
+        offsets = self._shard_row_offsets()
+
+        def fn(shard, sub):
+            r = shard.lookup(sub)
+            return np.where(r >= 0, r + offsets[shard.part], -1)
+
+        return np.asarray(self._scatter_gather(ids, fn), dtype=np.int64)

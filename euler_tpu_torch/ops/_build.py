@@ -1,0 +1,164 @@
+"""Build, load and count the port's CUDA kernels.
+
+Each kernel is one CUDA C++ source under `ops/csrc/` with a plain C
+interface. At first use it is compiled by `nvcc` into a shared library
+under `euler_tpu_torch/_build/<name>-<hash>/` and loaded with ctypes; the
+hash covers the source, the nvcc version and the flags, so an edit or a
+new toolkit builds anew. A file lock serialises concurrent builds of one library.
+`build_all` starts one nvcc per source, all at once.
+
+A failed build raises: no caller falls back to the plain version.
+
+`LAUNCHES` counts launches per kernel name. Each wrapper adds one where
+it launches its kernel and nowhere else, so a run can show that its path
+went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
+
+# kernel name → source under csrc/
+SOURCES = {"gather_weighted_sum": "gather_weighted_sum.cu"}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+
+_LIBS: dict[str, ctypes.CDLL] = {}
+_LIBS_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    LAUNCHES[name] += 1
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def nvcc_path() -> str:
+    """nvcc from $CUDA_HOME, then $PATH, then the toolkit's default
+    install location."""
+    candidates = []
+    if os.environ.get("CUDA_HOME"):
+        candidates.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(found)
+    candidates.append("/usr/local/cuda/bin/nvcc")
+    for c in candidates:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    raise RuntimeError(
+        "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+        "/usr/local/cuda/bin); the CUDA kernels cannot be built"
+    )
+
+
+def _paths(name: str, nvcc: str) -> tuple[str, str, str]:
+    """(source, build dir, library) for one kernel."""
+    src = os.path.join(CSRC, SOURCES[name])
+    version = subprocess.run(
+        [nvcc, "--version"], capture_output=True, text=True, check=True
+    ).stdout
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(version.encode())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    bdir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
+    return src, bdir, os.path.join(bdir, f"lib{name}.so")
+
+
+def library_path(name: str) -> str:
+    return _paths(name, nvcc_path())[2]
+
+
+def build_all(names=None) -> dict[str, dict]:
+    """Compile every named kernel (default: all) whose library is not
+    built yet, one nvcc process per source, all started together.
+    Returns {name: {"seconds", "built", "log"}}; raises RuntimeError
+    naming each source that failed to compile."""
+    nvcc = nvcc_path()
+    names = list(SOURCES) if names is None else list(names)
+    jobs = {}
+    out = {}
+    try:
+        for name in names:
+            src, bdir, lib = _paths(name, nvcc)
+            os.makedirs(bdir, exist_ok=True)
+            lock = open(os.path.join(bdir, "lock"), "w")
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if os.path.exists(lib):
+                fcntl.flock(lock, fcntl.LOCK_UN)
+                lock.close()
+                out[name] = {"seconds": 0.0, "built": False,
+                             "log": _read(os.path.join(bdir, "build.log"))}
+                continue
+            tmp = f"{lib}.tmp-{os.getpid()}"
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            jobs[name] = (proc, lock, tmp, lib, bdir, time.perf_counter())
+        failed = []
+        for name, (proc, lock, tmp, lib, bdir, t0) in jobs.items():
+            log, _ = proc.communicate()
+            seconds = time.perf_counter() - t0
+            with open(os.path.join(bdir, "build.log"), "w") as f:
+                f.write(log)
+            if proc.returncode == 0:
+                os.replace(tmp, lib)
+            else:
+                failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):\n{log}")
+            out[name] = {"seconds": seconds, "built": True, "log": log}
+        if failed:
+            raise RuntimeError("CUDA kernel build failed: " + "\n".join(failed))
+    finally:
+        for proc, lock, *_ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            fcntl.flock(lock, fcntl.LOCK_UN)
+            lock.close()
+    return out
+
+
+def _read(path: str) -> str:
+    if not os.path.exists(path):
+        return ""
+    with open(path) as f:
+        return f.read()
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's shared library, built first if needed; one handle per
+    process."""
+    with _LIBS_LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            build_all([name])
+            lib = ctypes.CDLL(library_path(name))
+            _LIBS[name] = lib
+        return lib

@@ -1,0 +1,162 @@
+"""InferenceRuntime — a trained model as an online prediction function
+(counterpart: euler_tpu/serving/runtime.py).
+
+Loads a checkpoint into the model once, and serves `predict(node_ids) ->
+embeddings`. Every request is padded to one of a small menu of batch
+sizes (buckets), so only a few shapes ever run on the device; each row
+of a padded batch depends only on that row's subgraph.
+
+Hot reload: the weights live in one immutable `_Engine` (the model on its
+device); `swap()` builds and warms a NEW engine off the dispatch path,
+then publishes it with one reference assignment. Every predict() grabs
+the engine reference once at entry, so an in-flight request — even a
+chunked one — runs start to finish on one checkpoint.
+"""
+
+from __future__ import annotations
+
+import copy
+import threading
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.dataflow.base import to_device
+from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.params import from_checkpoint_leaves
+from euler_tpu_torch.training.checkpoint import CheckpointStore
+
+DEFAULT_BUCKETS = (8, 32, 128)
+
+
+class _Engine:
+    """One checkpoint's serving state: the model with its weights on the
+    device. Immutable after construction."""
+
+    __slots__ = ("model", "step")
+
+    def __init__(self, model, step):
+        self.model = model
+        self.step = step
+
+
+class InferenceRuntime:
+    """One model + checkpoint + dataflow, served on one device.
+
+    model: a module with `embed(batch)` (its own weights are a template;
+    the engine holds a copy). params: a state_dict (e.g. from
+    `params.from_flax`) that skips the checkpoint restore.
+
+    Not thread-safe by design: `predict` is called from ONE dispatcher
+    thread; direct callers must serialize. `swap` is safe to call from
+    any other thread while the dispatcher runs.
+    """
+
+    def __init__(
+        self,
+        model,
+        flow,
+        model_dir: str | None = None,
+        buckets=DEFAULT_BUCKETS,
+        params=None,
+        device=None,
+    ):
+        self.model = model
+        self.flow = flow
+        self.device = resolve_device(device)
+        self.buckets = tuple(sorted(set(int(b) for b in buckets)))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"bad buckets {buckets!r}")
+        # serializes swap() callers and guards the _model_dir/_engine
+        # publishes; the predict path never takes it
+        self._swap_lock = threading.Lock()
+        with self._swap_lock:
+            self._model_dir = model_dir
+            self._engine = self._build_engine(model_dir, params)
+        self.device_batches = 0
+        self.reloads = 0
+
+    def _build_engine(self, model_dir, params) -> _Engine:
+        step = None
+        if params is None:
+            if model_dir is None:
+                raise ValueError("need model_dir= or params=")
+            ckpt = CheckpointStore(model_dir).load()
+            params = from_checkpoint_leaves(ckpt["params"])
+            step = ckpt["step"]
+        model = copy.deepcopy(self.model)
+        model.load_state_dict(params)
+        return _Engine(model.to(self.device).eval(), step)
+
+    @property
+    def params(self) -> dict:
+        return self._engine.model.state_dict()
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket holding n roots (n > max bucket → max bucket;
+        predict then chunks)."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def warmup(self) -> None:
+        """Run every bucket once, so the first real request pays no
+        kernel build or allocator growth."""
+        eng = self._engine
+        for b in self.buckets:
+            self._predict_bucket(np.ones(b, np.uint64), b, eng)
+
+    def poll_graph_epoch(self) -> bool:
+        """Streaming-mutation handshake. Local in-process graphs swap
+        their store references at publish and need no poll: always False."""
+        return False
+
+    def swap(self, model_dir: str | None = None, params=None, warm: bool = True) -> dict:
+        """Zero-downtime checkpoint hot reload from `model_dir` (default:
+        re-read the current one, picking up a newer complete checkpoint)
+        or from a `params` state_dict. The new engine is built and warmed
+        before the one-assignment publish."""
+        with self._swap_lock:
+            new_dir = model_dir if model_dir is not None else self._model_dir
+            eng = self._build_engine(new_dir, params)
+            warmed = []
+            if warm:
+                for b in self.buckets:
+                    self._predict_bucket(np.ones(b, np.uint64), b, eng)
+                    warmed.append(b)
+            self._model_dir = new_dir
+            self._engine = eng  # atomic publish: the swap itself
+            self.reloads += 1
+            return {
+                "reloaded": True,
+                "reloads": self.reloads,
+                "warmed_buckets": warmed,
+                "model_dir": new_dir,
+                "step": eng.step,
+            }
+
+    def predict(self, node_ids) -> np.ndarray:
+        """Embeddings for `node_ids` ([n, D] float32); pads each chunk to a
+        bucket."""
+        eng = self._engine  # one checkpoint per request, even chunked
+        ids = np.asarray(node_ids, dtype=np.uint64).reshape(-1)
+        if len(ids) == 0:
+            raise ValueError("empty id list")
+        top = self.buckets[-1]
+        if len(ids) <= top:
+            return self._predict_bucket(ids, self.bucket_for(len(ids)), eng)
+        return np.concatenate(
+            [
+                self._predict_bucket(ids[lo : lo + top], top, eng)
+                for lo in range(0, len(ids), top)
+            ]
+        )
+
+    def _predict_bucket(self, ids: np.ndarray, bucket: int, eng: _Engine) -> np.ndarray:
+        batch, n = self.flow.query_padded(ids, bucket)
+        batch = to_device(batch, self.device)
+        with torch.inference_mode():
+            emb = eng.model.embed(batch)[:n].cpu().numpy()
+        self.device_batches += 1
+        return emb

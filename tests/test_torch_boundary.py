@@ -1,0 +1,121 @@
+"""The PyTorch port stands alone: importing euler_tpu_torch and every one
+of its modules loads nothing of JAX or of the JAX package, no source of
+the port (or chip_smoke.py) imports them, and no `except` silences a
+kernel build or launch."""
+
+import ast
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "euler_tpu_torch")
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu"}
+# calls that build or launch a kernel: by last name, or qualified
+KERNEL_CALLS = {"build_all", "_launch", "gather_weighted_sum", "_lib", "_build.load"}
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for dirpath, dirnames, files in os.walk(PKG):
+        dirnames[:] = sorted(d for d in dirnames if not d.startswith(("_build", "__")))
+        out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
+    return out
+
+
+def _forbidden_imports(tree) -> list:
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad += [n for n in names if n.split(".")[0] in FORBIDDEN]
+    return bad
+
+
+def _called_names(nodes) -> set:
+    """Each call's last name and, for `a.b(...)`, its qualified name."""
+    names = set()
+    for n in nodes:
+        for c in ast.walk(n):
+            if not isinstance(c, ast.Call):
+                continue
+            f = c.func
+            if isinstance(f, ast.Attribute):
+                names.add(f.attr)
+                if isinstance(f.value, ast.Name):
+                    names.add(f"{f.value.id}.{f.attr}")
+            elif isinstance(f, ast.Name):
+                names.add(f.id)
+    return names
+
+
+def _silencing_handlers(tree, strict: bool) -> list:
+    """Lines of `except` handlers that do not re-raise: in a kernel module
+    (strict) any of them; elsewhere those guarding a kernel build or
+    launch."""
+    bad = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Try):
+            continue
+        guards_kernel = bool(_called_names(node.body) & KERNEL_CALLS)
+        for h in node.handlers:
+            raises = any(isinstance(c, ast.Raise) for b in h.body for c in ast.walk(b))
+            if (strict or guards_kernel) and not raises:
+                bad.append(h.lineno)
+    return bad
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import importlib, json, pkgutil, sys\n"
+        "import euler_tpu_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages("
+        "euler_tpu_torch.__path__, 'euler_tpu_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "print(json.dumps({'mods': mods, 'loaded': sorted(sys.modules)}))\n"
+    )
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "euler_tpu_torch.serving.runtime" in res["mods"]
+    assert "euler_tpu_torch.ops.gather_weighted_sum" in res["mods"]
+    leaked = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
+    assert not leaked, leaked
+
+
+@pytest.mark.parametrize(
+    "path", _sources(), ids=lambda p: os.path.relpath(p, ROOT)
+)
+def test_source_stands_alone(path):
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read(), path)
+    assert not _forbidden_imports(tree)
+    rel = os.path.relpath(path, ROOT)
+    strict = rel == "chip_smoke.py" or rel.startswith(os.path.join("euler_tpu_torch", "ops"))
+    assert not _silencing_handlers(tree, strict), f"{rel}: except without raise"
+
+
+def test_scanner_flags_what_it_should():
+    tree = ast.parse(
+        "import jax.numpy as jnp\n"
+        "from euler_tpu.ops import gather\n"
+        "try:\n    out = gather_weighted_sum(x, s, w)\n"
+        "except RuntimeError:\n    out = ref(x, s, w)\n"
+        "try:\n    lib = _build.load('k')\n"
+        "except OSError as e:\n    raise RuntimeError('no kernel') from e\n"
+        "try:\n    v = int(s)\nexcept ValueError:\n    v = 0\n"
+    )
+    assert _forbidden_imports(tree) == ["jax.numpy", "euler_tpu.ops"]
+    assert _silencing_handlers(tree, strict=False) == [5]
+    assert _silencing_handlers(tree, strict=True) == [5, 13]

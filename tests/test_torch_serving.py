@@ -1,0 +1,135 @@
+"""euler_tpu_torch InferenceRuntime against the JAX package's: the port
+restores a checkpoint written by the JAX CheckpointStore, the JAX runtime
+serves the same flax params, and both answer the same requests."""
+
+import os
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from euler_tpu.dataflow import SageDataFlow as JaxSageDataFlow
+from euler_tpu.estimator import EstimatorConfig
+from euler_tpu.graph import Graph as JaxGraph
+from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGE
+from euler_tpu.serving.runtime import InferenceRuntime as JaxInferenceRuntime
+from euler_tpu.training.checkpoint import CheckpointStore as JaxCheckpointStore
+from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.graph import write_arrays
+from euler_tpu_torch.params import from_checkpoint_leaves, from_flax
+from euler_tpu_torch.serving import InferenceRuntime
+from euler_tpu_torch.tools.serve import build_parser, build_runtime
+from euler_tpu_torch.training import CheckpointStore, is_complete, step_of
+
+torch.set_num_threads(1)
+
+FEAT, DIMS, FANOUTS, BUCKETS, SEED = 12, [16, 16], [3, 2], (8, 32), 5
+TOL = 1e-4
+
+
+def _setup(tmp_path):
+    """Graph dir + a JAX-written checkpoint of flax-init params."""
+    data, model_dir = str(tmp_path / "data"), str(tmp_path / "model")
+    g = random_graph(num_nodes=300, out_degree=5, feat_dim=FEAT, seed=2)
+    for p, shard in enumerate(g.shards):
+        write_arrays(os.path.join(data, f"part_{p}"), shard.arrays)
+    g.meta.save(data)
+    jgraph = JaxGraph.load(data, native=False)
+    init_flow = JaxSageDataFlow(jgraph, ["feat"], fanouts=FANOUTS,
+                                label_feature="label",
+                                rng=np.random.default_rng(0))
+    model = JaxGraphSAGE(dims=DIMS, label_dim=2)
+    params = model.init(
+        jax.random.PRNGKey(0), init_flow.query(np.arange(1, 9, dtype=np.uint64))
+    )
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_flatten(params)[0]]
+    JaxCheckpointStore(model_dir).save_leaves(7, leaves, [])
+    args = build_parser().parse_args([
+        "--data", data, "--model-dir", model_dir, "--features", "feat",
+        "--dims", ",".join(map(str, DIMS)), "--label-dim", "2",
+        "--fanouts", ",".join(map(str, FANOUTS)),
+        "--buckets", ",".join(map(str, BUCKETS)), "--seed", str(SEED),
+    ])
+    return jgraph, model, params, leaves, args
+
+
+def test_served_embeddings_match_jax(tmp_path):
+    jgraph, model, params, _, args = _setup(tmp_path)
+    jflow = JaxSageDataFlow(jgraph, ["feat"], fanouts=FANOUTS,
+                            rng=np.random.default_rng(SEED))
+    jrt = JaxInferenceRuntime(
+        model, jflow, EstimatorConfig(model_dir=args.model_dir),
+        buckets=BUCKETS, params=params,
+    )
+    jrt.warmup()
+    prt = build_runtime(args, device="cpu")
+    prt.warmup()
+    assert prt._engine.step == 7
+    # the JAX runtime's probe query and both warmups consumed draws
+    jrt.flow.rng = np.random.default_rng(SEED)
+    prt.flow.rng = np.random.default_rng(SEED)
+    req = np.random.default_rng(1)
+    for n in (3, 8, 20, 150):  # 150 > the top bucket: chunked
+        ids = req.integers(1, 301, size=n).astype(np.uint64)
+        want, got = jrt.predict(ids), prt.predict(ids)
+        assert got.shape == want.shape == (n, DIMS[-1]) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    assert prt.device_batches == jrt.device_batches
+
+
+def test_checkpoint_read_side(tmp_path):
+    _, _, params, leaves, args = _setup(tmp_path)
+    root = args.model_dir
+    os.makedirs(os.path.join(root, "ckpt_000000000011"))  # torn: no COMMIT
+    os.makedirs(os.path.join(root, "ckpt_000000000012.tmp-99"))
+    store = CheckpointStore(root)
+    assert store.steps() == [7] and store.latest_step() == 7
+    assert step_of("ckpt_000000000040") == 40
+    assert step_of("ckpt_000000000012.tmp-99") is None
+    assert not is_complete(os.path.join(root, "ckpt_000000000011"))
+    ckpt = store.load()
+    assert ckpt["step"] == 7 and ckpt["opt_state"] == []
+    for a, b in zip(ckpt["params"], leaves):
+        np.testing.assert_array_equal(a, b)
+    want = from_flax(params)
+    got = from_checkpoint_leaves(ckpt["params"])
+    assert set(got) == set(want)
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0)
+    with pytest.raises(FileNotFoundError):
+        CheckpointStore(str(tmp_path / "nothing")).load()
+    with pytest.raises(ValueError):
+        from_checkpoint_leaves(ckpt["params"][:3])
+
+
+def test_runtime_swap_buckets_and_errors(tmp_path):
+    _, _, params, leaves, args = _setup(tmp_path)
+    rt = build_runtime(args, device="cpu")
+    assert rt.buckets == BUCKETS
+    assert [rt.bucket_for(n) for n in (1, 8, 9, 32, 33)] == [8, 8, 32, 32, 32]
+    assert rt.poll_graph_epoch() is False
+    ids = np.arange(1, 11, dtype=np.uint64)
+
+    def predict():
+        rt.flow.rng = np.random.default_rng(SEED)
+        return rt.predict(ids)
+
+    before = predict()
+    doubled = {k: 2 * v for k, v in rt.params.items()}
+    info = rt.swap(params=doubled)
+    assert info["reloaded"] and info["reloads"] == 1
+    assert info["warmed_buckets"] == list(BUCKETS)
+    assert not np.allclose(predict(), before)
+    # a newer complete checkpoint in model_dir is picked up on swap()
+    JaxCheckpointStore(args.model_dir).save_leaves(9, leaves, [])
+    assert rt.swap()["step"] == 9
+    np.testing.assert_allclose(predict(), before, rtol=TOL, atol=TOL)
+    with pytest.raises(ValueError):
+        rt.predict([])
+    with pytest.raises(ValueError):
+        InferenceRuntime(rt.model, rt.flow, device="cpu")
+    with pytest.raises(ValueError):
+        InferenceRuntime(rt.model, rt.flow, buckets=(), params=rt.params, device="cpu")
+    with pytest.raises(FileNotFoundError):
+        InferenceRuntime(rt.model, rt.flow, str(tmp_path / "none"), device="cpu")
