@@ -8,9 +8,14 @@ sm_90a) and nvcc:
 
 Phases, each of which raises (exit code != 0) when it fails:
   1. the card's name and power limit (nvidia-smi), torch and CUDA versions;
-  2. build every CUDA kernel of the port from the sources in the checkout;
-  3. hold each kernel against its plain PyTorch version on the card
-     (rtol = atol = 1e-5);
+  2. build every CUDA library of the port from the sources in the
+     checkout, one nvcc per source, all started together;
+  3. hold each kernel against its plain PyTorch version on the card:
+     gather_weighted_sum within rtol = atol = 1e-5; paged_gather (int32
+     and f32 planes), paged_gather_dequant and paged_cdf_count bitwise, at
+     W in {1, 1024, 10240, 100000} draws-rows, k in {1, 10}, page sizes
+     {8, 16, 128}, with padding lanes, r = 0 and r = 0xFFFFFFFF, the first
+     and last elements and odd and even bf16 halves;
   4. serve supervised GraphSAGE at full width — random_graph with 200 000
      nodes, out-degree 10, 64-wide f32 features; fanouts 10,10; dims
      128,128; buckets 8,32,128 — through `tools.serve.build_runtime` and
@@ -19,10 +24,24 @@ Phases, each of which raises (exit code != 0) when it fails:
      before, show the path went through the kernels. The embeddings are
      compared (rtol = atol = 1e-4) with kernel mode 'ref' on the card and
      with the port on the CPU, from fresh flows with the same seeds;
-  5. timings: median predict latency per bucket, and each kernel against
-     its plain version and the one PyTorch call computing the same
-     function, at the shapes one bucket-128 predict launches, beside the
-     card's bound for that work.
+     then the median predict latency per bucket, the device idle share,
+     and gather_weighted_sum's times at the shapes one bucket-128 predict
+     launches;
+  5. train supervised GraphSAGE at full width on the paged device lane —
+     skewed_weighted_graph with 200 000 nodes (seed 13; degree 8-15, 1 %
+     hubs at 96-159, bf16 weight plane), DeviceSageFlow(fanouts 10,10,
+     batch 1024, layout paged, page size 16), dims 128,128, adam lr 0.01 —
+     through `Estimator.train`: (a) 20 steps in kernel mode 'auto', whose
+     launch counts (reset just before) must grow by 6 paged launches and
+     3 gather_weighted_sum launches a step, with finite, falling losses;
+     (b) the first 3 steps again in mode 'ref' on the card: bitwise equal
+     batches, losses within 1e-4 relative; (c) 2 steps of the port on the
+     CPU from the same draws: losses within 1e-4; (d) 3 steps with the f32
+     weight plane: bitwise equal batches; (e) `save()`, and the port's
+     InferenceRuntime serves that checkpoint. Then the median step time,
+     the device idle share over 10 profiled steps, and each paged
+     kernel's time at the shapes of the two hops against its plain
+     version, `flat[fidx]` (paged_gather) and its bound.
 The line before the last is the `kernels` JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -52,6 +71,17 @@ DIMS, FANOUTS, BUCKETS = "128,128", "10,10", "8,32,128"
 REQUEST_SIZES = (1, 8, 16, 32, 100, 128, 300)
 KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-4
+
+# the training cell: bench.py's paged lane (`_paged_device_ab`, the graph
+# of `_skewed_weighted_graph`) at the headline training shape
+TRAIN_NODES, TRAIN_GRAPH_SEED, TRAIN_FEAT = 200_000, 13, 16
+TRAIN_BATCH, TRAIN_FANOUTS, TRAIN_DIMS, PAGE_SIZE = 1024, [10, 10], [128, 128], 16
+TRAIN_STEPS, REF_STEPS, CPU_STEPS, F32_STEPS = 20, 3, 2, 3
+TIMED_STEPS, PROFILED_STEPS = 15, 10
+TRAIN_TOL = 1e-4
+PAGED_KERNELS = ("paged_gather", "paged_gather_dequant", "paged_cdf_count")
+# one DRAM sector: the least a gather of one 4-byte word moves
+SECTOR_BYTES = 32
 
 
 def _card_line() -> str:
@@ -271,18 +301,24 @@ def _time_ms(torch, fn, sets, iters: int) -> dict:
             "loop_ms": loop_ms, "device_kernels": sorted(k[:60] for k in kernels)}
 
 
-def time_kernels(torch, gen, b: int = 128) -> list:
-    """The three launches of one bucket-b predict: layer 0 on hops 0 and
-    1 (F = 64) and layer 1 on hop 0 (F = 128), D = 10 slots in the grid
-    layout (slot = row * D + j), as the served path gives them."""
+def gws_shapes(b: int, f0: int) -> tuple:
+    """The three gather_weighted_sum launches of one batch of b roots at
+    fanouts 10,10: layer 0 on hops 0 and 1 (F = f0) and layer 1 on hop 0
+    (F = 128), D = 10 slots in the grid layout (slot = row * D + j)."""
+    return (("layer0 hop0", b, 10, f0), ("layer0 hop1", 10 * b, 10, f0),
+            ("layer1 hop0", b, 10, 128))
+
+
+def time_kernels(torch, gen, shapes, what: str) -> list:
+    """gather_weighted_sum, its plain version and embedding_bag at
+    `shapes` (gws_shapes), inputs cycled past the L2."""
     import torch.nn.functional as F
 
     from euler_tpu_torch.ops import gather_weighted_sum, gather_weighted_sum_ref
 
     dev = torch.device("cuda")
     rows = []
-    for label, n, d, f in (("layer0 hop0", b, 10, 64), ("layer0 hop1", 10 * b, 10, 64),
-                           ("layer1 hop0", b, 10, 128)):
+    for label, n, d, f in shapes:
         n_src = n * d
         set_bytes = n_src * f * 4 + n * d * 8 + n * f * 4
         copies = min(512, max(2, math.ceil(2 * L2_BYTES / set_bytes)))
@@ -321,7 +357,7 @@ def time_kernels(torch, gen, b: int = 128) -> list:
                      "iters": iters})
         del sets
     _emit({"phase": "kernel_timing", "kernel": "gather_weighted_sum",
-           "bucket": b, "shapes": rows})
+           "what": what, "shapes": rows})
     return rows
 
 
@@ -351,6 +387,423 @@ def profile_predict(torch, rt, req_rng, reps: int = 20) -> dict:
            "top_device_us_per_predict": {k: v / reps for k, v in top}}
     _emit(res)
     return res
+
+
+def _u32_as_i32(torch, t):
+    """int64 values in [0, 2^32) → int32 tensor of the same bits."""
+    return torch.where(t >= 2**31, t - 2**32, t).to(torch.int32)
+
+
+def _mismatch(torch, a, b) -> tuple[int, float]:
+    """(elements whose bits differ, max abs difference of their integer
+    bit patterns) between two tensors of 4-byte elements."""
+    ai, bi = a.view(torch.int32).long(), b.view(torch.int32).long()
+    diff = ai != bi
+    n = int(diff.sum())
+    return n, float((ai - bi).abs().max()) if n else 0.0
+
+
+def check_paged_kernels(torch, gen) -> dict:
+    """Phase 3, paged: each paged kernel bitwise against its plain
+    version on the card."""
+    from euler_tpu_torch.ops import (
+        as_lane_rows, paged_cdf_count, paged_cdf_count_ref, paged_gather,
+        paged_gather_dequant, paged_gather_dequant_ref, paged_gather_ref,
+    )
+
+    dev = torch.device("cuda")
+    n_elems = 1 << 22  # a 16 MB plane
+    planes = {
+        "int32": as_lane_rows(torch.randint(-(2**31), 2**31, (n_elems,), dtype=torch.int32,
+                                            generator=gen, device=dev)),
+        "f32": as_lane_rows(torch.randn(n_elems, generator=gen, device=dev)),
+    }
+    cases, failed, worst = 0, [], 0.0
+
+    def one(name, label, got, want):
+        nonlocal cases, worst
+        torch.cuda.synchronize()
+        cases += 1
+        n, err = _mismatch(torch, got, want)
+        worst = max(worst, err)
+        if n or got.shape != want.shape or got.dtype != want.dtype:
+            failed.append({"kernel": name, "case": label, "mismatches": n})
+
+    for w in (1, 1024, 10240, 100000):
+        for k in (1, 10):
+            shape = (w, k)
+            fidx = torch.randint(0, n_elems, shape, dtype=torch.int32, generator=gen, device=dev)
+            fidx.view(-1)[0] = 0
+            fidx.view(-1)[-1] = n_elems - 1
+            if w * k > 2:
+                fidx.view(-1)[1] = 2**31 - 1  # out of range: clamped
+            for plane, table in planes.items():
+                one("paged_gather", f"{plane} W={w} k={k}",
+                    paged_gather(table, fidx, "cuda"), paged_gather_ref(table, fidx))
+            # logical bf16 indices over the int32 plane read as packed words
+            lidx = torch.randint(0, 2 * n_elems, shape, dtype=torch.int32, generator=gen, device=dev)
+            lidx.view(-1)[0] = 0
+            lidx.view(-1)[-1] = 2 * n_elems - 1
+            if w * k > 2:
+                lidx.view(-1)[1] = 1
+            one("paged_gather_dequant", f"W={w} k={k}",
+                paged_gather_dequant(planes["int32"], lidx, "cuda"),
+                paged_gather_dequant_ref(planes["int32"], lidx))
+            for p in (8, 16, 128):
+                pages = n_elems // p
+                # each page a sorted CDF of u32 values with padding lanes
+                # (0xFFFFFFFF) after a random degree
+                q = torch.randint(0, 2**32 - 1, (pages, p), dtype=torch.int64,
+                                  generator=gen, device=dev).sort(dim=1).values
+                deg = torch.randint(1, p + 1, (pages, 1), generator=gen, device=dev)
+                q = torch.where(torch.arange(p, device=dev) < deg, q, 2**32 - 1)
+                q2d = as_lane_rows(_u32_as_i32(torch, q))
+                page = torch.randint(0, pages, shape, dtype=torch.int32, generator=gen, device=dev)
+                page.view(-1)[-1] = pages - 1
+                r = torch.randint(-(2**31), 2**31, shape, dtype=torch.int32, generator=gen, device=dev)
+                r.view(-1)[0] = 0
+                r.view(-1)[-1] = -1  # 0xFFFFFFFF: every lane counts
+                one("paged_cdf_count", f"W={w} k={k} P={p}",
+                    paged_cdf_count(q2d, page, r, p, "cuda"),
+                    paged_cdf_count_ref(q2d, page, r, p))
+    del planes
+    torch.cuda.empty_cache()
+    res = {"phase": "kernel_check", "kernel": list(PAGED_KERNELS), "cases": cases,
+           "check": "bitwise", "max_abs_err": worst, "failed": failed}
+    _emit(res)
+    if failed:
+        raise AssertionError(f"paged kernels disagree with their plain versions: {failed}")
+    return res
+
+
+class _Tap:
+    """Keeps copies of what a flow's draw_inputs and fanout_batch return
+    for their next `n` calls, by wrapping the instance's methods; they
+    launch no kernel of their own."""
+
+    def __init__(self, flow, n: int):
+        self.flow, self.draws, self.batches = flow, [], []
+        draw_inputs, fanout_batch = flow.draw_inputs, flow.fanout_batch
+
+        def tap_draws(gen):
+            out = draw_inputs(gen)
+            if len(self.draws) < n:
+                self.draws.append((out[0].clone(), tuple(d.clone() for d in out[1])))
+            return out
+
+        def tap_batch(roots, hop_draws):
+            out = fanout_batch(roots, hop_draws)
+            if len(self.batches) < n:
+                self.batches.append(out)
+            return out
+
+        flow.draw_inputs, flow.fanout_batch = tap_draws, tap_batch
+
+    def close(self):
+        del self.flow.draw_inputs, self.flow.fanout_batch
+
+
+def _batch_tensors(b) -> dict:
+    out = {f"feats[{i}]": f for i, f in enumerate(b.feats)}
+    out["root_idx"] = b.root_idx
+    out["labels"] = b.labels.float()  # the label table follows the page dtype
+    for i, blk in enumerate(b.blocks):
+        out[f"blocks[{i}].edge_w"] = blk.edge_w
+    return out
+
+
+def _assert_same_batches(torch, got, want, what: str) -> int:
+    """Bitwise equality of lean batches (bf16 weights by their bits)."""
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches against {len(want)}")
+    for step, (a, b) in enumerate(zip(got, want)):
+        ta, tb = _batch_tensors(a), _batch_tensors(b)
+        for key in ta:
+            x, y = ta[key].cpu(), tb[key].cpu()
+            if x.dtype == torch.bfloat16:
+                x, y = x.view(torch.int16), y.view(torch.int16)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{what}: step {step} {key} differs")
+    return len(got)
+
+
+def _assert_close(got, want, what: str) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
+    if got.shape != want.shape or not err <= TRAIN_TOL:
+        raise AssertionError(f"{what}: losses {got.tolist()} against {want.tolist()}")
+    return err
+
+
+def train(torch, tmp: str, seed: int) -> dict:
+    """Phase 5: the training path on the paged device lane, at full width."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import DeviceSageFlow, SageDataFlow
+    from euler_tpu_torch.datasets import skewed_weighted_graph
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+    from euler_tpu_torch.serving import InferenceRuntime
+
+    t0 = time.perf_counter()
+    g = skewed_weighted_graph(TRAIN_NODES, TRAIN_GRAPH_SEED)
+    edges = int(g.shards[0].adj[0].indptr[-1])
+    graph_s = time.perf_counter() - t0
+    prev_dtype = os.environ.get("EULER_TPU_PAGE_DTYPE")
+
+    def lane(plane: str, device: str):
+        """Flow + feature cache staged under EULER_TPU_PAGE_DTYPE=plane."""
+        os.environ["EULER_TPU_PAGE_DTYPE"] = plane
+        t = time.perf_counter()
+        flow = DeviceSageFlow(g, fanouts=TRAIN_FANOUTS, batch_size=TRAIN_BATCH,
+                              label_feature="label", layout="paged", page_size=PAGE_SIZE,
+                              device=device)
+        cache = DeviceFeatureCache(g, ["feat"], device=device)
+        return flow, cache, time.perf_counter() - t
+
+    def estimator(flow, cache, device: str, name: str):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
+                              optimizer="adam", log_steps=10**9, seed=seed)
+        model = GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2)
+        return Estimator(model, flow, cfg, feature_cache=cache, device=device)
+
+    def run(est, steps: int, mode: str):
+        """`steps` optimizer steps in kernel mode `mode`, launch counts
+        reset just before and read just after."""
+        ops.set_kernel_mode(mode)
+        ops.reset_launch_counts()
+        try:
+            t = time.perf_counter()
+            losses = est.train(steps, log=False, save=False)
+            torch.cuda.synchronize()
+            return losses, ops.launch_counts(), time.perf_counter() - t
+        finally:
+            ops.set_kernel_mode("auto")
+
+    try:
+        # (a) the main path: bf16 weight plane, kernel mode auto
+        flow, cache, stage_s = lane("bf16", "cuda")
+        if not flow._page_w_packed:
+            raise AssertionError("the bf16 run did not stage a packed weight plane")
+        est = estimator(flow, cache, "cuda", "main")
+        tap = _Tap(flow, REF_STEPS)
+        losses, launches, main_s = run(est, TRAIN_STEPS, "auto")
+        tap.close()
+        want = {"paged_gather": 2, "paged_gather_dequant": 2, "paged_cdf_count": 2,
+                "gather_weighted_sum": 3}
+        for name, per_step in want.items():
+            if launches[name] != per_step * TRAIN_STEPS:
+                raise AssertionError(
+                    f"train path launched {name} {launches[name]} times in "
+                    f"{TRAIN_STEPS} steps, expected {per_step} a step"
+                )
+        if not np.isfinite(losses).all() or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+            raise AssertionError(f"losses not finite and falling: {losses}")
+
+        # (b) mode ref on the card: the plain versions, no kernel launch
+        est_ref = estimator(flow, cache, "cuda", "ref")
+        tap_ref = _Tap(flow, REF_STEPS)
+        losses_ref, launches_ref, _ = run(est_ref, REF_STEPS, "ref")
+        tap_ref.close()
+        if any(launches_ref.values()):
+            raise AssertionError(f"mode ref launched kernels: {launches_ref}")
+        same_ref = _assert_same_batches(torch, tap_ref.batches, tap.batches, "auto vs ref")
+        err_ref = _assert_close(losses_ref, losses[:REF_STEPS], "auto vs ref")
+
+        # (c) the port on the CPU, from the same draws
+        flow_cpu, cache_cpu, _ = lane("bf16", "cpu")
+        draws = iter([(r.cpu(), tuple(d.cpu() for d in ds)) for r, ds in tap.draws])
+        flow_cpu.draw_inputs = lambda gen: next(draws)
+        est_cpu = estimator(flow_cpu, cache_cpu, "cpu", "cpu")
+        tap_cpu = _Tap(flow_cpu, CPU_STEPS)
+        losses_cpu = est_cpu.train(CPU_STEPS, log=False, save=False)
+        tap_cpu.close()
+        same_cpu = _assert_same_batches(torch, tap_cpu.batches, tap.batches[:CPU_STEPS],
+                                        "card vs CPU")
+        err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], "card vs CPU")
+        del flow_cpu, cache_cpu, est_cpu
+
+        # (d) the f32 weight plane: paged_gather also reads the weights
+        flow_f32, cache_f32, _ = lane("f32", "cuda")
+        est_f32 = estimator(flow_f32, cache_f32, "cuda", "f32")
+        tap_f32 = _Tap(flow_f32, F32_STEPS)
+        losses_f32, launches_f32, _ = run(est_f32, F32_STEPS, "auto")
+        tap_f32.close()
+        if launches_f32["paged_gather"] != 4 * F32_STEPS or launches_f32["paged_gather_dequant"]:
+            raise AssertionError(f"f32 plane launches: {launches_f32}")
+        same_f32 = _assert_same_batches(torch, tap_f32.batches, tap.batches[:F32_STEPS],
+                                        "bf16 vs f32 plane")
+        del flow_f32, cache_f32, est_f32
+
+        # (e) the checkpoint, served by the port
+        path = est.save()
+        host_flow = SageDataFlow(g, ["feat"], fanouts=TRAIN_FANOUTS,
+                                 rng=np.random.default_rng(seed))
+        rt = InferenceRuntime(GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2), host_flow,
+                              model_dir=est.cfg.model_dir, device="cuda")
+        for k, v in est.model.state_dict().items():
+            if not torch.equal(rt.params[k], v):
+                raise AssertionError(f"served checkpoint differs from the trained {k}")
+        emb = rt.predict(np.arange(1, 301, dtype=np.uint64))
+        if emb.shape != (300, TRAIN_DIMS[-1]) or not np.isfinite(emb).all():
+            raise AssertionError(f"bad served embeddings {emb.shape}")
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev_dtype
+
+    res = {"phase": "train", "nodes": TRAIN_NODES, "edges": edges,
+           "pages": int(flow.page_start[-1]), "max_pages": flow.max_pages,
+           "batch": TRAIN_BATCH, "fanouts": TRAIN_FANOUTS, "dims": TRAIN_DIMS,
+           "steps": TRAIN_STEPS, "losses": losses, "launches": launches,
+           "launches_f32_plane": launches_f32,
+           "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref, "max_rel_err": err_ref},
+           "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu, "max_rel_err": err_cpu},
+           "f32_plane": {"batches_equal": same_f32, "losses": losses_f32},
+           "checkpoint": os.path.basename(path), "served": list(emb.shape),
+           "graph_s": graph_s, "stage_s": stage_s, "main_run_s": main_s,
+           "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"estimator": est, "flow": flow, "launches": launches, "result": res}
+
+
+def time_train_steps(torch, est, card: str) -> dict:
+    """Median step time (host clock, each step ends synchronised: train()
+    brings its losses to the host), then the device busy share over
+    PROFILED_STEPS back-to-back steps and the top device ops."""
+    from torch.profiler import ProfilerActivity, profile
+
+    est.train(2, log=False, save=False)
+    times = []
+    for _ in range(TIMED_STEPS):
+        t = time.perf_counter()
+        est.train(1, log=False, save=False)
+        times.append((time.perf_counter() - t) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        est.train(PROFILED_STEPS, log=False, save=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    dev = _device_times(prof)
+    busy_ms = sum(dev.values()) / 1e3
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    res = {"phase": "train_timing", "card": card, "median_step_ms": statistics.median(times),
+           "min_step_ms": min(times), "max_step_ms": max(times), "steps": TIMED_STEPS,
+           "profiled_steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms / PROFILED_STEPS,
+           "device_ms_per_step": busy_ms / PROFILED_STEPS,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
+    _emit(res)
+    return res
+
+
+def _paged_calls(flow, gen) -> list:
+    """(kernel name, args) of each paged op one flow.sample makes, in order
+    (per hop: count, neighbour gather, weight gather)."""
+    import euler_tpu_torch.dataflow.device as device_mod
+
+    calls = []
+    saved = {name: getattr(device_mod, name) for name in PAGED_KERNELS}
+
+    def wrap(name):
+        def inner(*args, **kw):
+            calls.append((name, args))
+            return saved[name](*args, **kw)
+        return inner
+
+    try:
+        for name in saved:
+            setattr(device_mod, name, wrap(name))
+        flow.sample(gen)
+    finally:
+        for name, fn in saved.items():
+            setattr(device_mod, name, fn)
+    return calls
+
+
+def _sectors(torch, word_idx, words_per_item: int = 1) -> int:
+    """Distinct 32-byte sectors that reading `words_per_item` consecutive
+    4-byte words from each index touches."""
+    per = SECTOR_BYTES // 4
+    first = word_idx.long().reshape(-1) // per
+    span = max(1, -(-words_per_item // per))
+    return int(torch.unique(first[:, None] + torch.arange(span, device=first.device)).numel())
+
+
+def time_paged_kernels(torch, flow, gen, card: str) -> list:
+    """Each paged kernel at the two hops' shapes of one train step, with
+    the main path's own inputs (captured from one sample), the tables
+    cycled through copies past the L2 as the step finds them in device
+    memory; beside its plain version, `flat[fidx]` for paged_gather, and
+    the bound: distinct sectors read (each input byte read once at the
+    card's 32-byte granularity) plus the index, random and output words,
+    over 3.35 TB/s. `warm_ms` repeats one input set, its table left in
+    the L2, which the step's three planes (~34 MB) can fit."""
+    from euler_tpu_torch.ops import (
+        paged_cdf_count, paged_cdf_count_ref, paged_gather, paged_gather_dequant,
+        paged_gather_dequant_ref, paged_gather_ref,
+    )
+
+    calls = _paged_calls(flow, gen)
+    hop_of = {}
+    rows = []
+    for name, args in calls:
+        hop = hop_of[name] = hop_of.get(name, -1) + 1
+        table = args[0]
+        copies = min(16, max(2, math.ceil(2 * L2_BYTES / (table.numel() * 4))))
+        tables = [table] + [table.clone() for _ in range(copies - 1)]
+        if name == "paged_cdf_count":
+            page, r, p = args[1], args[2], args[3]
+            n = page.numel()
+            sets = [(t, page.clone(), r.clone()) for t in tables]
+            kern = lambda t, pg, rb: paged_cdf_count(t, pg, rb, p, "cuda")  # noqa: E731
+            plain = lambda t, pg, rb: paged_cdf_count_ref(t, pg, rb, p)  # noqa: E731
+            lib = None
+            nbytes = _sectors(torch, page.long() * p, p) * SECTOR_BYTES + 3 * 4 * n
+            ops_count = n * p
+            shape = tuple(page.shape)
+        else:
+            fidx = args[1]
+            n = fidx.numel()
+            sets = [(t, fidx.clone()) for t in tables]
+            if name == "paged_gather":
+                kern = lambda t, f: paged_gather(t, f, "cuda")  # noqa: E731
+                plain = paged_gather_ref
+                lib = lambda t, f: t.view(-1)[f]  # noqa: E731
+                words = fidx
+            else:
+                kern = lambda t, f: paged_gather_dequant(t, f, "cuda")  # noqa: E731
+                plain = paged_gather_dequant_ref
+                lib = None
+                words = fidx >> 1
+            nbytes = _sectors(torch, words) * SECTOR_BYTES + 2 * 4 * n
+            ops_count = n
+            shape = tuple(fidx.shape)
+        iters = max(200, 2 * copies)
+        tk = _time_ms(torch, kern, sets, iters)
+        tp = _time_ms(torch, plain, sets, iters)
+        tl = _time_ms(torch, lib, sets, iters) if lib is not None else None
+        warm = _time_ms(torch, kern, sets[:1], iters)
+        if tk["device_ms"] <= 0:
+            raise AssertionError(f"the profiler saw no device time for {name}")
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops_count / F32_FLOPS * 1e3
+        rows.append({"kernel": name, "hop": hop, "shape": shape, "draws": n,
+                     "table_bytes": table.numel() * 4, "input_sets": copies,
+                     "ms": tk["device_ms"], "plain_ms": tp["device_ms"],
+                     "library_ms": tl["device_ms"] if tl else None,
+                     "warm_ms": warm["device_ms"],
+                     "loop_ms": {"kernel": tk["loop_ms"], "plain": tp["loop_ms"],
+                                 "library": tl["loop_ms"] if tl else None},
+                     "device_kernels": {"kernel": tk["device_kernels"],
+                                        "plain": tp["device_kernels"]},
+                     "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "iters": iters})
+        del sets, tables
+    torch.cuda.empty_cache()
+    _emit({"phase": "paged_kernel_timing", "card": card, "shapes": rows})
+    return rows
 
 
 def main(argv=None) -> int:
@@ -392,42 +845,81 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     check = check_kernel(torch, gen)
+    paged_check = check_paged_kernels(torch, gen)
 
-    # 4. the served path
     with tempfile.TemporaryDirectory(prefix="euler_smoke_") as tmp:
+        # 4. the served path, and its timings
         t0 = time.perf_counter()
         write_graph(tmp)
         _emit({"phase": "graph", "nodes": NUM_NODES, "out_degree": OUT_DEGREE,
                "feat_dim": FEAT_DIM, "seconds": time.perf_counter() - t0})
         served = serve(torch, tmp, args.model_dir, args.seed)
-
-        # 5. timings
         latency = time_predict(served["runtime"], served["req_rng"])
         _emit({"phase": "predict_latency", "card": card, "buckets": latency})
         profile_predict(torch, served["runtime"], served["req_rng"])
-    rows = time_kernels(torch, gen)
+        del served["runtime"]
 
-    def total(key):
-        return sum(r[key] for r in rows)
+        # 5. the training path, and its timings
+        trained = train(torch, tmp, args.seed)
+        time_train_steps(torch, trained["estimator"], card)
+        paged_rows = time_paged_kernels(torch, trained["flow"], gen, card)
+    serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
+    train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
 
-    # 6. the kernels line
-    _emit({"kernels": [{
+    def total(rows, key):
+        vals = [r[key] for r in rows]
+        return None if None in vals else sum(vals)
+
+    def bound_by(rows):
+        return "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+
+    # 6. the kernels line: per kernel, the sums over the launches of one
+    # bucket-128 predict (gather_weighted_sum) or one train step (paged)
+    train_launches = trained["launches"]
+    kernels = [{
         "name": "gather_weighted_sum",
         "route": "cuda",
         "source": "euler_tpu_torch/ops/csrc/gather_weighted_sum.cu",
         "replaces": "euler_tpu/ops/pallas_kernels.py:96",
-        "launches": served["launches"],
+        "launches": served["launches"] + train_launches["gather_weighted_sum"],
+        "launches_by_path": {"serve": served["launches"],
+                             "train": train_launches["gather_weighted_sum"]},
         "max_abs_err": check["max_abs_err"],
-        # per bucket-128 predict: the sum over its three launches
-        "ms": total("ms"),
-        "plain_ms": total("plain_ms"),
-        "bound_ms": total("bound_ms"),
-        "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations",
-        "library_ms": total("library_ms"),
+        "ms": total(serve_rows, "ms"),
+        "plain_ms": total(serve_rows, "plain_ms"),
+        "bound_ms": total(serve_rows, "bound_ms"),
+        "bound_by": bound_by(serve_rows),
+        "library_ms": total(serve_rows, "library_ms"),
         "card": card,
         "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "ms", "plain_ms",
-                                      "library_ms", "bound_ms")} for r in rows],
-    }]})
+                                      "library_ms", "bound_ms")} for r in serve_rows],
+        "train_step": {k: total(train_rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                          "bound_ms")},
+    }]
+    sources = {"paged_gather": ("paged_gather.cu", 247),
+               "paged_gather_dequant": ("paged_gather.cu", 356),
+               "paged_cdf_count": ("paged_cdf_count.cu", 436)}
+    for name in PAGED_KERNELS:
+        rows = [r for r in paged_rows if r["kernel"] == name]
+        src, line = sources[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"euler_tpu_torch/ops/csrc/{src}",
+            "replaces": f"euler_tpu/ops/pallas_kernels.py:{line}",
+            "launches": train_launches[name],
+            "max_abs_err": paged_check["max_abs_err"],
+            "check": "bitwise",
+            "ms": total(rows, "ms"),
+            "plain_ms": total(rows, "plain_ms"),
+            "bound_ms": total(rows, "bound_ms"),
+            "bound_by": bound_by(rows),
+            "library_ms": total(rows, "library_ms"),
+            "card": card,
+            "shapes": [{k: r[k] for k in ("hop", "shape", "ms", "warm_ms", "plain_ms",
+                                          "library_ms", "bound_ms")} for r in rows],
+        })
+    _emit({"kernels": kernels})
     # 7. the device
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),

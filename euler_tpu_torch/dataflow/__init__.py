@@ -4,6 +4,8 @@ from euler_tpu_torch.dataflow.base import (  # noqa: F401
     MiniBatch,
     fanout_block,
     gather_unique,
+    hydrate_blocks,
     to_device,
 )
 from euler_tpu_torch.dataflow.sage import SageDataFlow  # noqa: F401
+from euler_tpu_torch.dataflow.device import DeviceGraphTables, DeviceSageFlow  # noqa: F401

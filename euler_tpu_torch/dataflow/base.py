@@ -23,10 +23,12 @@ import torch
 class Block:
     """Edges from a src node table into a dst node table (one hop)."""
 
-    edge_src: np.ndarray | torch.Tensor  # int32[E] rows into the src hop table
-    edge_dst: np.ndarray | torch.Tensor  # int32[E] rows into the dst hop table
-    edge_w: np.ndarray | torch.Tensor  # f32[E] edge weights (0 where masked)
-    mask: np.ndarray | torch.Tensor  # bool[E] valid-edge mask
+    # lean batches of the device flows leave edge_src/edge_dst, mask and
+    # (unweighted) edge_w as None; `hydrate_blocks` rebuilds them
+    edge_src: np.ndarray | torch.Tensor | None  # int32[E] rows into the src hop table
+    edge_dst: np.ndarray | torch.Tensor | None  # int32[E] rows into the dst hop table
+    edge_w: np.ndarray | torch.Tensor | None  # f32[E] (bf16 on lean batches) edge weights
+    mask: np.ndarray | torch.Tensor | None  # bool[E] valid-edge mask
     n_src: int
     n_dst: int
     # >0 when edges are grid-structured (dst row i owns slots
@@ -38,8 +40,9 @@ class Block:
 class MiniBatch:
     """One padded multi-hop subgraph batch.
 
-    feats[i]  — f32[N_i, F] node features of hop i (hop 0 = roots)
-    masks[i]  — bool[N_i] node validity
+    feats[i]  — f32[N_i, F] node features of hop i (hop 0 = roots), or
+                int32[N_i] feature rows on a lean batch (0 = padding)
+    masks[i]  — bool[N_i] node validity (None on a lean batch)
     blocks[i] — edges hop i+1 → hop i  (len == num hops)
     root_idx  — int32[B] root node ids
     labels    — optional f32[B, L] supervised targets
@@ -47,7 +50,7 @@ class MiniBatch:
     """
 
     feats: tuple
-    masks: tuple
+    masks: tuple | None
     blocks: tuple
     root_idx: np.ndarray | torch.Tensor
     labels: np.ndarray | torch.Tensor | None = None
@@ -81,6 +84,47 @@ def to_device(batch: MiniBatch, device) -> MiniBatch:
         labels=None if batch.labels is None else _tensor(batch.labels, device),
         hop_ids=batch.hop_ids,
     )
+
+
+def hydrate_blocks(batch):
+    """Rebuild the pieces a lean batch leaves out, on its device
+    (counterpart: euler_tpu/dataflow/base.py:251-297):
+
+    - batch.masks is None: node validity = rows-mode feat > 0, and hop 0
+      = root_idx != -1;
+    - block.mask is None: the src hop's node mask;
+    - block.edge_w is None: the mask as f32; a bf16 edge_w is upcast;
+    - block.edge_src is None: the grid's iota edge ids.
+    """
+    if not isinstance(batch, MiniBatch):
+        return batch
+    masks = batch.masks
+    if masks is None:
+        masks = tuple(
+            torch.ones(f.shape[0], dtype=torch.bool, device=f.device)
+            if f.is_floating_point()
+            else f > 0
+            for f in batch.feats
+        )
+        masks = (batch.root_idx != -1,) + masks[1:]
+    blocks = []
+    for h, b in enumerate(batch.blocks):
+        if b.mask is None:
+            b = dataclasses.replace(b, mask=masks[h + 1].reshape(-1))
+        if b.edge_w is None:
+            b = dataclasses.replace(b, edge_w=b.mask.float())
+        elif b.edge_w.dtype != torch.float32:
+            b = dataclasses.replace(b, edge_w=b.edge_w.float())
+        if b.edge_src is None:
+            dev = b.mask.device
+            b = dataclasses.replace(
+                b,
+                edge_src=torch.arange(b.n_src, dtype=torch.int32, device=dev),
+                edge_dst=torch.arange(b.n_dst, dtype=torch.int32, device=dev)
+                .repeat_interleave(b.grid),
+            )
+        blocks.append(b)
+    return dataclasses.replace(batch, masks=masks, blocks=tuple(blocks))
 
 
 def gather_unique(ids_list, fetch):

@@ -1,0 +1,469 @@
+"""Device-resident GraphSAGE sampling: the adjacency lives on the card and
+every training step draws its fanout batch there
+(counterpart: euler_tpu/dataflow/device.py:84-154, 211-566, 742-975,
+978-1075).
+
+Staging (once, on the host, numpy) is the JAX package's, step for step,
+so both packages stage the same integers: the compacted neighbour rows
+(row+1 encoding, 0 = padding), the degrees, and for weighted graphs the
+per-row uint32-quantized CDF of the edge weights. Two layouts:
+
+- `layout="dense"`: an [N+1, Dmax] table; `max_degree` guards its width;
+- `layout="paged"`: fixed-size pages (`page_size` slots, dividing 128) in
+  flat buffers viewed as [M, 128] lane rows, plus a per-node page table,
+  so a hub spans ⌈deg/P⌉ pages. Its draws run the paged ops of
+  `ops/paged.py`: the page-boundary search (plain torch), then the
+  hand-written kernels `paged_cdf_count`, `paged_gather` (neighbour and
+  f32 weight planes) and `paged_gather_dequant` (the weight plane packed
+  two bf16 per word when EULER_TPU_PAGE_DTYPE=bf16).
+- `layout="auto"` picks dense while the max degree fits `max_degree` and
+  paged past it.
+
+Both layouts invert the same quantized CDF, so they draw the same
+neighbours from the same random numbers.
+
+Random numbers. The port draws with `torch.Generator` and cannot give
+JAX's threefry bits. A draw is therefore split in two: `draw_inputs`
+makes the root rows and, per hop, the u32 random bits (weighted graphs,
+held as int32 bit patterns) or f32 uniforms (unit weights); the
+deterministic `fanout_batch` turns them into the lean `MiniBatch`. Fed
+the numbers JAX derives from its key, `fanout_batch` gives JAX's batch
+bit for bit (tests/test_torch_device_flow.py).
+
+Not ported yet: `refresh_rows`, `mesh`, remote-shard staging, the typed,
+edge, walk and frontier draws, and the other device flows.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from euler_tpu_torch.dataflow.base import Block, MiniBatch
+from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.distributed.codec import page_dtype
+from euler_tpu_torch.ops import (
+    PAGE_LANES,
+    as_lane_rows,
+    pack_bf16_words,
+    paged_cdf_count,
+    paged_gather,
+    paged_gather_dequant,
+    paged_impl,
+    paged_page_search,
+)
+from euler_tpu_torch.ops.paged import u32
+
+_STAGE_CHUNK = 16384
+# host-side staging temp budget: the chunked get_full_neighbor sweep
+# allocates [chunk, cap] padded arrays — on power-law graphs cap is the
+# hub degree, so the chunk length adapts to keep the temp bounded
+_STAGE_TEMP_BYTES = 64 << 20
+_U32_MAX = np.uint32(0xFFFFFFFF)
+
+
+def _node_table(graph):
+    """(ids u64, weights f64, types i32) for every node, shard-major —
+    the row order of Graph.lookup_rows. Local shards only."""
+    shards = graph.shards
+    if not all(hasattr(s, "node_ids") and hasattr(s, "node_weights") for s in shards):
+        raise ValueError("device flows of the port stage local shards only")
+    return (
+        np.concatenate([np.asarray(s.node_ids) for s in shards]),
+        np.concatenate([np.asarray(s.node_weights, np.float64) for s in shards]),
+        np.concatenate([np.asarray(s.node_types, np.int32) for s in shards]),
+    )
+
+
+def _quantize_rows(wblock: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """Per-row uint32-quantized CDF over the compacted weight block —
+    the ONE quantization both layouts stage, so their draws invert
+    identical integers. Exact f64 cumsum per row; invalid slots and
+    zero-total rows fill 0xFFFFFFFF (never drawn below r == MAX, which
+    the callers' deg-1 clamp absorbs)."""
+    cum = np.cumsum(np.where(valid, wblock, 0.0).astype(np.float64), axis=1)
+    total = cum[:, -1:]
+    safe = np.maximum(total, np.finfo(np.float64).tiny)
+    q = np.floor(cum / safe * np.float64(2**32 - 1))
+    q = q.astype(np.uint64).astype(np.uint32)
+    return np.where(valid & (total > 0), q, _U32_MAX)
+
+
+def _segment_arange(counts: np.ndarray) -> np.ndarray:
+    """[0..c0), [0..c1), ... concatenated (vectorized per-segment iota)."""
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    if total == 0:
+        return np.empty(0, np.int64)
+    ends = np.cumsum(counts)
+    return np.arange(total) - np.repeat(ends - counts, counts)
+
+
+def _compact_block(graph, sub, edge_types, cap: int):
+    """One staging sweep step: the neighbours of `sub` in row+1 space,
+    valid entries compacted to the front, their f32 weights, degrees
+    (0 for zero-strength rows) and whether every weight is 1."""
+    nbr, w, _, mask, _ = graph.get_full_neighbor(sub, edge_types, max_degree=cap)
+    unit = bool(np.all(w[mask] == 1.0))
+    rows = graph.lookup_rows(nbr.ravel()).reshape(nbr.shape)
+    # masked or unknown neighbours collapse to padding
+    blk0 = np.where(mask & (rows >= 0), rows + 1, 0).astype(np.int32)
+    order = np.argsort(blk0 == 0, axis=1, kind="stable")
+    block = np.take_along_axis(blk0, order, axis=1)
+    wblk = np.take_along_axis(np.where(blk0 > 0, w, 0.0).astype(np.float32), order, axis=1)
+    d = (block > 0).sum(axis=1).astype(np.int32)
+    # a positive-degree row whose weights are all zero is unsampleable
+    d[wblk.sum(axis=1, dtype=np.float64) <= 0.0] = 0
+    return block, wblk, d, unit
+
+
+class DeviceGraphTables:
+    """Device-resident graph tables and the draw primitives over them."""
+
+    is_device_flow = True
+
+    def __init__(
+        self,
+        graph,
+        edge_types=None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        layout: str = "auto",
+        page_size: int = 16,
+        device=None,
+    ):
+        """roots_pool: node ids to draw roots from; root_node_type: draw
+        roots of one node type (ignored with a pool); default every node.
+        Root draws are proportional to node weights either way.
+        max_degree guards the dense table's width: a graph past it raises
+        under layout="dense" and stages paged under "auto". page_size
+        must divide 128. The tables go to the CUDA card unless
+        device="cpu"."""
+        self.device = resolve_device(device)
+        ids, wn, nt = _node_table(graph)
+        self._stage_adjacency(graph, ids, edge_types, max_degree, layout, page_size)
+        self._stage_nodes(graph, ids, wn, nt, roots_pool, root_node_type)
+
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    def _put_u32(self, a: np.ndarray) -> torch.Tensor:
+        """uint32 values as an int32 tensor of the same bits."""
+        return self._put(np.ascontiguousarray(a, np.uint32).view(np.int32))
+
+    def _quantize_cdf(self, weights, what: str) -> torch.Tensor:
+        """f64 weights → uint32 CDF values (as int64 on the device);
+        raises on an empty or zero-total distribution."""
+        cum = np.cumsum(np.asarray(weights, dtype=np.float64))
+        if cum.size == 0 or cum[-1] <= 0:
+            raise ValueError(f"{what} weights sum to zero")
+        q = np.floor(cum / cum[-1] * np.float64(2**32 - 1)).astype(np.uint32)
+        return self._put(q.astype(np.int64))
+
+    def _stage_degrees(self, graph, ids, edge_types) -> np.ndarray:
+        degs = np.zeros(len(ids), np.int64)
+        for lo in range(0, len(ids), _STAGE_CHUNK):
+            sub = ids[lo : lo + _STAGE_CHUNK]
+            degs[lo : lo + len(sub)] = graph.degree_sum(sub, edge_types)
+        return degs
+
+    def _stage_adjacency(self, graph, ids, edge_types, max_degree, layout, page_size):
+        if layout not in ("auto", "dense", "paged"):
+            raise ValueError(f"unknown layout {layout!r}")
+        degs = self._stage_degrees(graph, ids, edge_types)
+        dmax = max(int(degs.max(initial=0)), 1)
+        if layout == "auto":
+            layout = "paged" if dmax > max_degree else "dense"
+        if layout == "dense" and dmax > max_degree:
+            raise ValueError(
+                f"graph max degree {dmax} exceeds max_degree={max_degree}; "
+                f"the dense staged adjacency would cost (N+1)*{dmax}*4 "
+                "bytes — use the paged device lane instead "
+                "(layout='paged', or layout='auto' which selects it), "
+                "or raise the cap explicitly after the memory math"
+            )
+        self.layout = layout
+        if layout == "paged":
+            self._stage_paged(graph, ids, degs, edge_types, page_size)
+            return
+        n = len(ids)
+        adj = np.zeros((n + 1, dmax), dtype=np.int32)
+        deg = np.zeros(n + 1, dtype=np.int32)
+        wtab = np.zeros((n + 1, dmax), dtype=np.float32)
+        unit_w = True
+        for lo in range(0, n, _STAGE_CHUNK):
+            sub = ids[lo : lo + _STAGE_CHUNK]
+            block, wblk, d, unit = _compact_block(graph, sub, edge_types, dmax)
+            unit_w = unit_w and unit
+            sl = slice(1 + lo, 1 + lo + len(sub))
+            adj[sl, : block.shape[1]] = block
+            wtab[sl, : block.shape[1]] = wblk
+            deg[sl] = d
+        self.adj = self._put(adj)
+        self.deg = self._put(deg)
+        self.unit_w = unit_w
+        self.wtab = None if unit_w else self._put(wtab)
+        if unit_w:
+            self.qtab = None
+        else:
+            valid = np.arange(dmax)[None, :] < deg[:, None]
+            self.qtab = self._put_u32(_quantize_rows(wtab, valid))
+        self.max_deg = dmax
+
+    def _stage_paged(self, graph, ids, degs, edge_types, page_size: int):
+        """Compacted neighbour entries (the dense compaction's order, so
+        draws land on the same slots) packed into fixed-size pages in
+        flat buffers, with the per-node page table `page_start`."""
+        P = int(page_size)
+        if P <= 0 or PAGE_LANES % P:
+            raise ValueError(f"page_size must divide {PAGE_LANES}; got {P}")
+        n = len(ids)
+        deg = np.zeros(n + 1, dtype=np.int32)
+        unit_w = True
+        vals_p, w_p, q_p = [], [], []
+        lo = 0
+        while lo < n:
+            cap_hint = max(int(degs[lo : lo + _STAGE_CHUNK].max(initial=1)), 1)
+            chunk = max(256, min(_STAGE_CHUNK, _STAGE_TEMP_BYTES // (cap_hint * 8)))
+            sub = ids[lo : lo + chunk]
+            cap = max(int(degs[lo : lo + len(sub)].max(initial=0)), 1)
+            block, wblk, d, unit = _compact_block(graph, sub, edge_types, cap)
+            unit_w = unit_w and unit
+            deg[1 + lo : 1 + lo + len(sub)] = d
+            valid = np.arange(block.shape[1])[None, :] < d[:, None]
+            vals_p.append(block[valid])
+            w_p.append(wblk[valid])
+            q_p.append(_quantize_rows(wblk, valid)[valid])
+            lo += len(sub)
+        npages = -(-deg.astype(np.int64) // P)  # ceil(deg/P); 0 for deg 0
+        ps = np.zeros(n + 2, dtype=np.int64)
+        ps[1:] = np.cumsum(npages)
+        total_pages = max(int(ps[-1]), 1)
+        flat = np.zeros(total_pages * P, dtype=np.int32)
+        flat_w = np.zeros(total_pages * P, dtype=np.float32)
+        flat_q = np.full(total_pages * P, _U32_MAX, dtype=np.uint32)
+        # entries of node r (row+1 space) land at ps[r]*P + [0, deg_r)
+        dest = np.repeat(ps[:-1] * P, deg) + _segment_arange(deg)
+        if len(dest):
+            flat[dest] = np.concatenate(vals_p)
+            flat_w[dest] = np.concatenate(w_p)
+            flat_q[dest] = np.concatenate(q_p)
+        self.pages2d = as_lane_rows(self._put(flat))
+        self.page_start = self._put(ps.astype(np.int32))
+        self.deg = self._put(deg)
+        self.unit_w = unit_w
+        # EULER_TPU_PAGE_DTYPE=bf16 packs the weight plane two bf16 per
+        # word, dequantized in the gather; batches carry bf16 weights
+        # anyway, so the packed and f32 planes give the same batches. P=1
+        # stays unpacked, as in the JAX package.
+        self._page_w_packed = not unit_w and page_dtype() == "bf16" and P % 2 == 0
+        if unit_w:
+            self.page_w2d = self.page_q2d = self.page_bound = None
+        else:
+            w_plane = torch.from_numpy(flat_w)
+            if self._page_w_packed:
+                w_plane = pack_bf16_words(w_plane)
+            self.page_w2d = as_lane_rows(w_plane.to(self.device))
+            self.page_q2d = as_lane_rows(self._put_u32(flat_q))
+            # per-page boundary = the page's last valid CDF value (pads
+            # are U32_MAX, so a plain per-page max is exact)
+            self.page_bound = self._put(
+                flat_q.reshape(total_pages, P).max(axis=1).astype(np.int64)
+            )
+        self.page_size = P
+        # clamp caps for masked draws: a trailing degree-0 node's
+        # page_start equals total_pages, and its gather index must stay
+        # inside the buffers
+        self._page_cap = total_pages - 1
+        self._slot_cap = total_pages * P - 1
+        self.max_pages = int(npages.max(initial=0))
+        # binary-search depth over a node's page range
+        self._search_iters = max(1, int(self.max_pages).bit_length() + 1)
+        self.max_deg = max(int(deg.max(initial=0)), 1)
+        self.adj = self.wtab = self.qtab = None
+
+    def _stage_nodes(self, graph, ids, wn, nt, roots_pool, root_node_type: int):
+        n = len(ids)
+        wn = np.asarray(wn, dtype=np.float64)
+        pool_rows = None
+        if roots_pool is not None:
+            pool_rows = graph.lookup_rows(np.asarray(roots_pool, dtype=np.uint64))
+            if np.any(pool_rows < 0):
+                raise ValueError("roots_pool contains unknown node ids")
+            wn = wn[pool_rows]
+        elif root_node_type >= 0:
+            pool_rows = np.nonzero(np.asarray(nt) == root_node_type)[0].astype(np.int64)
+            if not len(pool_rows):
+                raise ValueError(f"no nodes of type {root_node_type} to sample roots from")
+            wn = wn[pool_rows]
+        self.node_cdf = (
+            self._quantize_cdf(wn, "root node")
+            if wn.size and not np.all(wn == wn[0])
+            else None
+        )
+        # int32 view of the u64 id space; row 0 (padding) maps to -1
+        node_id = np.full(n + 1, -1, dtype=np.int32)
+        node_id[1:] = ids.astype(np.int64).astype(np.int32)
+        self.node_id = self._put(node_id)
+        self.roots = self._put(pool_rows.astype(np.int32) + 1) if pool_rows is not None else None
+        self.num_nodes = n
+
+    # -- draws -----------------------------------------------------------
+
+    def _bits(self, generator, shape) -> torch.Tensor:
+        """Uniform u32 random bits, as int32 bit patterns."""
+        return torch.randint(
+            -(2**31), 2**31, shape, dtype=torch.int32, generator=generator, device=self.device
+        )
+
+    def _draw_roots(self, generator, count: int) -> torch.Tensor:
+        """[count] root rows (row+1 space), weight-proportional."""
+        if self.node_cdf is not None:
+            r = u32(self._bits(generator, (count,)))
+            pick = torch.searchsorted(self.node_cdf, r, right=True)
+            pick = pick.clamp_max(len(self.node_cdf) - 1).to(torch.int32)
+            return self.roots[pick] if self.roots is not None else pick + 1
+        if self.roots is not None:
+            pick = torch.randint(
+                0, len(self.roots), (count,), generator=generator, device=self.device
+            )
+            return self.roots[pick]
+        return torch.randint(
+            1, self.num_nodes + 1, (count,), dtype=torch.int32,
+            generator=generator, device=self.device,
+        )
+
+    def _hop_draw(self, generator, width: int, k: int) -> torch.Tensor:
+        if self.unit_w:
+            return torch.rand((width, k), generator=generator, device=self.device)
+        return self._bits(generator, (width, k))
+
+    def _draw_neighbors(self, cur: torch.Tensor, draw: torch.Tensor):
+        """[W] rows and their [W, k] draws → ([W·k] rows, [W·k] bf16
+        weights or None, [W, k] slot idx). Unit-weight graphs scale the
+        uniforms by the degree (an f32 product, truncated); weighted
+        graphs invert the per-row quantized CDF with the bits. Padding
+        rows (0) yield padding."""
+        if self.layout == "paged":
+            return self._draw_neighbors_paged(cur, draw)
+        deg = self.deg[cur]
+        if self.unit_w:
+            idx = (draw * deg[:, None]).to(torch.int32)
+        else:
+            qrow = u32(self.qtab[cur])  # [W, D]
+            idx = (qrow[:, None, :] <= u32(draw)[:, :, None]).sum(dim=-1, dtype=torch.int32)
+        idx = torch.minimum(idx, (deg[:, None] - 1).clamp_min(0))
+        nbr = torch.where(deg[:, None] > 0, self.adj[cur[:, None].long(), idx.long()], 0)
+        ew = None
+        if not self.unit_w:
+            ew = self.wtab[cur].gather(1, idx.long()).reshape(-1).to(torch.bfloat16)
+        return nbr.reshape(-1), ew, idx
+
+    def _draw_neighbors_paged(self, cur: torch.Tensor, draw: torch.Tensor):
+        """Paged twin of the dense draw: page-boundary search plus in-page
+        count, then the neighbour and weight gathers through the page
+        indirection — the same integers as the dense inversion. The page
+        reads run the kernels of ops/paged.py under the kernel mode."""
+        deg = self.deg[cur]
+        ps = self.page_start[cur]
+        P = self.page_size
+        impl = paged_impl()
+        if self.unit_w:
+            idx = (draw * deg[:, None]).to(torch.int32)
+        else:
+            npages = self.page_start[cur + 1] - ps
+            pg = paged_page_search(self.page_bound, ps, npages, draw, self._search_iters)
+            pgc = torch.minimum(pg, (npages[:, None] - 1).clamp_min(0))
+            page = (ps[:, None] + pgc).clamp_max(self._page_cap)
+            cnt = paged_cdf_count(self.page_q2d, page, draw, P, impl=impl)
+            idx = pgc * P + cnt
+        idx = torch.minimum(idx, (deg[:, None] - 1).clamp_min(0))
+        fidx = (ps[:, None] * P + idx).clamp_max(self._slot_cap)
+        live = deg[:, None] > 0
+        nbr = torch.where(live, paged_gather(self.pages2d, fidx, impl=impl), 0).reshape(-1)
+        ew = None
+        if not self.unit_w:
+            wvals = (
+                paged_gather_dequant(self.page_w2d, fidx, impl=impl)
+                if self._page_w_packed
+                else paged_gather(self.page_w2d, fidx, impl=impl)
+            )
+            ew = torch.where(live, wvals, 0.0).reshape(-1).to(torch.bfloat16)
+        return nbr, ew, idx
+
+
+class DeviceSageFlow(DeviceGraphTables):
+    """Device-resident adjacency + fanout sampling → lean MiniBatch.
+
+    Pass it to an `Estimator`: each step draws with `draw_inputs` from a
+    per-step generator and builds the batch with `fanout_batch`. The lean
+    batch carries int32 feature rows (hydrated by a DeviceFeatureCache),
+    bf16 edge weights on weighted graphs, and no masks or edge ids
+    (`hydrate_blocks` rebuilds them).
+    """
+
+    def __init__(
+        self,
+        graph,
+        fanouts,
+        batch_size: int,
+        label_feature: str | None = None,
+        edge_types=None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        layout: str = "auto",
+        page_size: int = 16,
+        device=None,
+    ):
+        super().__init__(
+            graph, edge_types, max_degree, roots_pool, root_node_type,
+            layout=layout, page_size=page_size, device=device,
+        )
+        self.fanouts = [int(k) for k in fanouts]
+        self.batch_size = int(batch_size)
+        if label_feature is not None:
+            from euler_tpu_torch.estimator.feature_cache import DeviceFeatureCache
+
+            self.label_table = DeviceFeatureCache(graph, [label_feature], device=self.device).table
+        else:
+            self.label_table = None
+
+    def draw_inputs(self, generator: torch.Generator):
+        """One batch's random numbers: ([B] root rows, per hop [W_h, k_h]
+        int32 bits (weighted) or f32 uniforms (unit weights))."""
+        roots = self._draw_roots(generator, self.batch_size)
+        draws, width = [], self.batch_size
+        for k in self.fanouts:
+            draws.append(self._hop_draw(generator, width, k))
+            width *= k
+        return roots, tuple(draws)
+
+    def fanout_batch(self, roots: torch.Tensor, hop_draws) -> MiniBatch:
+        """Deterministic multi-hop fanout from [B] root rows and the hops'
+        draws → lean MiniBatch."""
+        cur = roots
+        feats = [cur]
+        blocks = []
+        width = roots.shape[0]
+        for k, draw in zip(self.fanouts, hop_draws):
+            nbr, ew, _ = self._draw_neighbors(cur, draw)
+            blocks.append(
+                Block(edge_src=None, edge_dst=None, edge_w=ew, mask=None,
+                      n_src=width * k, n_dst=width, grid=k)
+            )
+            feats.append(nbr)
+            cur = nbr
+            width *= k
+        labels = self.label_table[feats[0]] if self.label_table is not None else None
+        return MiniBatch(
+            feats=tuple(feats),
+            masks=None,
+            blocks=tuple(blocks),
+            root_idx=self.node_id[feats[0]],
+            labels=labels,
+        )
+
+    def sample(self, generator: torch.Generator) -> MiniBatch:
+        return self.fanout_batch(*self.draw_inputs(generator))

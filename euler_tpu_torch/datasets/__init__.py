@@ -1,5 +1,6 @@
 from euler_tpu_torch.datasets.synthetic import (  # noqa: F401
     random_graph,
     shard_arrays,
+    skewed_weighted_graph,
     synthetic_meta,
 )

@@ -122,3 +122,43 @@ def random_graph(
         meta.edge_weight_sums.append([float(arrays["edge_weights"].sum())])
         shards.append(GraphStore(meta, arrays, part=p))
     return Graph(meta, shards)
+
+
+def skewed_weighted_graph(num_nodes: int, seed: int) -> Graph:
+    """Power-law-ish weighted digraph, arrays built directly: out-degree
+    8-15, with 1 % hubs at degree 96-159, f32 edge weights in [0.5, 2),
+    16-wide normal features and 2 all-zero label columns — the degree
+    regime the paged device lane exists for (counterpart:
+    bench.py:367-405 `_skewed_weighted_graph`; the same draws in the same
+    order, so a seed gives the same graph)."""
+    rng = np.random.default_rng(seed)
+    n = int(num_nodes)
+    deg = rng.integers(8, 16, n)
+    hubs = rng.choice(n, max(n // 100, 1), replace=False)
+    deg[hubs] = rng.integers(96, 160, len(hubs))
+    ids = np.arange(1, n + 1, dtype=np.uint64)
+    e = int(deg.sum())
+    dst = rng.integers(1, n + 1, size=e).astype(np.uint64)
+    ew = rng.uniform(0.5, 2.0, size=e).astype(np.float32)
+    feat_dim, label_dim = 16, 2
+    meta = synthetic_meta(feat_dim, label_dim, 1)
+    arrays = {
+        "node_ids": ids,
+        "node_types": np.zeros(n, dtype=np.int32),
+        "node_weights": np.ones(n, dtype=np.float32),
+        "edge_src": np.repeat(ids, deg),
+        "edge_dst": dst,
+        "edge_types": np.zeros(e, dtype=np.int32),
+        "edge_weights": ew,
+        "adj_0_indptr": np.r_[0, np.cumsum(deg)].astype(np.int64),
+        "adj_0_dst": dst,
+        "adj_0_w": ew,
+        "adj_0_eidx": np.arange(e, dtype=np.int64),
+        "nf_dense_0": rng.normal(0.0, 1.0, (n, feat_dim)).astype(np.float32),
+        "nf_dense_1": np.zeros((n, label_dim), np.float32),
+        "glabel_indptr": np.zeros(1, dtype=np.int64),
+        "glabel_nodes": np.zeros(0, dtype=np.uint64),
+    }
+    meta.node_weight_sums.append([float(n)])
+    meta.edge_weight_sums.append([float(ew.sum())])
+    return Graph(meta, [GraphStore(meta, arrays, part=0)])

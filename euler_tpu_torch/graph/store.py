@@ -1,9 +1,10 @@
 """In-memory columnar graph shard + multi-shard facade, numpy only
 (counterpart: euler_tpu/graph/store.py).
 
-This is the part of the JAX package's store that the serving path runs:
-id lookup, weighted root and neighbor sampling, the fused multi-hop
-fanout with feature rows, and dense feature reads. The numpy draw order
+This is the part of the JAX package's store that the serving and
+training paths run: id lookup, weighted root and neighbor sampling, the
+fused multi-hop fanout with feature rows, dense feature reads, and the
+full adjacency and degrees the device flows stage. The numpy draw order
 is the JAX package's exactly, so a seed gives the same sample in both
 packages (held by tests/test_torch_graph_flow.py).
 """
@@ -195,6 +196,54 @@ class GraphStore:
         mask = nbr != DEFAULT_ID
         return nbr, w, tt, mask, eidx
 
+    def get_full_neighbor(self, ids, edge_types=None, max_degree=None):
+        """Padded full adjacency in storage order, types concatenated in
+        `edge_types` order (counterpart: store.py:582-643; `sort_by` and
+        in-edges are not ported). Returns (nbr u64[n,D], w f32[n,D],
+        types i32[n,D], mask bool[n,D], eidx i64[n,D])."""
+        ids = np.asarray(ids, dtype=np.uint64)
+        rows = self.lookup(ids)
+        n = len(rows)
+        safe = np.maximum(rows, 0)
+        csrs = self._csrs(edge_types)
+        degs = np.stack([c.degrees(safe) for _, c in csrs], axis=1)  # [n, T]
+        degs[rows < 0] = 0
+        cap = int(degs.sum(axis=1).max(initial=0)) if max_degree is None else int(max_degree)
+        cap = max(cap, 1)
+        nbr = np.full((n, cap), DEFAULT_ID, dtype=np.uint64)
+        w = np.zeros((n, cap), dtype=np.float32)
+        tt = np.full((n, cap), -1, dtype=np.int32)
+        eidx = np.full((n, cap), -1, dtype=np.int64)
+        col = np.zeros(n, dtype=np.int64)
+        for k, (t, c) in enumerate(csrs):
+            d = degs[:, k]
+            present = d > 0
+            if not present.any():
+                continue
+            reps = d[present]
+            r_idx = np.repeat(np.nonzero(present)[0], reps)
+            offs = np.arange(reps.sum()) - np.repeat(np.cumsum(reps) - reps, reps)
+            src_el = np.repeat(c.indptr[safe[present]], reps) + offs
+            dest_col = np.repeat(col[present], reps) + offs
+            keep = dest_col < cap
+            at = (r_idx[keep], dest_col[keep])
+            nbr[at] = c.dst[src_el[keep]]
+            w[at] = c.w[src_el[keep]]
+            tt[at] = t
+            eidx[at] = c.eidx[src_el[keep]]
+            col += d
+        return nbr, w, tt, nbr != DEFAULT_ID, eidx
+
+    def degree_sum(self, ids, edge_types=None) -> np.ndarray:
+        """Total degree per id across the requested edge types (0 if absent)."""
+        rows = self.lookup(ids)
+        safe = np.maximum(rows, 0)
+        total = np.zeros(len(rows), dtype=np.int64)
+        for _, c in self._csrs(edge_types):
+            total += c.degrees(safe)
+        total[rows < 0] = 0
+        return total
+
     def get_dense_feature(self, ids, names: list[str]) -> np.ndarray:
         """[n, sum(dims)] f32; missing nodes → zeros."""
         return self.get_dense_by_rows(self.lookup(ids), names)
@@ -356,6 +405,30 @@ class Graph:
 
     def get_dense_feature(self, ids, names) -> np.ndarray:
         return self._scatter_gather(ids, lambda sh, i: sh.get_dense_feature(i, names))
+
+    def get_full_neighbor(self, ids, edge_types=None, max_degree=None):
+        if max_degree is None:
+            max_degree = int(self.max_degree(ids, edge_types))
+        return self._scatter_gather(
+            ids, lambda sh, i: sh.get_full_neighbor(i, edge_types, max_degree)
+        )
+
+    def degree_sum(self, ids, edge_types=None) -> np.ndarray:
+        return self._scatter_gather(ids, lambda sh, i: sh.degree_sum(i, edge_types))
+
+    def max_degree(self, ids, edge_types=None) -> int:
+        return max(int(np.max(self.degree_sum(ids, edge_types), initial=0)), 1)
+
+    def dense_feature_table(self, names) -> np.ndarray:
+        """f32 [total_nodes, F] dense features of every node, shard-major
+        (the `lookup_rows` order): the host source of a device feature
+        cache."""
+        parts = [
+            sh.get_dense_by_rows(np.arange(sh.num_nodes, dtype=np.int64), names)
+            for sh in self.shards
+            if sh.num_nodes
+        ]
+        return np.concatenate(parts, axis=0) if parts else np.zeros((0, 0), np.float32)
 
     def _shard_row_offsets(self) -> np.ndarray:
         return np.cumsum([0] + [s.num_nodes for s in self.shards])

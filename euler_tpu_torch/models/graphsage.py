@@ -1,8 +1,10 @@
 """GraphSAGE, supervised (counterpart: euler_tpu/models/graphsage.py:24-85).
 
-Serving runs `embed` and the `out` head; the loss and metric come with
-training. Module names follow the flax tree (`net.gnn.convs.<i>`, `out`)
-so `params.from_flax` maps one onto the other path by path.
+Training calls the model: (emb, loss, "f1", micro_f1), the loss being the
+mean over rows of the summed sigmoid cross-entropy, as optax's. Serving
+runs `embed` and the `out` head. Module names follow the flax tree
+(`net.gnn.convs.<i>`, `out`) so `params.from_flax` maps one onto the
+other path by path.
 """
 
 from __future__ import annotations
@@ -12,8 +14,11 @@ from typing import Sequence
 import torch
 from torch import nn
 
+from torch.nn import functional as F
+
 from euler_tpu_torch.dataflow.base import MiniBatch
 from euler_tpu_torch.nn.base_gnn import GNNNet
+from euler_tpu_torch.nn.metrics import micro_f1
 
 
 class _EncodedGNN(nn.Module):
@@ -38,7 +43,11 @@ class GraphSAGESupervised(nn.Module):
     def embed(self, batch: MiniBatch) -> torch.Tensor:
         return self.net(batch)
 
-    def forward(self, batch: MiniBatch) -> tuple[torch.Tensor, torch.Tensor]:
-        """(embeddings, logits)."""
+    def forward(self, batch: MiniBatch):
+        """(embeddings, loss, "f1", micro-F1) over batch.labels."""
         emb = self.embed(batch)
-        return emb, self.out(emb)
+        logits = self.out(emb)
+        labels = batch.labels.float()
+        loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
+        loss = loss.sum(dim=-1).mean()
+        return emb, loss, "f1", micro_f1(labels, logits)

@@ -7,6 +7,8 @@ Kernel modes, read by the layers that have a kernel path:
   'cuda' — the fused path through the CUDA kernels; raises on CPU tensors
   'auto' — the kernels for CUDA tensors, the plain versions for CPU
            tensors (the default)
+The paged sampling ops read the mode through `paged_impl` (counterpart:
+`DeviceGraphTables._kimpl`): 'off' and 'ref' run their plain versions.
 """
 
 from euler_tpu_torch.ops._build import (  # noqa: F401
@@ -18,6 +20,18 @@ from euler_tpu_torch.ops.gather_weighted_sum import (  # noqa: F401
     gather_weighted_sum_ref,
 )
 from euler_tpu_torch.ops.mp_ops import gather, scatter_add  # noqa: F401
+from euler_tpu_torch.ops.paged import (  # noqa: F401
+    PAGE_LANES,
+    as_lane_rows,
+    pack_bf16_words,
+    paged_cdf_count,
+    paged_cdf_count_ref,
+    paged_gather,
+    paged_gather_dequant,
+    paged_gather_dequant_ref,
+    paged_gather_ref,
+    paged_page_search,
+)
 
 KERNEL_MODES = ("off", "ref", "cuda", "auto")
 _KERNEL_MODE = "auto"
@@ -32,3 +46,8 @@ def set_kernel_mode(mode: str) -> None:
 
 def kernel_mode() -> str:
     return _KERNEL_MODE
+
+
+def paged_impl() -> str:
+    """The paged ops' impl under the current kernel mode."""
+    return "ref" if _KERNEL_MODE == "off" else _KERNEL_MODE

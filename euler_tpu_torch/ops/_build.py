@@ -1,7 +1,8 @@
 """Build, load and count the port's CUDA kernels.
 
-Each kernel is one CUDA C++ source under `ops/csrc/` with a plain C
-interface. At first use it is compiled by `nvcc` into a shared library
+Each library is one CUDA C++ source under `ops/csrc/` with a plain C
+interface, holding one or more kernels (`KERNELS` maps each kernel to its
+library). At first use it is compiled by `nvcc` into a shared library
 under `euler_tpu_torch/_build/<name>-<hash>/` and loaded with ctypes; the
 hash covers the source, the nvcc version and the flags, so an edit or a
 new toolkit builds anew. A file lock serialises concurrent builds of one library.
@@ -29,8 +30,20 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(_HERE), "_build")
 
-# kernel name → source under csrc/
-SOURCES = {"gather_weighted_sum": "gather_weighted_sum.cu"}
+# library name → source under csrc/
+SOURCES = {
+    "gather_weighted_sum": "gather_weighted_sum.cu",
+    "paged_gather": "paged_gather.cu",
+    "paged_cdf_count": "paged_cdf_count.cu",
+}
+
+# kernel name → the library that holds it
+KERNELS = {
+    "gather_weighted_sum": "gather_weighted_sum",
+    "paged_gather": "paged_gather",
+    "paged_gather_dequant": "paged_gather",
+    "paged_cdf_count": "paged_cdf_count",
+}
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -38,7 +51,7 @@ NVCC_FLAGS = (
     "-Xptxas", "-v",
 )
 
-LAUNCHES: dict[str, int] = {name: 0 for name in SOURCES}
+LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
@@ -77,7 +90,7 @@ def nvcc_path() -> str:
 
 
 def _paths(name: str, nvcc: str) -> tuple[str, str, str]:
-    """(source, build dir, library) for one kernel."""
+    """(source, build dir, library file) for one library."""
     src = os.path.join(CSRC, SOURCES[name])
     version = subprocess.run(
         [nvcc, "--version"], capture_output=True, text=True, check=True
@@ -96,8 +109,7 @@ def library_path(name: str) -> str:
 
 
 def build_all(names=None) -> dict[str, dict]:
-    """Compile every named kernel (default: all) whose library is not
-    built yet, one nvcc process per source, all started together.
+    """Compile every named library (default: all) that is not built yet, one nvcc process per source, all started together.
     Returns {name: {"seconds", "built", "log"}}; raises RuntimeError
     naming each source that failed to compile."""
     nvcc = nvcc_path()
@@ -153,8 +165,8 @@ def _read(path: str) -> str:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel's shared library, built first if needed; one handle per
-    process."""
+    """The named library (a key of SOURCES), built first if needed; one
+    handle per process."""
     with _LIBS_LOCK:
         lib = _LIBS.get(name)
         if lib is None:

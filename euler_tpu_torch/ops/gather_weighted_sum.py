@@ -1,14 +1,16 @@
 """gather_weighted_sum: out[i] = Σ_j w[i, j] · x[slots[i, j]]
-(counterpart: euler_tpu/ops/pallas_kernels.py:43-159).
+(counterpart: euler_tpu/ops/pallas_kernels.py:43-190).
 
 The fused neighbor gather + weighted reduction of the SAGE-mean grid
-path. On a CUDA tensor it runs the hand-written kernel in
+path. On a CUDA tensor its forward runs the hand-written kernel in
 `csrc/gather_weighted_sum.cu` (see the note there for its design and
 bound); `gather_weighted_sum_ref` is its plain PyTorch version, which
 the CPU runs and the tests and `chip_smoke.py` compare the kernel with.
 
-Serving needs the forward only; the autograd.Function with its own dx
-kernel comes with training.
+Every impl goes through one `torch.autograd.Function` whose backward is
+plain torch, as the JAX package's custom VJP is plain JAX
+(pallas_kernels.py:166-187): dx is an `index_add_` of w·g accumulated in
+f32 and cast to x's dtype, dw the per-slot dot of g with x[slots].
 """
 
 from __future__ import annotations
@@ -43,9 +45,32 @@ def gather_weighted_sum(
         raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
     if impl == "auto":
         impl = "cuda" if x.is_cuda else "ref"
-    if impl == "ref":
-        return gather_weighted_sum_ref(x, slots, w)
-    return _launch(x, slots, w)
+    return _GatherWeightedSum.apply(x, slots, w, impl)
+
+
+class _GatherWeightedSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, slots, w, impl):
+        ctx.save_for_backward(x, slots, w)
+        if impl == "ref":
+            return gather_weighted_sum_ref(x, slots, w)
+        return _launch(x, slots, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, slots, w = ctx.saved_tensors
+        dx = dw = None
+        g = g.float()
+        if ctx.needs_input_grad[0]:
+            contrib = w.float()[:, :, None] * g[:, None, :]  # [N, D, F]
+            dx = (
+                torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+                .index_add_(0, slots.reshape(-1).long(), contrib.reshape(-1, x.shape[1]))
+                .to(x.dtype)
+            )
+        if ctx.needs_input_grad[2]:
+            dw = torch.einsum("nf,ndf->nd", g, x[slots.long()].float()).to(w.dtype)
+        return dx, None, dw, None
 
 
 def _lib():

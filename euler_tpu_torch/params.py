@@ -1,10 +1,13 @@
-"""Weights carried across from the JAX package, and a seeded init.
+"""Weights and optimizer state carried between the packages, and a
+seeded init.
 
 A flax Dense keeps `kernel` [in, out] and `bias` [out]; a torch
 nn.Linear keeps `weight` [out, in] and `bias` [out]. Module paths map
 one to one: `params/net/gnn/convs_<i>/Dense_0/kernel` becomes
 `net.gnn.convs.<i>.linear.weight` (transposed), `params/out/bias` becomes
-`out.bias`.
+`out.bias`. A checkpoint holds the leaves in flax's tree_flatten order
+(sorted keys) and the optimizer state in optax's leaf order, so either
+package restores what the other saved.
 """
 
 from __future__ import annotations
@@ -89,6 +92,100 @@ def from_checkpoint_leaves(leaves) -> dict[str, torch.Tensor]:
             node = node.setdefault(p, {})
         node[path[-1]] = leaf
     return from_flax(tree)
+
+
+def _flax_path(key: str) -> tuple:
+    """The inverse of `_torch_key`: `net.gnn.convs.0.linear.weight` →
+    (net, gnn, convs_0, Dense_0, kernel)."""
+    parts = key.split(".")
+    out, i = [], 0
+    while i < len(parts):
+        if parts[i] == "convs" and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"convs_{parts[i + 1]}")
+            i += 2
+            continue
+        out.append({"linear": "Dense_0", "weight": "kernel"}.get(parts[i], parts[i]))
+        i += 1
+    return tuple(out)
+
+
+def checkpoint_order(keys) -> list[str]:
+    """state_dict keys in the order of their flax leaves."""
+    return [k for _, k in sorted((_flax_path(k), k) for k in keys)]
+
+
+def to_flax_leaf(key: str, t: torch.Tensor) -> np.ndarray:
+    """One state_dict entry (or a tensor shaped like it) as the flax leaf
+    (f32 numpy; Linear weights transposed to kernels)."""
+    a = t.detach().to("cpu", torch.float32).numpy()
+    return np.ascontiguousarray(a.T) if _flax_path(key)[-1] == "kernel" else a.copy()
+
+
+def from_flax_leaf(key: str, leaf) -> torch.Tensor:
+    a = np.array(leaf, dtype=np.float32)
+    return torch.from_numpy(np.ascontiguousarray(a.T) if _flax_path(key)[-1] == "kernel" else a)
+
+
+def to_checkpoint_leaves(state_dict) -> list[np.ndarray]:
+    """The inverse of `from_checkpoint_leaves`: the state_dict as flax
+    param leaves in tree_flatten order."""
+    return [to_flax_leaf(k, state_dict[k]) for k in checkpoint_order(state_dict)]
+
+
+# per optimizer: the torch state slot behind each optax leaf group, in
+# optax's order (adam's int32 `count` leaf leads; sgd has no state)
+OPTAX_SLOTS = {
+    "adam": ("exp_avg", "exp_avg_sq"),
+    "adagrad": ("sum",),
+    "sgd": (),
+    "momentum": ("momentum_buffer",),
+}
+# the value a slot starts from in optax before the first update
+_SLOT_INIT = {"exp_avg": 0.0, "exp_avg_sq": 0.0, "sum": 0.1, "momentum_buffer": 0.0}
+
+
+def optimizer_leaves(name: str, optimizer, named_params: dict) -> list[np.ndarray]:
+    """The torch optimizer's state as optax's leaves for optimizer `name`
+    (adam: count, mu leaves, nu leaves; adagrad: sum of squares;
+    momentum: trace; sgd: none), each group in flax leaf order. Slots not
+    created yet (before the first step) are their optax init values."""
+    keys = checkpoint_order(named_params)
+    leaves = []
+    if name == "adam":
+        st = optimizer.state.get(named_params[keys[0]], {})
+        leaves.append(np.asarray(int(st.get("step", 0)), np.int32))
+    for slot in OPTAX_SLOTS[name]:
+        for k in keys:
+            p = named_params[k]
+            t = optimizer.state.get(p, {}).get(slot)
+            if t is None:
+                t = torch.full_like(p, _SLOT_INIT[slot])
+            leaves.append(to_flax_leaf(k, t))
+    return leaves
+
+
+def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> None:
+    """Set the torch optimizer's state from optax's leaves (the inverse
+    of `optimizer_leaves`)."""
+    keys = checkpoint_order(named_params)
+    leaves = list(leaves)
+    want = (name == "adam") + len(OPTAX_SLOTS[name]) * len(keys)
+    if len(leaves) != want:
+        raise ValueError(
+            f"{name} state needs {want} leaves for {len(keys)} params, got {len(leaves)}"
+        )
+    step = None
+    if name == "adam":
+        step = torch.tensor(float(np.asarray(leaves.pop(0))), dtype=torch.float32)
+    for i, slot in enumerate(OPTAX_SLOTS[name]):
+        for j, k in enumerate(keys):
+            p = named_params[k]
+            st = optimizer.state[p]
+            st[slot] = from_flax_leaf(k, leaves[i * len(keys) + j]).to(p.device)
+            if step is not None:
+                st["step"] = step.clone()
+            elif slot == "sum":
+                st.setdefault("step", torch.tensor(0.0))
 
 
 @torch.no_grad()

@@ -1,23 +1,45 @@
-"""Atomic retained checkpoints, read side
-(counterpart: euler_tpu/training/checkpoint.py).
+"""Atomic retained checkpoints
+(counterpart: euler_tpu/training/checkpoint.py:53-256).
 
 A checkpoint is a step-numbered directory under model_dir,
 `ckpt_<step:012d>/`, holding a tensor dir of the params and optimizer
 leaves (flattened in the JAX tree order), a `meta.json` and, written
 last, a `COMMIT` marker. Only directories whose marker exists and parses
-count, so a reader never sees a torn checkpoint. The port reads what the
-JAX `Estimator.save` wrote; writing comes with the training slice.
+count, so a reader never sees a torn checkpoint.
+
+Write protocol (`save_leaves`): everything lands in
+`ckpt_<step>.tmp-<pid>` first, every file is fsync'd, the COMMIT marker
+goes last, then one `os.replace` publishes the directory and the parent
+is fsync'd; `gc` then keeps the newest `keep` complete checkpoints. The
+two packages read each other's checkpoints.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import time
+
+import numpy as np
 
 from euler_tpu_torch.graph import format as tformat
 
 PREFIX = "ckpt_"
 MARKER = "COMMIT"
+
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    except OSError:
+        pass
+    finally:
+        os.close(fd)
 
 
 def step_of(name: str) -> int | None:
@@ -43,10 +65,11 @@ def is_complete(path: str) -> bool:
 
 
 class CheckpointStore:
-    """The retained checkpoints under one model_dir."""
+    """Keep-N atomic retained checkpoints under one model_dir."""
 
-    def __init__(self, root: str):
+    def __init__(self, root: str, keep: int = 3):
         self.root = os.path.abspath(root)
+        self.keep = max(int(keep), 1)
 
     def _path(self, step: int) -> str:
         return os.path.join(self.root, f"{PREFIX}{int(step):012d}")
@@ -104,3 +127,65 @@ class CheckpointStore:
                 "o", int(meta["num_opt_leaves"]), meta.get("opt_shapes")
             ),
         }
+
+    def save_leaves(self, step: int, params_leaves, opt_leaves, extra_meta: dict | None = None) -> str:
+        """Commit one checkpoint of host numpy leaves atomically; returns
+        the committed path. Re-saving a committed step is a no-op."""
+        final = self._path(step)
+        if os.path.isdir(final) and is_complete(final):
+            return final
+        os.makedirs(self.root, exist_ok=True)
+        tmp = f"{final}.tmp-{os.getpid()}"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        params_leaves = [np.asarray(v) for v in params_leaves]
+        opt_leaves = [np.asarray(v) for v in opt_leaves]
+        arrays = {f"p_{i:05d}": v for i, v in enumerate(params_leaves)}
+        arrays.update({f"o_{i:05d}": v for i, v in enumerate(opt_leaves)})
+        tformat.write_arrays(tmp, arrays, fsync=True)
+        meta = {
+            "version": 1,
+            "step": int(step),
+            "num_params_leaves": len(params_leaves),
+            "num_opt_leaves": len(opt_leaves),
+            "param_shapes": [list(v.shape) for v in params_leaves],
+            "opt_shapes": [list(v.shape) for v in opt_leaves],
+            "ts": time.time(),
+        }
+        meta.update(extra_meta or {})
+        with open(os.path.join(tmp, "meta.json"), "w", encoding="utf-8") as f:
+            json.dump(meta, f)
+            f.flush()
+            os.fsync(f.fileno())
+        # the marker goes LAST: its presence certifies every fsync above
+        with open(os.path.join(tmp, MARKER), "w", encoding="utf-8") as f:
+            json.dump({"step": int(step), "ts": meta["ts"]}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        _fsync_dir(tmp)
+        if os.path.isdir(final):  # an incomplete husk from a dead writer
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        _fsync_dir(self.root)
+        self.gc()
+        return final
+
+    def gc(self) -> list[str]:
+        """Reap stale tmp dirs, torn dirs and all but the newest `keep`
+        complete checkpoints; returns the removed paths."""
+        removed: list[str] = []
+        if not os.path.isdir(self.root):
+            return removed
+        complete = self.steps()
+        drop = set(complete[: -self.keep]) if len(complete) > self.keep else set()
+        for name in sorted(os.listdir(self.root)):
+            path = os.path.join(self.root, name)
+            if name.startswith(PREFIX) and ".tmp-" in name:
+                shutil.rmtree(path, ignore_errors=True)
+                removed.append(path)
+                continue
+            s = step_of(name)
+            if s is not None and (s in drop or not is_complete(path)):
+                shutil.rmtree(path, ignore_errors=True)
+                removed.append(path)
+        return removed

@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing euler_tpu_torch and every one
-of its modules loads nothing of JAX or of the JAX package, no source of
-the port (or chip_smoke.py) imports them, and no `except` silences a
-kernel build or launch."""
+of its modules loads nothing of JAX, of the JAX package or of bench.py,
+no source of the port (or chip_smoke.py) imports them, and no `except`
+silences a kernel build or launch."""
 
 import ast
 import json
@@ -13,9 +13,20 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "euler_tpu_torch")
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu", "bench"}
 # calls that build or launch a kernel: by last name, or qualified
-KERNEL_CALLS = {"build_all", "_launch", "gather_weighted_sum", "_lib", "_build.load"}
+KERNEL_CALLS = {
+    "build_all", "_launch", "_run", "gather_weighted_sum", "paged_gather",
+    "paged_gather_dequant", "paged_cdf_count", "_lib", "_build.load",
+}
+# every module of the slices ported so far
+PORTED = [
+    "euler_tpu_torch.serving.runtime", "euler_tpu_torch.ops.gather_weighted_sum",
+    "euler_tpu_torch.ops.paged", "euler_tpu_torch.dataflow.device",
+    "euler_tpu_torch.distributed.codec", "euler_tpu_torch.estimator.estimator",
+    "euler_tpu_torch.estimator.feature_cache", "euler_tpu_torch.nn.metrics",
+    "euler_tpu_torch.training.checkpoint", "euler_tpu_torch.params",
+]
 
 
 def _sources():
@@ -88,8 +99,7 @@ def test_import_loads_no_jax():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "euler_tpu_torch.serving.runtime" in res["mods"]
-    assert "euler_tpu_torch.ops.gather_weighted_sum" in res["mods"]
+    assert set(PORTED) <= set(res["mods"])
     leaked = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
     assert not leaked, leaked
 
@@ -110,12 +120,13 @@ def test_scanner_flags_what_it_should():
     tree = ast.parse(
         "import jax.numpy as jnp\n"
         "from euler_tpu.ops import gather\n"
+        "import bench\n"
         "try:\n    out = gather_weighted_sum(x, s, w)\n"
         "except RuntimeError:\n    out = ref(x, s, w)\n"
         "try:\n    lib = _build.load('k')\n"
         "except OSError as e:\n    raise RuntimeError('no kernel') from e\n"
         "try:\n    v = int(s)\nexcept ValueError:\n    v = 0\n"
     )
-    assert _forbidden_imports(tree) == ["jax.numpy", "euler_tpu.ops"]
-    assert _silencing_handlers(tree, strict=False) == [5]
-    assert _silencing_handlers(tree, strict=True) == [5, 13]
+    assert _forbidden_imports(tree) == ["jax.numpy", "euler_tpu.ops", "bench"]
+    assert _silencing_handlers(tree, strict=False) == [6]
+    assert _silencing_handlers(tree, strict=True) == [6, 14]

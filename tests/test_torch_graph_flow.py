@@ -97,6 +97,23 @@ def test_dense_features_and_rows(graphs):
     )
 
 
+def test_full_neighbor_degrees_and_feature_table(graphs):
+    """What the device flows stage: padded full adjacency (natural width
+    and capped), degrees, and the whole dense feature table."""
+    jg, pg = graphs
+    ids = np.concatenate(
+        [np.arange(1, 40, dtype=np.uint64), [DEFAULT_ID, np.uint64(10**9)]]
+    )
+    _assert_same(jg.get_full_neighbor(ids), pg.get_full_neighbor(ids))
+    _assert_same(
+        jg.get_full_neighbor(ids, max_degree=3), pg.get_full_neighbor(ids, max_degree=3)
+    )
+    _assert_same(
+        [jg.degree_sum(ids), jg.dense_feature_table(["feat", "label"])],
+        [pg.degree_sum(ids), pg.dense_feature_table(["feat", "label"])],
+    )
+
+
 def _assert_same_batch(jb, pb):
     _assert_same(jb.feats, pb.feats)
     _assert_same(jb.masks, pb.masks)

@@ -118,7 +118,7 @@ def test_gnn_net_and_graphsage_match(port_mode, jax_mode):
     sage = GraphSAGESupervised(FEAT, DIMS, LABEL_DIM)
     sage.load_state_dict(from_flax(tree))
     emb_net = _run_port(port_mode, lambda: net(pb))
-    emb, logits = _run_port(port_mode, lambda: sage(pb))
+    emb, logits = _run_port(port_mode, lambda: (e := sage.embed(pb), sage.out(e)))
     for got, ref in ((emb_net, want_emb), (emb, want_emb), (logits, want_logits)):
         np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
 
