@@ -41,7 +41,25 @@ Phases, each of which raises (exit code != 0) when it fails:
      InferenceRuntime serves that checkpoint. Then the median step time,
      the device idle share over 10 profiled steps, and each paged
      kernel's time at the shapes of the two hops against its plain
-     version, `flat[fidx]` (paged_gather) and its bound.
+     version, `flat[fidx]` (paged_gather) and its bound;
+  6. retrieve at full width — 1 000 000 unique random u64 ids x 128-wide
+     f32 vectors (seeded; 8 vectors copied to 80 rows each, so the
+     queries that are those vectors tie at the k-th place), a `cat`
+     attribute in 0..3, metric cosine, k 32 — written as a checkpoint
+     leaf by `CheckpointStore.save_leaves`, loaded through
+     `EmbeddingCorpus.from_checkpoint` and searched through the
+     `_CorpusEngine` at every bucket (1, 4, 16, 64), unfiltered and
+     filtered by cat in {0, 2}: one paged_topk_score launch per search
+     (counts reset just before); answers bitwise equal to impl 'ref' on
+     the card, to `numpy_topk_oracle` (buckets 1-16 and 4 queries of
+     bucket 64) and to a 2-shard `merge_topk`. Then per bucket the median
+     search latency, the device time split into kernel, selection and
+     copies, the idle share, and the kernel against its plain version,
+     torch.matmul and its bound.
+In phase 3, paged_topk_score is also held bitwise to its plain version
+for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
+{1, 3, 16, 64, 65}, sig12 and raw f32 operands with a padded tail, an
+unaligned table, and 64-bit offsets (2^24 + 3 rows x 128, B = 130).
 The line before the last is the `kernels` JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -82,6 +100,19 @@ TRAIN_TOL = 1e-4
 PAGED_KERNELS = ("paged_gather", "paged_gather_dequant", "paged_cdf_count")
 # one DRAM sector: the least a gather of one 4-byte word moves
 SECTOR_BYTES = 32
+
+# the retrieval cell: one shard of GraphSAGE dims=[128, 128] embeddings,
+# searched as bench.py's retrieval lane searches (cosine, k 32, a `cat`
+# filter), at the width of a real shard
+RETR_ROWS, RETR_DIM, RETR_K, RETR_STEP = 1_000_000, 128, 32, 1
+RETR_BUCKETS = (1, 4, 16, 64)
+RETR_FILTER = [[["cat", "in", [0, 2]]]]
+RETR_HOT, RETR_COPIES = 8, 80
+RETR_ORACLE_BUCKET, RETR_ORACLE_EXTRA = 16, (16, 31, 47, 63)
+RETR_TIMED, RETR_PROFILED, RETR_WARM_ROWS = 20, 10, 65_536
+TOPK_SWEEP_DP = (1, 8, 32, 64, 128, 256)
+TOPK_SWEEP_ROWS = (1, 127, 1001, 100_003)
+TOPK_SWEEP_B = (1, 3, 16, 64, 65)
 
 
 def _card_line() -> str:
@@ -806,6 +837,317 @@ def time_paged_kernels(torch, flow, gen, card: str) -> list:
     return rows
 
 
+def check_topk_kernel(torch, gen) -> dict:
+    """Phase 3, retrieval: paged_topk_score bitwise against its plain
+    version on the card, for sig12 and raw f32 operands."""
+    from euler_tpu_torch.ops import paged_topk_score, paged_topk_score_ref
+    from euler_tpu_torch.ops.paged import as_lane_rows
+
+    dev = torch.device("cuda")
+    cases, failed = 0, []
+
+    def sig12(t):
+        return (t.view(torch.int32) & -4096).view(torch.float32)
+
+    def one(label, got, want):
+        nonlocal cases
+        torch.cuda.synchronize()
+        cases += 1
+        n, _ = _mismatch(torch, got, want)
+        if n or got.shape != want.shape:
+            failed.append({"case": label, "mismatches": n})
+
+    for dp in TOPK_SWEEP_DP:
+        for nrows in TOPK_SWEEP_ROWS:
+            for operands in ("sig12", "f32"):
+                x = torch.randn(nrows * dp + 37, generator=gen, device=dev)  # a padded tail
+                q = torch.randn(max(TOPK_SWEEP_B), dp, generator=gen, device=dev)
+                if operands == "sig12":
+                    x, q = sig12(x), sig12(q)
+                t2d = as_lane_rows(x)
+                for b in TOPK_SWEEP_B:
+                    one(f"dp={dp} nrows={nrows} B={b} {operands}",
+                        paged_topk_score(t2d, q[:b], nrows, dp, "cuda"),
+                        paged_topk_score_ref(t2d, q[:b], nrows, dp))
+    # a table that is not 16-byte aligned: the 4-byte load path at dp = 128
+    x = torch.randn(1000 * 128 + 1, generator=gen, device=dev)[1:]
+    q = torch.randn(5, 128, generator=gen, device=dev)
+    one("dp=128 nrows=1000 B=5 unaligned", paged_topk_score(x, q, 1000, 128, "cuda"),
+        paged_topk_score_ref(x, q, 1000, 128))
+    # 64-bit offsets: nrows * dp and B * nrows pass 2^31; the plain version
+    # scores the last rows only (rows are scored independently)
+    nrows, dp, b, tail = 2**24 + 3, 128, 130, 4099
+    x = torch.randn(nrows * dp, generator=gen, device=dev)
+    q = torch.randn(b, dp, generator=gen, device=dev)
+    got = paged_topk_score(x, q, nrows, dp, "cuda")[:, -tail:].contiguous()
+    one(f"dp={dp} nrows={nrows} B={b} (int64 offsets), last {tail} rows", got,
+        paged_topk_score_ref(x[-tail * dp:], q, tail, dp))
+    del x, q, got
+    torch.cuda.empty_cache()
+    res = {"phase": "kernel_check", "kernel": "paged_topk_score", "cases": cases,
+           "check": "bitwise", "max_abs_err": 0.0 if not failed else None,
+           "dp": list(TOPK_SWEEP_DP), "nrows": list(TOPK_SWEEP_ROWS),
+           "B": list(TOPK_SWEEP_B), "failed": failed}
+    _emit(res)
+    if failed:
+        raise AssertionError(f"paged_topk_score disagrees with its plain version: {failed}")
+    return res
+
+
+def retrieval_data(seed: int) -> dict:
+    """The retrieval cell's corpus and queries, from `seed`: RETR_ROWS
+    unique random u64 ids, RETR_DIM-wide standard normal f32 vectors, a
+    `cat` attribute in 0..3. RETR_HOT vectors are each copied to
+    RETR_COPIES - 1 more random rows, and the first queries of the pool
+    are those vectors, so the top k of those queries ends inside a group
+    of equal scores: ties at the k-th place."""
+    rng = np.random.default_rng(seed + 7)
+    ids = rng.integers(0, 2**64 - 1, size=RETR_ROWS, dtype=np.uint64)
+    if len(np.unique(ids)) != RETR_ROWS:
+        raise AssertionError("the seeded ids are not unique")
+    vectors = rng.standard_normal((RETR_ROWS, RETR_DIM), dtype=np.float32)
+    cat = rng.integers(0, 4, RETR_ROWS).astype(np.int64)
+    rows = rng.choice(RETR_ROWS, size=(RETR_HOT, RETR_COPIES), replace=False)
+    vectors[rows[:, 1:]] = vectors[rows[:, :1]]
+    pool = rng.standard_normal((RETR_BUCKETS[-1], RETR_DIM), dtype=np.float32)
+    pool[:RETR_HOT] = vectors[rows[:, 0]]
+    return {"ids": ids, "vectors": vectors, "cat": cat, "pool": pool}
+
+
+def _oracle_job(job):
+    """One worker's share of the oracle: `numpy_topk_oracle` over the whole
+    corpus, which the worker makes again from the seed, for some queries."""
+    from euler_tpu_torch.retrieval import numpy_topk_oracle
+
+    seed, filtered, rows = job
+    data = retrieval_data(seed)
+    keep = np.isin(data["cat"], [0, 2]) if filtered else None
+    out = numpy_topk_oracle(data["ids"], data["vectors"], data["pool"][rows], RETR_K,
+                            metric="cosine", mask=keep)
+    return {(filtered, row): [a[j] for a in out] for j, row in enumerate(rows)}
+
+
+def _oracle_answers(seed: int, rows: list) -> dict:
+    """{(filtered, query row): the oracle's (ids, scores, valid) rows}, the
+    queries split over one spawned process per core: the oracle's
+    left-to-right NumPy scoring of 1 M rows is seconds per query."""
+    import multiprocessing
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    per = max(1, -(-2 * len(rows) // workers))
+    jobs = [(seed, filtered, rows[i:i + per])
+            for filtered in (0, 1) for i in range(0, len(rows), per)]
+    with multiprocessing.get_context("spawn").Pool(min(workers, len(jobs))) as procs:
+        parts = procs.map(_oracle_job, jobs, chunksize=1)
+    return {key: val for part in parts for key, val in part.items()}
+
+
+def _same_answer(a, b) -> bool:
+    """Bitwise equality of two (ids, scores, valid) answers."""
+    return all(x.shape == y.shape and x.dtype == y.dtype
+               and np.array_equal(x.view(np.uint8), y.view(np.uint8)) for x, y in zip(a, b))
+
+
+def retrieve(torch, tmp: str, seed: int) -> dict:
+    """Phase 6: exact filtered top-K at full width, from a checkpoint."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.retrieval import EmbeddingCorpus, merge_topk
+    from euler_tpu_torch.retrieval.server import _CorpusEngine
+    from euler_tpu_torch.training.checkpoint import CheckpointStore
+
+    t0 = time.perf_counter()
+    data = retrieval_data(seed)
+    data_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model_dir = os.path.join(tmp, "retrieval")
+    CheckpointStore(model_dir).save_leaves(RETR_STEP, [data["vectors"]], [])
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    corpus = EmbeddingCorpus.from_checkpoint(model_dir, data["ids"], attrs={"cat": data["cat"]},
+                                             metric="cosine")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = _CorpusEngine(corpus).warm(RETR_K)
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    filters = (None, json.dumps(RETR_FILTER))
+    pool = data["pool"]
+
+    def run(eng):
+        return {(b, f): eng.retrieve(pool[:b], RETR_K, f) for b in RETR_BUCKETS for f in filters}
+
+    # the main path: launch counts reset just before and read just after
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    answers = run(engine)
+    main_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak_bytes = torch.cuda.max_memory_allocated()
+    if launches["paged_topk_score"] != len(answers) or sum(launches.values()) != len(answers):
+        raise AssertionError(f"retrieve path launches {launches}, expected one "
+                             f"paged_topk_score launch for each of {len(answers)} searches")
+    n_filtered = int(corpus.condition_mask(RETR_FILTER).sum())
+    for (b, f), (ids, scores, valid) in answers.items():
+        if ids.shape != (b, RETR_K) or not valid.all() or not np.isfinite(scores).all():
+            raise AssertionError(f"bucket {b} filter {f}: {ids.shape} answers, "
+                                 f"{int(valid.sum())} valid")
+
+    # ties at the k-th place: the hot queries' k-th score recurs past k
+    ties = 0
+    for f in filters:
+        ids, scores, _ = answers[(RETR_BUCKETS[-1], f)]
+        ties += int(sum(scores[i, -1] == scores[i, -2] for i in range(RETR_HOT)))
+    if not ties:
+        raise AssertionError("no hot query has a tie at the k-th place")
+
+    # kernel mode ref on the card: the plain scorer, no kernel launch
+    engine_ref = _CorpusEngine(corpus, impl="ref")
+    ops.reset_launch_counts()
+    answers_ref = run(engine_ref)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"impl ref launched kernels: {ops.launch_counts()}")
+    for key, ans in answers.items():
+        if not _same_answer(ans, answers_ref[key]):
+            raise AssertionError(f"bucket {key[0]} filter {key[1]}: auto differs from ref")
+    del engine_ref
+
+    # the independent NumPy oracle: every query of buckets up to ORACLE_BUCKET
+    # and a subset of the largest bucket's, on the raw rows in input order
+    t0 = time.perf_counter()
+    picked = list(range(RETR_ORACLE_BUCKET)) + list(RETR_ORACLE_EXTRA)
+    want = _oracle_answers(seed, picked)
+    oracle_queries = 0
+    for filtered, f in enumerate(filters):
+        for b in RETR_BUCKETS:
+            got = answers[(b, f)]
+            for row in range(b):
+                if row not in picked:
+                    continue
+                if not _same_answer([a[row] for a in got], want[(filtered, row)]):
+                    raise AssertionError(f"bucket {b} filter {f} query {row}: differs "
+                                         "from numpy_topk_oracle")
+                oracle_queries += 1
+    oracle_s = time.perf_counter() - t0
+
+    # two row shards merged canonically == the single shard
+    shards = [_CorpusEngine(corpus.shard(p, 2)) for p in range(2)]
+    ops.reset_launch_counts()
+    for key, ans in answers.items():
+        b, f = key
+        parts = [e.retrieve(pool[:b], RETR_K, f) for e in shards]
+        if not _same_answer(merge_topk(parts, RETR_K), ans):
+            raise AssertionError(f"bucket {b} filter {f}: 2-shard merge differs")
+    fleet_launches = ops.launch_counts()["paged_topk_score"]
+    del shards
+    torch.cuda.empty_cache()
+
+    res = {"phase": "retrieve", "rows": RETR_ROWS, "dim": RETR_DIM, "metric": "cosine",
+           "k": RETR_K, "buckets": list(RETR_BUCKETS), "filter": RETR_FILTER,
+           "filtered_rows": n_filtered, "version": corpus.version, "searches": len(answers),
+           "launches": launches, "ties_at_k": ties, "ref_on_card": "bitwise",
+           "oracle": {"queries": oracle_queries, "check": "bitwise"},
+           "fleet_2_shards": {"check": "bitwise", "launches": fleet_launches},
+           "peak_device_bytes": peak_bytes, "data_s": data_s, "save_s": save_s,
+           "build_s": build_s, "stage_s": stage_s, "main_run_s": main_s,
+           "oracle_s": oracle_s}
+    _emit(res)
+    return {"engine": engine, "pool": pool, "launches": launches["paged_topk_score"],
+            "result": res}
+
+
+def time_retrieve(torch, engine, pool, card: str) -> dict:
+    """Per bucket, filtered and unfiltered: the median search latency on
+    the host clock (a search returns host numpy, so it ends
+    synchronised), then the device time per search over RETR_PROFILED
+    back-to-back searches, split into the scoring kernel, the selection
+    (masking and top-k) and the copies, and the device idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out = {}
+    for b in RETR_BUCKETS:
+        for f in (None, json.dumps(RETR_FILTER)):
+            q = pool[:b]
+            for _ in range(3):
+                engine.retrieve(q, RETR_K, f)
+            lat = []
+            for _ in range(RETR_TIMED):
+                t = time.perf_counter()
+                engine.retrieve(q, RETR_K, f)
+                lat.append((time.perf_counter() - t) * 1e3)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t = time.perf_counter()
+                for _ in range(RETR_PROFILED):
+                    engine.retrieve(q, RETR_K, f)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t) * 1e3
+            dev = _device_times(prof)
+            split = {"kernel": 0.0, "selection": 0.0, "h2d": 0.0, "d2h": 0.0}
+            for name, us in dev.items():
+                if "paged_topk_score_kernel" in name:
+                    split["kernel"] += us
+                elif "HtoD" in name:
+                    split["h2d"] += us
+                elif "DtoH" in name:
+                    split["d2h"] += us
+                else:
+                    split["selection"] += us
+            busy_ms = sum(dev.values()) / 1e3
+            out[f"{b}{' filtered' if f else ''}"] = {
+                "median_ms": statistics.median(lat), "min_ms": min(lat), "max_ms": max(lat),
+                "reps": RETR_TIMED, "wall_ms_per_search": wall_ms / RETR_PROFILED,
+                "device_ms_per_search": busy_ms / RETR_PROFILED,
+                "device_ms_split": {k: v / 1e3 / RETR_PROFILED for k, v in split.items()},
+                "device_idle_share": 1.0 - busy_ms / wall_ms,
+            }
+    res = {"phase": "retrieve_latency", "card": card, "k": RETR_K, "buckets": out}
+    _emit(res)
+    return res
+
+
+def time_topk_kernel(torch, engine, pool, card: str) -> list:
+    """paged_topk_score at each bucket of the retrieve path, on the staged
+    1 M-row table (512 MB: each call streams it past the 50 MB L2) with
+    the path's own prepared queries; `warm_ms` on its first RETR_WARM_ROWS
+    rows (32 MB), left in the L2 by the call before. Beside it the plain
+    version, torch.matmul(q, x.T) with TF32 off (not bitwise: a yardstick)
+    and the bound: the corpus, the queries and the scores each moved once
+    over 3.35 TB/s, or 2 * B * nrows * dp operations over 67 T/s."""
+    from euler_tpu_torch.ops import paged_topk_score, paged_topk_score_ref
+    from euler_tpu_torch.retrieval import normalize_rows, quantize_sig12
+
+    index = engine.index
+    table, n, dp = index.table2d, index._n, index._dp
+    x = table.view(-1)[: n * dp].view(n, dp)
+    warm = table.view(-1)[: RETR_WARM_ROWS * dp]
+    rows = []
+    for b in RETR_BUCKETS:
+        q = torch.from_numpy(quantize_sig12(normalize_rows(pool[:b]))).to(table.device)
+        sets = [(table, q)]
+        tk = _time_ms(torch, lambda t, qq: paged_topk_score(t, qq, n, dp, "cuda"), sets, 50)
+        tw = _time_ms(torch, lambda t, qq: paged_topk_score(warm, qq, RETR_WARM_ROWS, dp,
+                                                            "cuda"), sets, 200)
+        tp = _time_ms(torch, lambda t, qq: paged_topk_score_ref(t, qq, n, dp), sets, 3)
+        tl = _time_ms(torch, lambda t, qq: torch.matmul(qq, x.T), sets, 50)
+        if tk["device_ms"] <= 0:
+            raise AssertionError("the profiler saw no device time for paged_topk_score")
+        nbytes = (n * dp + b * dp + b * n) * 4
+        flops = 2 * b * n * dp
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        rows.append({"bucket": b, "nrows": n, "dp": dp, "ms": tk["device_ms"],
+                     "warm_ms": tw["device_ms"], "warm_rows": RETR_WARM_ROWS,
+                     "plain_ms": tp["device_ms"], "library_ms": tl["device_ms"],
+                     "loop_ms": {"kernel": tk["loop_ms"], "plain": tp["loop_ms"],
+                                 "library": tl["loop_ms"]},
+                     "device_kernels": {"kernel": tk["device_kernels"],
+                                        "library": tl["device_kernels"]},
+                     "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+    _emit({"phase": "topk_kernel_timing", "card": card, "shapes": rows})
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -846,6 +1188,7 @@ def main(argv=None) -> int:
     # 3. kernels against their plain versions
     check = check_kernel(torch, gen)
     paged_check = check_paged_kernels(torch, gen)
+    topk_check = check_topk_kernel(torch, gen)
 
     with tempfile.TemporaryDirectory(prefix="euler_smoke_") as tmp:
         # 4. the served path, and its timings
@@ -863,6 +1206,15 @@ def main(argv=None) -> int:
         trained = train(torch, tmp, args.seed)
         time_train_steps(torch, trained["estimator"], card)
         paged_rows = time_paged_kernels(torch, trained["flow"], gen, card)
+        del trained["estimator"], trained["flow"]
+        torch.cuda.empty_cache()
+
+        # 6. the retrieval path, and its timings
+        retrieved = retrieve(torch, tmp, args.seed)
+        time_retrieve(torch, retrieved["engine"], retrieved["pool"], card)
+        topk_rows = time_topk_kernel(torch, retrieved["engine"], retrieved["pool"], card)
+        del retrieved["engine"]
+        torch.cuda.empty_cache()
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
 
@@ -919,6 +1271,28 @@ def main(argv=None) -> int:
             "shapes": [{k: r[k] for k in ("hop", "shape", "ms", "warm_ms", "plain_ms",
                                           "library_ms", "bound_ms")} for r in rows],
         })
+    # paged_topk_score: the sums over one search of each bucket
+    t_bytes = sum(r["bytes_ms"] for r in topk_rows if r["bound_by"] == "bytes")
+    t_ops = sum(r["ops_ms"] for r in topk_rows if r["bound_by"] == "operations")
+    kernels.append({
+        "name": "paged_topk_score",
+        "route": "cuda",
+        "source": "euler_tpu_torch/ops/csrc/topk_score.cu",
+        "replaces": "euler_tpu/ops/pallas_kernels.py:534",
+        "launches": retrieved["launches"],
+        "max_abs_err": topk_check["max_abs_err"],
+        "check": "bitwise",
+        "ms": total(topk_rows, "ms"),
+        "warm_ms": total(topk_rows, "warm_ms"),
+        "plain_ms": total(topk_rows, "plain_ms"),
+        "bound_ms": total(topk_rows, "bound_ms"),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": total(topk_rows, "library_ms"),
+        "card": card,
+        "shapes": [{k: r[k] for k in ("bucket", "nrows", "dp", "ms", "warm_ms", "plain_ms",
+                                      "library_ms", "bound_ms", "bound_by")}
+                   for r in topk_rows],
+    })
     _emit({"kernels": kernels})
     # 7. the device
     _emit({"ok": True, "device": {"platform": "gpu",

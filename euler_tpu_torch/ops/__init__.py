@@ -32,6 +32,10 @@ from euler_tpu_torch.ops.paged import (  # noqa: F401
     paged_gather_ref,
     paged_page_search,
 )
+from euler_tpu_torch.ops.topk_score import (  # noqa: F401
+    paged_topk_score,
+    paged_topk_score_ref,
+)
 
 KERNEL_MODES = ("off", "ref", "cuda", "auto")
 _KERNEL_MODE = "auto"

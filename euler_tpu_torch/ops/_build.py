@@ -35,6 +35,7 @@ SOURCES = {
     "gather_weighted_sum": "gather_weighted_sum.cu",
     "paged_gather": "paged_gather.cu",
     "paged_cdf_count": "paged_cdf_count.cu",
+    "topk_score": "topk_score.cu",
 }
 
 # kernel name → the library that holds it
@@ -43,6 +44,7 @@ KERNELS = {
     "paged_gather": "paged_gather",
     "paged_gather_dequant": "paged_gather",
     "paged_cdf_count": "paged_cdf_count",
+    "paged_topk_score": "topk_score",
 }
 
 NVCC_FLAGS = (

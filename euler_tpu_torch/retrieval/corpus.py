@@ -1,0 +1,290 @@
+"""Immutable versioned embedding corpus — the data half of retrieval
+(counterpart: euler_tpu/retrieval/corpus.py).
+
+A corpus is one embedding table snapshot, loaded from a complete
+checkpoint (training/checkpoint.py: only COMMITted checkpoints are
+visible) and frozen: rows sorted by id ascending, the vector block padded
+to the [M, 128] lane-row layout the scoring kernel reads
+(ops/topk_score.py), plus optional per-row attribute columns so DNF
+conditions (graph/index.py) compile to candidate masks for filtered
+retrieval. This module is numpy only and gives the same bytes as its
+counterpart.
+
+Bit-reproducibility canon, shared with the JAX package, so the NumPy
+oracle, the plain scorer and the CUDA kernel agree bitwise:
+
+  * cosine normalization: nrm2 accumulates x[d]*x[d] strictly
+    left-to-right in f32; rows scale by f32(1/sqrt(nrm2)) elementwise
+    (zero rows stay zero). Applied to corpus rows at build time and to
+    queries at request time through the same `normalize_rows`.
+  * scoring operands are significand-truncated to 12 bits
+    (`quantize_sig12`, a host-side bit mask after normalization), so every
+    q*x product is exact in f32.
+  * the id→row map is searchsorted over the ascending id column, so
+    "lowest index" == "lowest id": the tie-break the selection leans on.
+
+Versioning: `version` is "v{step:012d}-{crc32(table bytes):08x}", so two
+shards built from one checkpoint carry the same version string. Sharding
+is by row: `shard(part, num_parts)` keeps rows with id % num_parts ==
+part, so per-shard answers merge back bit-identically (topk.merge_topk).
+"""
+
+from __future__ import annotations
+
+import threading
+import zlib
+
+import numpy as np
+
+from euler_tpu_torch.graph.index import DnfEvaluator, HashIndex, RangeIndex
+
+# padding sentinel for ids in under-filled top-K answers (graph/store.py
+# DEFAULT_ID)
+INVALID_ID = np.uint64(0xFFFFFFFFFFFFFFFF)
+
+PAGE_LANES = 128  # ops/paged.py lane-row width
+
+
+def pad_dim(d: int) -> int:
+    """Smallest padded width >= d that packs cleanly into 128-wide lane
+    rows: a divisor of 128 below it, a multiple of 128 above."""
+    if d <= 0:
+        raise ValueError(f"embedding dim must be positive, got {d}")
+    for cand in (1, 2, 4, 8, 16, 32, 64, 128):
+        if d <= cand:
+            return cand
+    return -(-d // PAGE_LANES) * PAGE_LANES
+
+
+def normalize_rows(x: np.ndarray) -> np.ndarray:
+    """Canonical cosine normalization: per-row inverse-norm scaling with
+    the norm accumulated strictly left-to-right in f32. Zero rows pass
+    through unscaled."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    nrm2 = np.zeros(x.shape[0], dtype=np.float32)
+    for d in range(x.shape[1]):
+        nrm2 = nrm2 + x[:, d] * x[:, d]
+    inv = np.ones_like(nrm2)
+    ok = nrm2 > 0
+    inv[ok] = np.float32(1.0) / np.sqrt(nrm2[ok])
+    return x * inv[:, None]
+
+
+def quantize_sig12(x: np.ndarray) -> np.ndarray:
+    """Truncate f32 significands to 12 bits (keep 11 explicit mantissa
+    bits). Products of two such values carry <= 24 significand bits, exact
+    in f32. Exponent and sign untouched; zeros, infs and NaNs pass
+    through."""
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    return (x.view(np.uint32) & np.uint32(0xFFFFF000)).view(np.float32)
+
+
+class _CorpusIndex(DnfEvaluator):
+    """DNF evaluator over a corpus's attribute columns (+ the `id`
+    special)."""
+
+    def __init__(self, corpus: "EmbeddingCorpus"):
+        self._corpus = corpus
+        self._num_rows = corpus.num_rows
+        # retrieval has no sampling weights: unit weights satisfy the
+        # IndexResult contract without changing membership
+        self._weights = np.ones(corpus.num_rows, dtype=np.float64)
+        self._cache: dict[str, object] = {}
+
+    def _index_for(self, field: str):
+        idx = self._cache.get(field)
+        if idx is not None:
+            return idx
+        if field == "id":
+            col = self._corpus.ids
+        else:
+            try:
+                col = self._corpus.attrs[field]
+            except KeyError:
+                raise ValueError(
+                    f"corpus has no attribute column {field!r} "
+                    f"(have: id, {sorted(self._corpus.attrs)})"
+                ) from None
+        col = np.asarray(col)
+        if col.dtype == object or col.dtype.kind in ("U", "S"):
+            rows = np.arange(self._num_rows, dtype=np.int64)
+            idx = HashIndex.build(rows, col, self._num_rows)
+        else:
+            idx = RangeIndex.build(col.astype(np.float64))
+        self._cache[field] = idx
+        return idx
+
+
+class EmbeddingCorpus:
+    """One immutable embedding-table snapshot, retrieval-ready."""
+
+    def __init__(
+        self,
+        ids: np.ndarray,
+        vectors: np.ndarray,
+        dim: int,
+        metric: str,
+        version: str,
+        step: int,
+        attrs: dict[str, np.ndarray] | None = None,
+    ):
+        # rows already sorted, padded and normalized by the classmethods below
+        self.ids = ids  # u64 ascending, unique
+        self.vectors = vectors  # f32 [N, dim_padded]
+        self.dim = int(dim)
+        self.dim_padded = int(vectors.shape[1]) if vectors.ndim == 2 else 0
+        self.metric = metric
+        self.version = version
+        self.step = int(step)
+        self.attrs = attrs or {}
+        self._index: _CorpusIndex | None = None
+        self._index_lock = threading.Lock()
+
+    # -- constructors ----------------------------------------------------
+
+    @classmethod
+    def build(
+        cls,
+        ids,
+        vectors,
+        attrs: dict | None = None,
+        metric: str = "dot",
+        version: str | None = None,
+        step: int = 0,
+    ) -> "EmbeddingCorpus":
+        """Corpus from raw (ids, vectors[, attrs]): sorts by id, pads the
+        vector block to the lane-row width, applies the canonical cosine
+        normalization when metric='cosine'."""
+        if metric not in ("dot", "cosine"):
+            raise ValueError(f"unknown metric {metric!r}")
+        ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
+        vectors = np.ascontiguousarray(vectors, dtype=np.float32)
+        if vectors.ndim != 2 or vectors.shape[0] != len(ids):
+            raise ValueError(f"vectors must be [len(ids), D], got {vectors.shape}")
+        if len(np.unique(ids)) != len(ids):
+            raise ValueError("corpus ids must be unique")
+        order = np.argsort(ids, kind="stable")
+        ids = np.ascontiguousarray(ids[order])
+        vectors = vectors[order]
+        if metric == "cosine":
+            vectors = normalize_rows(vectors)
+        vectors = quantize_sig12(vectors)
+        dim = vectors.shape[1]
+        dp = pad_dim(dim)
+        if dp != dim:
+            vectors = np.pad(vectors, ((0, 0), (0, dp - dim)))
+        out_attrs = {}
+        for name, col in (attrs or {}).items():
+            col = np.asarray(col)
+            if col.shape[0] != len(ids):
+                raise ValueError(
+                    f"attr {name!r} has {col.shape[0]} rows, corpus has {len(ids)}"
+                )
+            out_attrs[str(name)] = col[order]
+        if version is None:
+            crc = zlib.crc32(np.ascontiguousarray(vectors).tobytes())
+            version = f"v{int(step):012d}-{crc:08x}"
+        return cls(ids, np.ascontiguousarray(vectors), dim, metric, version, step,
+                   out_attrs)
+
+    @classmethod
+    def from_checkpoint(
+        cls,
+        model_dir: str,
+        ids,
+        attrs: dict | None = None,
+        metric: str = "dot",
+        step: int | None = None,
+        leaf: int | None = None,
+    ) -> "EmbeddingCorpus":
+        """Corpus from the newest complete checkpoint under `model_dir`
+        (or an explicit `step`). The embedding table is the unique 2-D
+        param leaf with len(ids) rows; pass `leaf` to pick one of several.
+        A half-written checkpoint is invisible here."""
+        from euler_tpu_torch.training.checkpoint import CheckpointStore
+
+        ids = np.asarray(ids, dtype=np.uint64).reshape(-1)
+        ck = CheckpointStore(model_dir).load(step)
+        params = ck["params"]
+        if leaf is None:
+            hits = [
+                i for i, p in enumerate(params)
+                if getattr(p, "ndim", 0) == 2 and p.shape[0] == len(ids)
+            ]
+            if len(hits) != 1:
+                raise ValueError(
+                    f"checkpoint step {ck['step']} has {len(hits)} 2-D "
+                    f"[{len(ids)}, D] param leaves "
+                    f"{[params[i].shape for i in hits]}; pass leaf= to pick"
+                )
+            leaf = hits[0]
+        table = np.asarray(params[leaf], dtype=np.float32)
+        return cls.build(ids, table, attrs=attrs, metric=metric, step=ck["step"])
+
+    def shard(self, part: int, num_parts: int) -> "EmbeddingCorpus":
+        """Row shard `part` of `num_parts` (id % num_parts == part), same
+        version."""
+        if not 0 <= part < num_parts:
+            raise ValueError(f"part {part} out of range for {num_parts}")
+        keep = (self.ids % np.uint64(num_parts)) == np.uint64(part)
+        return EmbeddingCorpus(
+            np.ascontiguousarray(self.ids[keep]),
+            np.ascontiguousarray(self.vectors[keep]),
+            self.dim,
+            self.metric,
+            self.version,
+            self.step,
+            {k: v[keep] for k, v in self.attrs.items()},
+        )
+
+    # -- queries ---------------------------------------------------------
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.ids)
+
+    def lookup(self, ids) -> np.ndarray:
+        """External u64 ids → rows; -1 for missing (vectorized)."""
+        ids = np.asarray(ids, dtype=np.uint64)
+        pos = np.searchsorted(self.ids, ids)
+        pos = np.clip(pos, 0, max(len(self.ids) - 1, 0))
+        if len(self.ids) == 0:
+            return np.full(ids.shape, -1, dtype=np.int64)
+        ok = self.ids[pos] == ids
+        return np.where(ok, pos, -1).astype(np.int64)
+
+    def condition_mask(self, dnf) -> np.ndarray:
+        """Bool candidate mask over rows for a DNF condition. Per-field
+        indexes build lazily and are cached on this (immutable) corpus."""
+        if self._index is None:
+            with self._index_lock:
+                if self._index is None:
+                    self._index = _CorpusIndex(self)
+        res = self._index.search_dnf(dnf)
+        mask = np.zeros(self.num_rows, dtype=bool)
+        mask[res.rows] = True
+        return mask
+
+    def lane_rows(self) -> np.ndarray:
+        """[M, 128] lane-row view of the flat vector block, zero padded:
+        the staging shape of the scoring kernel (ops/paged.py
+        `as_lane_rows`, host-side)."""
+        flat = self.vectors.reshape(-1)
+        pad = (-flat.shape[0]) % PAGE_LANES
+        if pad:
+            flat = np.pad(flat, (0, pad))
+        return flat.reshape(-1, PAGE_LANES)
+
+    def stats(self) -> dict:
+        """Memory and version accounting."""
+        return {
+            "version": self.version,
+            "step": self.step,
+            "metric": self.metric,
+            "rows": self.num_rows,
+            "dim": self.dim,
+            "dim_padded": self.dim_padded,
+            "lane_rows": int(self.lane_rows().shape[0]),
+            "table_bytes": int(self.vectors.nbytes),
+            "attr_columns": sorted(self.attrs),
+        }

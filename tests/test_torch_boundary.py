@@ -17,7 +17,7 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu", "bench"}
 # calls that build or launch a kernel: by last name, or qualified
 KERNEL_CALLS = {
     "build_all", "_launch", "_run", "gather_weighted_sum", "paged_gather",
-    "paged_gather_dequant", "paged_cdf_count", "_lib", "_build.load",
+    "paged_gather_dequant", "paged_cdf_count", "paged_topk_score", "_lib", "_build.load",
 }
 # every module of the slices ported so far
 PORTED = [
@@ -26,6 +26,10 @@ PORTED = [
     "euler_tpu_torch.distributed.codec", "euler_tpu_torch.estimator.estimator",
     "euler_tpu_torch.estimator.feature_cache", "euler_tpu_torch.nn.metrics",
     "euler_tpu_torch.training.checkpoint", "euler_tpu_torch.params",
+    "euler_tpu_torch.graph.index", "euler_tpu_torch.ops.topk_score",
+    "euler_tpu_torch.retrieval", "euler_tpu_torch.retrieval.corpus",
+    "euler_tpu_torch.retrieval.topk", "euler_tpu_torch.retrieval.server",
+    "euler_tpu_torch.tools.knn",
 ]
 
 
