@@ -49,17 +49,29 @@ Phases, each of which raises (exit code != 0) when it fails:
      leaf by `CheckpointStore.save_leaves`, loaded through
      `EmbeddingCorpus.from_checkpoint` and searched through the
      `_CorpusEngine` at every bucket (1, 4, 16, 64), unfiltered and
-     filtered by cat in {0, 2}: one paged_topk_score launch per search
-     (counts reset just before); answers bitwise equal to impl 'ref' on
-     the card, to `numpy_topk_oracle` (buckets 1-16 and 4 queries of
-     bucket 64) and to a 2-shard `merge_topk`. Then per bucket the median
-     search latency, the device time split into kernel, selection and
-     copies, the idle share, and the kernel against its plain version,
-     torch.matmul and its bound.
+     filtered by cat in {0, 2}: one paged_topk_score and one
+     paged_topk_select launch per search (counts reset just before), the
+     scorer's template as the FMA guard chose it; answers bitwise equal to
+     impl 'ref' on the card (the plain scorer, `torch.where` and
+     `canonical_topk`), to `numpy_topk_oracle` (buckets 1-16 and 4
+     queries of bucket 64) and to a 2-shard `merge_topk`. Then per bucket
+     the median search latency, the device time split into the scorer,
+     the select kernel, the rest of the selection and copies, the idle
+     share, the scorer under both templates against its plain version,
+     torch.matmul and its bound, and the select kernel against its plain
+     version, stage 2, `canonical_topk` and its bound.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
-{1, 3, 16, 64, 65}, sig12 and raw f32 operands with a padded tail, an
-unaligned table, and 64-bit offsets (2^24 + 3 rows x 128, B = 130).
+{1, 2, 3, 8, 16, 20, 64, 65}, sig12 and raw f32 operands with a padded tail, an
+unaligned table, and 64-bit offsets (2^24 + 3 rows x 128, B = 130): the
+mul/add template in every case and the FMA template where the guard
+`products_exact` accepts the operands (it must accept the sig12 ones and
+reject raw f32 and sig12 operands scaled past the normal range of the
+products). paged_topk_select is held bitwise to its plain version, and
+with `topk_keys` to `canonical_topk`, for tiles 1024 and 8192, k in {1,
+32, 100, T, T + 1, > nrows}, nrows in {1, 1000, 10007, 100003}, absent,
+all-false, 3-row and random masks, 13 real queries of a bucket of 16, ties
+everywhere, +-0.0, -inf and 90 equal maxima across each tile border.
 The line before the last is the `kernels` JSON line; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -112,7 +124,11 @@ RETR_ORACLE_BUCKET, RETR_ORACLE_EXTRA = 16, (16, 31, 47, 63)
 RETR_TIMED, RETR_PROFILED, RETR_WARM_ROWS = 20, 10, 65_536
 TOPK_SWEEP_DP = (1, 8, 32, 64, 128, 256)
 TOPK_SWEEP_ROWS = (1, 127, 1001, 100_003)
-TOPK_SWEEP_B = (1, 3, 16, 64, 65)
+TOPK_SWEEP_B = (1, 2, 3, 8, 16, 20, 64, 65)  # every block shape of the scorer
+PROFILE_WINDOWS = 3
+SELECT_TILES = (1024, 8192)
+SELECT_ROWS = (1, 1000, 10_007, 100_003)
+SELECT_BP, SELECT_B = 16, 13
 
 
 def _card_line() -> str:
@@ -303,6 +319,32 @@ def _device_times(prof) -> dict:
     return out
 
 
+def _profile_window(torch, body, windows: int = PROFILE_WINDOWS) -> tuple[dict, float]:
+    """({kernel name: device µs}, host-clock ms) of one run of `body`,
+    which ends synchronised, under torch.profiler. The body runs once as
+    the profiler's warm-up step, then `windows` times as recorded steps,
+    and the recorded step with the most device time is kept: CUPTI now
+    and then drops kernel records from a window (a drop only ever lowers
+    the sum; the same work repeats within ~1 %). The
+    profiler's step markers are spans, not device work, and are left out."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    runs = []
+    for _ in range(windows):
+        got = {}
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1),
+                     on_trace_ready=lambda p, got=got: got.update(_device_times(p))) as prof:
+            body()
+            prof.step()
+            t0 = time.perf_counter()
+            body()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            prof.step()
+        runs.append(({k: v for k, v in got.items() if not k.startswith("ProfilerStep")}, wall_ms))
+    return max(runs, key=lambda r: sum(r[0].values()))
+
+
 def _time_ms(torch, fn, sets, iters: int) -> dict:
     """One function's time per call over `iters` back-to-back calls,
     cycling through input sets whose total exceeds the L2 cache, so each
@@ -310,8 +352,6 @@ def _time_ms(torch, fn, sets, iters: int) -> dict:
     `device_ms`: the device time of its kernels (torch.profiler, CUPTI);
     `loop_ms`: CUDA events around the whole loop, which includes the
     host's launch cost whenever the host cannot keep ahead."""
-    from torch.profiler import ProfilerActivity, profile
-
     for i in range(min(len(sets), 20)):
         fn(*sets[i])
     torch.cuda.synchronize()
@@ -323,11 +363,12 @@ def _time_ms(torch, fn, sets, iters: int) -> dict:
     end.record()
     torch.cuda.synchronize()
     loop_ms = start.elapsed_time(end) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def loop():
         for i in range(iters):
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
-    kernels = _device_times(prof)
+
+    kernels, _ = _profile_window(torch, loop)
     return {"device_ms": sum(kernels.values()) / 1e3 / iters,
             "loop_ms": loop_ms, "device_kernels": sorted(k[:60] for k in kernels)}
 
@@ -395,19 +436,17 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
 def profile_predict(torch, rt, req_rng, reps: int = 20) -> dict:
     """Device busy share of back-to-back bucket-128 predicts: the summed
     device time of every kernel and copy over the host-clock window."""
-    from torch.profiler import ProfilerActivity, profile
-
     b = rt.buckets[-1]
     ids = [req_rng.integers(1, NUM_NODES + 1, size=b).astype(np.uint64)
            for _ in range(reps)]
     rt.predict(ids[0])
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def window():
         for r in ids:
             rt.predict(r)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    dev = _device_times(prof)
+
+    dev, wall_ms = _profile_window(torch, window)
     busy_ms = sum(dev.values()) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     top = [(k[:60], v) for k, v in top]
@@ -702,20 +741,17 @@ def time_train_steps(torch, est, card: str) -> dict:
     """Median step time (host clock, each step ends synchronised: train()
     brings its losses to the host), then the device busy share over
     PROFILED_STEPS back-to-back steps and the top device ops."""
-    from torch.profiler import ProfilerActivity, profile
-
     est.train(2, log=False, save=False)
     times = []
     for _ in range(TIMED_STEPS):
         t = time.perf_counter()
         est.train(1, log=False, save=False)
         times.append((time.perf_counter() - t) * 1e3)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
+    def window():
         est.train(PROFILED_STEPS, log=False, save=False)
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    dev = _device_times(prof)
+
+    dev, wall_ms = _profile_window(torch, window)
     busy_ms = sum(dev.values()) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
     res = {"phase": "train_timing", "card": card, "median_step_ms": statistics.median(times),
@@ -839,23 +875,40 @@ def time_paged_kernels(torch, flow, gen, card: str) -> list:
 
 def check_topk_kernel(torch, gen) -> dict:
     """Phase 3, retrieval: paged_topk_score bitwise against its plain
-    version on the card, for sig12 and raw f32 operands."""
-    from euler_tpu_torch.ops import paged_topk_score, paged_topk_score_ref
+    version on the card, for sig12 and raw f32 operands, under both
+    templates: mul/add in every case, FMA where `products_exact` accepts the
+    operands. The guard must accept the sig12 sweep and reject raw f32 and
+    sig12 operands scaled so that their products underflow or overflow."""
+    from euler_tpu_torch.ops import (
+        operand_range,
+        paged_topk_score,
+        paged_topk_score_ref,
+        products_exact,
+    )
     from euler_tpu_torch.ops.paged import as_lane_rows
 
     dev = torch.device("cuda")
-    cases, failed = 0, []
+    cases, failed, templates = 0, [], {}
 
     def sig12(t):
         return (t.view(torch.int32) & -4096).view(torch.float32)
 
-    def one(label, got, want):
+    def guard(x, q):
+        return products_exact(operand_range(q.cpu().numpy()), operand_range(x.cpu().numpy()))
+
+    def one(label, want, exact, run):
+        """`run(fma)` scores under one template; both when `exact`."""
         nonlocal cases
-        torch.cuda.synchronize()
-        cases += 1
-        n, _ = _mismatch(torch, got, want)
-        if n or got.shape != want.shape:
-            failed.append({"case": label, "mismatches": n})
+        ran = []
+        for fma in (False, True) if exact else (False,):
+            got = run(fma)
+            torch.cuda.synchronize()
+            cases += 1
+            ran.append("fma" if fma else "mul_add")
+            n, _ = _mismatch(torch, got, want)
+            if n or got.shape != want.shape:
+                failed.append({"case": label, "template": ran[-1], "mismatches": n})
+        templates[label] = "+".join(ran)
 
     for dp in TOPK_SWEEP_DP:
         for nrows in TOPK_SWEEP_ROWS:
@@ -864,33 +917,122 @@ def check_topk_kernel(torch, gen) -> dict:
                 q = torch.randn(max(TOPK_SWEEP_B), dp, generator=gen, device=dev)
                 if operands == "sig12":
                     x, q = sig12(x), sig12(q)
+                exact = guard(x[: nrows * dp], q)
+                if exact != (operands == "sig12"):
+                    failed.append({"case": f"dp={dp} nrows={nrows} {operands}",
+                                   "guard": exact})
                 t2d = as_lane_rows(x)
                 for b in TOPK_SWEEP_B:
                     one(f"dp={dp} nrows={nrows} B={b} {operands}",
-                        paged_topk_score(t2d, q[:b], nrows, dp, "cuda"),
-                        paged_topk_score_ref(t2d, q[:b], nrows, dp))
+                        paged_topk_score_ref(t2d, q[:b], nrows, dp), exact,
+                        lambda fma: paged_topk_score(t2d, q[:b], nrows, dp, "cuda",
+                                                     exact_products=fma))
+    # sig12 operands whose products leave the normal range: the guard
+    # rejects them, and the mul/add template stays bitwise; FMA's
+    # disagreement there is counted, not required
+    fma_differs = {}
+    for what, scale in (("underflow", 2.0**-70), ("overflow", 2.0**64)):
+        x = sig12(torch.randn(1001 * 128, generator=gen, device=dev)) * scale
+        q = sig12(torch.randn(64, 128, generator=gen, device=dev)) * scale
+        if guard(x, q):
+            failed.append({"case": what, "guard": True})
+        for b in (1, 16, 64):
+            want = paged_topk_score_ref(x, q[:b], 1001, 128)
+            one(f"dp=128 nrows=1001 B={b} sig12 {what}", want, False,
+                lambda fma: paged_topk_score(x, q[:b], 1001, 128, "cuda", exact_products=fma))
+            got = paged_topk_score(x, q[:b], 1001, 128, "cuda", exact_products=True)
+            fma_differs[f"{what} B={b}"] = _mismatch(torch, got, want)[0]
     # a table that is not 16-byte aligned: the 4-byte load path at dp = 128
-    x = torch.randn(1000 * 128 + 1, generator=gen, device=dev)[1:]
-    q = torch.randn(5, 128, generator=gen, device=dev)
-    one("dp=128 nrows=1000 B=5 unaligned", paged_topk_score(x, q, 1000, 128, "cuda"),
-        paged_topk_score_ref(x, q, 1000, 128))
+    x = sig12(torch.randn(1000 * 128 + 1, generator=gen, device=dev))[1:]
+    q = sig12(torch.randn(5, 128, generator=gen, device=dev))
+    one("dp=128 nrows=1000 B=5 unaligned", paged_topk_score_ref(x, q, 1000, 128), guard(x, q),
+        lambda fma: paged_topk_score(x, q, 1000, 128, "cuda", exact_products=fma))
     # 64-bit offsets: nrows * dp and B * nrows pass 2^31; the plain version
     # scores the last rows only (rows are scored independently)
     nrows, dp, b, tail = 2**24 + 3, 128, 130, 4099
-    x = torch.randn(nrows * dp, generator=gen, device=dev)
-    q = torch.randn(b, dp, generator=gen, device=dev)
-    got = paged_topk_score(x, q, nrows, dp, "cuda")[:, -tail:].contiguous()
-    one(f"dp={dp} nrows={nrows} B={b} (int64 offsets), last {tail} rows", got,
-        paged_topk_score_ref(x[-tail * dp:], q, tail, dp))
-    del x, q, got
+    x = sig12(torch.randn(nrows * dp, generator=gen, device=dev))
+    q = sig12(torch.randn(b, dp, generator=gen, device=dev))
+    one(f"dp={dp} nrows={nrows} B={b} (int64 offsets), last {tail} rows",
+        paged_topk_score_ref(x[-tail * dp:], q, tail, dp), True,
+        lambda fma: paged_topk_score(x, q, nrows, dp, "cuda",
+                                     exact_products=fma)[:, -tail:].contiguous())
+    del x, q
     torch.cuda.empty_cache()
+    by_template = {}
+    for ran in templates.values():
+        for t in ran.split("+"):
+            by_template[t] = by_template.get(t, 0) + 1
     res = {"phase": "kernel_check", "kernel": "paged_topk_score", "cases": cases,
            "check": "bitwise", "max_abs_err": 0.0 if not failed else None,
            "dp": list(TOPK_SWEEP_DP), "nrows": list(TOPK_SWEEP_ROWS),
-           "B": list(TOPK_SWEEP_B), "failed": failed}
+           "B": list(TOPK_SWEEP_B), "cases_by_template": by_template,
+           "fma_mismatches_where_rejected": fma_differs, "templates": templates,
+           "failed": failed}
     _emit(res)
     if failed:
         raise AssertionError(f"paged_topk_score disagrees with its plain version: {failed}")
+    return res
+
+
+def _select_scores(torch, gen, nrows: int):
+    """[SELECT_BP, nrows] scores that stress the selection: rows 0-3
+    rounded to quarters (ties everywhere), row 4 +0.0 and -0.0 with a
+    third of the rows -inf, row 5 a run of 90 equal maxima across each
+    tile border, and the bucket's padding rows NaN (never read)."""
+    s = torch.randn(SELECT_BP, nrows, generator=gen, device="cuda")
+    s[:4] = (s[:4] * 4).round() / 4
+    u = torch.rand(nrows, generator=gen, device="cuda")
+    s[4] = torch.where(u < 0.33, 0.0, torch.where(u < 0.66, -0.0, float("-inf")))
+    for t in SELECT_TILES:
+        if nrows > t:
+            s[5, max(0, t - 45):t + 45] = 100.0
+    s[SELECT_B:] = float("nan")
+    return s
+
+
+def check_topk_select(torch, gen) -> dict:
+    """Phase 3, retrieval: paged_topk_select bitwise against its plain
+    version, and stage 1 plus stage 2 (`topk_keys`) bitwise against
+    `canonical_topk` over the whole masked scores, for k in {1, 32, 100,
+    T, T + 1, > nrows}, nrows in SELECT_ROWS (not multiples of T but
+    one), masks that are absent, all false, leave 3 rows, or random, and
+    SELECT_B real queries of a bucket of SELECT_BP."""
+    from euler_tpu_torch.ops import paged_topk_select, paged_topk_select_ref, topk_keys
+    from euler_tpu_torch.retrieval.topk import canonical_topk
+
+    cases, failed = 0, []
+    for nrows in SELECT_ROWS:
+        s = _select_scores(torch, gen, nrows)
+        few = torch.zeros(nrows, dtype=torch.bool, device="cuda")
+        few[[0, nrows // 2, nrows - 1]] = True
+        masks = {"none": None, "all_false": torch.zeros_like(few), "few": few,
+                 "random": torch.rand(nrows, generator=gen, device="cuda") < 0.5}
+        for tile in SELECT_TILES:
+            for k in sorted({1, 32, 100, tile, tile + 1, nrows + 1}):
+                keff = min(k, nrows)
+                for mname, mask in masks.items():
+                    label = f"nrows={nrows} T={tile} k={k} mask={mname}"
+                    got = paged_topk_select(s, SELECT_B, k, mask, tile, "cuda")
+                    want = paged_topk_select_ref(s, SELECT_B, k, mask, tile)
+                    vals, idx = topk_keys(got.reshape(SELECT_B, -1), keff)
+                    masked = s[:SELECT_B] if mask is None else torch.where(
+                        mask[None, :], s[:SELECT_B], float("-inf"))
+                    cvals, cidx = canonical_topk(masked, keff)
+                    torch.cuda.synchronize()
+                    cases += 1
+                    n1 = int((got != want).sum()) if got.shape == want.shape else -1
+                    n2 = int((idx != cidx).sum()) + _mismatch(torch, vals, cvals)[0]
+                    if n1 or n2:
+                        failed.append({"case": label, "stage1_mismatches": n1,
+                                       "answer_mismatches": n2})
+        del s, masks
+    res = {"phase": "kernel_check", "kernel": "paged_topk_select", "cases": cases,
+           "check": "bitwise", "max_abs_err": 0.0 if not failed else None,
+           "nrows": list(SELECT_ROWS), "tiles": list(SELECT_TILES),
+           "queries": f"{SELECT_B} of a bucket of {SELECT_BP}", "failed": failed}
+    _emit(res)
+    if failed:
+        raise AssertionError(f"paged_topk_select disagrees with its plain version: {failed}")
     return res
 
 
@@ -978,15 +1120,19 @@ def retrieve(torch, tmp: str, seed: int) -> dict:
 
     # the main path: launch counts reset just before and read just after
     torch.cuda.reset_peak_memory_stats()
+    templates_before = dict(engine.index.templates)
     ops.reset_launch_counts()
     t0 = time.perf_counter()
     answers = run(engine)
     main_s = time.perf_counter() - t0
     launches = ops.launch_counts()
     peak_bytes = torch.cuda.max_memory_allocated()
-    if launches["paged_topk_score"] != len(answers) or sum(launches.values()) != len(answers):
-        raise AssertionError(f"retrieve path launches {launches}, expected one "
-                             f"paged_topk_score launch for each of {len(answers)} searches")
+    templates = {k: v - templates_before[k] for k, v in engine.index.templates.items()}
+    want = {"paged_topk_score": len(answers), "paged_topk_select": len(answers)}
+    if {k: v for k, v in launches.items() if v} != want:
+        raise AssertionError(f"retrieve path launches {launches}, expected one paged_topk_score "
+                             f"and one paged_topk_select launch for each of {len(answers)} "
+                             "searches")
     n_filtered = int(corpus.condition_mask(RETR_FILTER).sum())
     for (b, f), (ids, scores, valid) in answers.items():
         if ids.shape != (b, RETR_K) or not valid.all() or not np.isfinite(scores).all():
@@ -1038,21 +1184,22 @@ def retrieve(torch, tmp: str, seed: int) -> dict:
         parts = [e.retrieve(pool[:b], RETR_K, f) for e in shards]
         if not _same_answer(merge_topk(parts, RETR_K), ans):
             raise AssertionError(f"bucket {b} filter {f}: 2-shard merge differs")
-    fleet_launches = ops.launch_counts()["paged_topk_score"]
+    fleet_launches = {k: v for k, v in ops.launch_counts().items() if v}
     del shards
     torch.cuda.empty_cache()
 
     res = {"phase": "retrieve", "rows": RETR_ROWS, "dim": RETR_DIM, "metric": "cosine",
            "k": RETR_K, "buckets": list(RETR_BUCKETS), "filter": RETR_FILTER,
            "filtered_rows": n_filtered, "version": corpus.version, "searches": len(answers),
-           "launches": launches, "ties_at_k": ties, "ref_on_card": "bitwise",
+           "launches": launches, "scorer_templates": templates, "ties_at_k": ties,
+           "ref_on_card": "bitwise",
            "oracle": {"queries": oracle_queries, "check": "bitwise"},
            "fleet_2_shards": {"check": "bitwise", "launches": fleet_launches},
            "peak_device_bytes": peak_bytes, "data_s": data_s, "save_s": save_s,
            "build_s": build_s, "stage_s": stage_s, "main_run_s": main_s,
            "oracle_s": oracle_s}
     _emit(res)
-    return {"engine": engine, "pool": pool, "launches": launches["paged_topk_score"],
+    return {"engine": engine, "pool": pool, "launches": launches, "templates": templates,
             "result": res}
 
 
@@ -1061,9 +1208,9 @@ def time_retrieve(torch, engine, pool, card: str) -> dict:
     the host clock (a search returns host numpy, so it ends
     synchronised), then the device time per search over RETR_PROFILED
     back-to-back searches, split into the scoring kernel, the selection
-    (masking and top-k) and the copies, and the device idle share."""
-    from torch.profiler import ProfilerActivity, profile
-
+    kernel, the rest of the selection (stage 2: `torch.topk` over the
+    candidates and the key decoding) and the copies, and the device idle
+    share."""
     out = {}
     for b in RETR_BUCKETS:
         for f in (None, json.dumps(RETR_FILTER)):
@@ -1075,23 +1222,25 @@ def time_retrieve(torch, engine, pool, card: str) -> dict:
                 t = time.perf_counter()
                 engine.retrieve(q, RETR_K, f)
                 lat.append((time.perf_counter() - t) * 1e3)
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                t = time.perf_counter()
+            def window(q=q, f=f):
                 for _ in range(RETR_PROFILED):
                     engine.retrieve(q, RETR_K, f)
                 torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t) * 1e3
-            dev = _device_times(prof)
-            split = {"kernel": 0.0, "selection": 0.0, "h2d": 0.0, "d2h": 0.0}
+
+            dev, wall_ms = _profile_window(torch, window)
+            split = {"kernel": 0.0, "select_kernel": 0.0, "select_rest": 0.0, "h2d": 0.0,
+                     "d2h": 0.0}
             for name, us in dev.items():
                 if "paged_topk_score_kernel" in name:
                     split["kernel"] += us
+                elif "paged_topk_select_kernel" in name:
+                    split["select_kernel"] += us
                 elif "HtoD" in name:
                     split["h2d"] += us
                 elif "DtoH" in name:
                     split["d2h"] += us
                 else:
-                    split["selection"] += us
+                    split["select_rest"] += us
             busy_ms = sum(dev.values()) / 1e3
             out[f"{b}{' filtered' if f else ''}"] = {
                 "median_ms": statistics.median(lat), "min_ms": min(lat), "max_ms": max(lat),
@@ -1106,27 +1255,59 @@ def time_retrieve(torch, engine, pool, card: str) -> dict:
 
 
 def time_topk_kernel(torch, engine, pool, card: str) -> list:
-    """paged_topk_score at each bucket of the retrieve path, on the staged
-    1 M-row table (512 MB: each call streams it past the 50 MB L2) with
-    the path's own prepared queries; `warm_ms` on its first RETR_WARM_ROWS
-    rows (32 MB), left in the L2 by the call before. Beside it the plain
-    version, torch.matmul(q, x.T) with TF32 off (not bitwise: a yardstick)
-    and the bound: the corpus, the queries and the scores each moved once
-    over 3.35 TB/s, or 2 * B * nrows * dp operations over 67 T/s."""
-    from euler_tpu_torch.ops import paged_topk_score, paged_topk_score_ref
+    """paged_topk_score and paged_topk_select at each bucket of the
+    retrieve path, on the staged 1 M-row table with the path's own
+    prepared queries.
+
+    The scorer: `ms` under the template the path runs (FMA where
+    `products_exact` holds), `mul_add_ms` under the other, on the whole
+    table (512 MB: each call streams it past the 50 MB L2); `warm_ms` on its
+    first RETR_WARM_ROWS rows (32 MB), left in the L2 by the call before.
+    Beside it the plain version, torch.matmul(q, x.T) with TF32 off (not
+    bitwise: a yardstick) and the bound: the corpus, the queries and the
+    scores each moved once over 3.35 TB/s, or 2 * B * nrows * dp operations
+    over 67 T/s.
+
+    The selection, on those scores (as on the path, they were just written,
+    so at small buckets they sit in the L2), unfiltered and with the
+    filter's mask: the kernel (`select_ms`; its keys held bitwise against
+    the plain version's), its plain version, stage 2
+    (`torch.topk` over the candidates and the decoding), and
+    `canonical_topk` over the [B, 1 M] scores (after the `torch.where` mask
+    when filtered), the one-pass selection the path ran before. Its bound:
+    the scores (4 B a row a query) and the mask (1 B a row) read once, the
+    candidates (8 B each) written once, over 3.35 TB/s."""
+    from euler_tpu_torch.ops import (
+        operand_range,
+        paged_topk_score,
+        paged_topk_score_ref,
+        paged_topk_select,
+        paged_topk_select_ref,
+        products_exact,
+        topk_keys,
+    )
+    from euler_tpu_torch.ops.topk_score import TILE
     from euler_tpu_torch.retrieval import normalize_rows, quantize_sig12
+    from euler_tpu_torch.retrieval.topk import canonical_topk
 
     index = engine.index
     table, n, dp = index.table2d, index._n, index._dp
     x = table.view(-1)[: n * dp].view(n, dp)
     warm = table.view(-1)[: RETR_WARM_ROWS * dp]
+    mask = torch.from_numpy(index.corpus.condition_mask(RETR_FILTER)).to(table.device)
+    ntiles, kt = -(-n // TILE), min(RETR_K, TILE)
     rows = []
     for b in RETR_BUCKETS:
-        q = torch.from_numpy(quantize_sig12(normalize_rows(pool[:b]))).to(table.device)
+        qn = quantize_sig12(normalize_rows(pool[:b]))
+        exact = products_exact(operand_range(qn), index._x_range)
+        q = torch.from_numpy(qn).to(table.device)
         sets = [(table, q)]
-        tk = _time_ms(torch, lambda t, qq: paged_topk_score(t, qq, n, dp, "cuda"), sets, 50)
+        tk = _time_ms(torch, lambda t, qq: paged_topk_score(t, qq, n, dp, "cuda", exact), sets,
+                      50)
+        tm = _time_ms(torch, lambda t, qq: paged_topk_score(t, qq, n, dp, "cuda", not exact),
+                      sets, 50)
         tw = _time_ms(torch, lambda t, qq: paged_topk_score(warm, qq, RETR_WARM_ROWS, dp,
-                                                            "cuda"), sets, 200)
+                                                            "cuda", exact), sets, 200)
         tp = _time_ms(torch, lambda t, qq: paged_topk_score_ref(t, qq, n, dp), sets, 3)
         tl = _time_ms(torch, lambda t, qq: torch.matmul(qq, x.T), sets, 50)
         if tk["device_ms"] <= 0:
@@ -1134,17 +1315,55 @@ def time_topk_kernel(torch, engine, pool, card: str) -> list:
         nbytes = (n * dp + b * dp + b * n) * 4
         flops = 2 * b * n * dp
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
-        rows.append({"bucket": b, "nrows": n, "dp": dp, "ms": tk["device_ms"],
-                     "warm_ms": tw["device_ms"], "warm_rows": RETR_WARM_ROWS,
-                     "plain_ms": tp["device_ms"], "library_ms": tl["device_ms"],
-                     "loop_ms": {"kernel": tk["loop_ms"], "plain": tp["loop_ms"],
-                                 "library": tl["loop_ms"]},
-                     "device_kernels": {"kernel": tk["device_kernels"],
-                                        "library": tl["device_kernels"]},
-                     "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops,
-                     "bound_ms": max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
-    _emit({"phase": "topk_kernel_timing", "card": card, "shapes": rows})
+        row = {"bucket": b, "nrows": n, "dp": dp,
+               "template": "fma" if exact else "mul_add", "ms": tk["device_ms"],
+               "mul_add_ms" if exact else "fma_ms": tm["device_ms"],
+               "warm_ms": tw["device_ms"], "warm_rows": RETR_WARM_ROWS,
+               "plain_ms": tp["device_ms"], "library_ms": tl["device_ms"],
+               "loop_ms": {"kernel": tk["loop_ms"], "plain": tp["loop_ms"],
+                           "library": tl["loop_ms"]},
+               "device_kernels": {"kernel": tk["device_kernels"],
+                                  "library": tl["device_kernels"]},
+               "bytes": nbytes, "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        scores = paged_topk_score(table, q, n, dp, "cuda", exact)
+        select = {}
+        for name, m in (("unfiltered", None), ("filtered", mask)):
+            keys = paged_topk_select(scores, b, RETR_K, m, TILE, "cuda")
+            # at this size each block walks a run of tiles (about 30 at
+            # bucket 64), which the small cases of check_topk_select do not
+            if not torch.equal(keys, paged_topk_select_ref(scores, b, RETR_K, m, TILE)):
+                raise AssertionError(f"paged_topk_select disagrees with its plain version at "
+                                     f"bucket {b}, {name}, {n} rows")
+            ts = _time_ms(torch, lambda s, mm: paged_topk_select(s, b, RETR_K, mm, TILE, "cuda"),
+                          [(scores, m)], 50)
+            tsp = _time_ms(torch, lambda s, mm: paged_topk_select_ref(s, b, RETR_K, mm, TILE),
+                           [(scores, m)], 5)
+            t2 = _time_ms(torch, lambda kk: topk_keys(kk.reshape(b, -1), RETR_K), [(keys,)], 50)
+            if m is None:
+                tc = _time_ms(torch, lambda s: canonical_topk(s[:b], RETR_K), [(scores,)], 20)
+            else:
+                tc = _time_ms(torch, lambda s, mm: canonical_topk(
+                    torch.where(mm[None, :], s[:b], float("-inf")), RETR_K), [(scores, m)], 20)
+            if ts["device_ms"] <= 0:
+                raise AssertionError("the profiler saw no device time for paged_topk_select")
+            sbytes = b * n * 4 + (n if m is not None else 0) + b * ntiles * kt * 8
+            select[name] = {"stage1_bitwise": True,
+                            "select_ms": ts["device_ms"], "plain_ms": tsp["device_ms"],
+                            "stage2_ms": t2["device_ms"], "canonical_topk_ms": tc["device_ms"],
+                            "bytes": sbytes, "bound_ms": sbytes / HBM_BYTES_PER_S * 1e3,
+                            "candidates_per_query": ntiles * kt,
+                            "loop_ms": {"select": ts["loop_ms"], "stage2": t2["loop_ms"],
+                                        "canonical_topk": tc["loop_ms"]},
+                            "device_kernels": {"stage2": t2["device_kernels"],
+                                               "canonical_topk": tc["device_kernels"]}}
+            del keys
+        row["select"] = select
+        rows.append(row)
+        del scores
+    _emit({"phase": "topk_kernel_timing", "card": card, "tile": TILE, "k": RETR_K,
+           "shapes": rows})
     return rows
 
 
@@ -1189,6 +1408,7 @@ def main(argv=None) -> int:
     check = check_kernel(torch, gen)
     paged_check = check_paged_kernels(torch, gen)
     topk_check = check_topk_kernel(torch, gen)
+    select_check = check_topk_select(torch, gen)
 
     with tempfile.TemporaryDirectory(prefix="euler_smoke_") as tmp:
         # 4. the served path, and its timings
@@ -1271,15 +1491,18 @@ def main(argv=None) -> int:
             "shapes": [{k: r[k] for k in ("hop", "shape", "ms", "warm_ms", "plain_ms",
                                           "library_ms", "bound_ms")} for r in rows],
         })
-    # paged_topk_score: the sums over one search of each bucket
+    # paged_topk_score and paged_topk_select: the sums over one unfiltered
+    # search of each bucket
     t_bytes = sum(r["bytes_ms"] for r in topk_rows if r["bound_by"] == "bytes")
     t_ops = sum(r["ops_ms"] for r in topk_rows if r["bound_by"] == "operations")
+    other = {"fma": "mul_add_ms", "mul_add": "fma_ms"}
     kernels.append({
         "name": "paged_topk_score",
         "route": "cuda",
         "source": "euler_tpu_torch/ops/csrc/topk_score.cu",
         "replaces": "euler_tpu/ops/pallas_kernels.py:534",
-        "launches": retrieved["launches"],
+        "launches": retrieved["launches"]["paged_topk_score"],
+        "templates_on_path": retrieved["templates"],
         "max_abs_err": topk_check["max_abs_err"],
         "check": "bitwise",
         "ms": total(topk_rows, "ms"),
@@ -1289,9 +1512,31 @@ def main(argv=None) -> int:
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": total(topk_rows, "library_ms"),
         "card": card,
-        "shapes": [{k: r[k] for k in ("bucket", "nrows", "dp", "ms", "warm_ms", "plain_ms",
-                                      "library_ms", "bound_ms", "bound_by")}
-                   for r in topk_rows],
+        "shapes": [{**{k: r[k] for k in ("bucket", "nrows", "dp", "template", "ms", "warm_ms",
+                                         "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                    other[r["template"]]: r[other[r["template"]]]} for r in topk_rows],
+    })
+    sel = [r["select"]["unfiltered"] for r in topk_rows]
+    kernels.append({
+        "name": "paged_topk_select",
+        "route": "cuda",
+        "source": "euler_tpu_torch/ops/csrc/topk_score.cu",
+        "replaces": "euler_tpu/retrieval/topk.py:92",
+        "replaces_what": "jax.lax.top_k over the masked scores, outside any Pallas kernel",
+        "launches": retrieved["launches"]["paged_topk_select"],
+        "max_abs_err": select_check["max_abs_err"],
+        "check": "bitwise",
+        "ms": total(sel, "select_ms"),
+        "plain_ms": total(sel, "plain_ms"),
+        "bound_ms": total(sel, "bound_ms"),
+        "bound_by": "bytes",
+        "library_ms": total(sel, "canonical_topk_ms"),
+        "stage2_ms": total(sel, "stage2_ms"),
+        "card": card,
+        "shapes": [{"bucket": r["bucket"], **{k: r["select"][f][k] for k in (
+                        "select_ms", "plain_ms", "stage2_ms", "canonical_topk_ms", "bound_ms")},
+                    "filtered": f == "filtered"}
+                   for r in topk_rows for f in ("unfiltered", "filtered")],
     })
     _emit({"kernels": kernels})
     # 7. the device

@@ -33,8 +33,14 @@ from euler_tpu_torch.ops.paged import (  # noqa: F401
     paged_page_search,
 )
 from euler_tpu_torch.ops.topk_score import (  # noqa: F401
+    operand_range,
+    order_keys,
     paged_topk_score,
     paged_topk_score_ref,
+    paged_topk_select,
+    paged_topk_select_ref,
+    products_exact,
+    topk_keys,
 )
 
 KERNEL_MODES = ("off", "ref", "cuda", "auto")

@@ -45,6 +45,7 @@ KERNELS = {
     "paged_gather_dequant": "paged_gather",
     "paged_cdf_count": "paged_cdf_count",
     "paged_topk_score": "topk_score",
+    "paged_topk_select": "topk_score",
 }
 
 NVCC_FLAGS = (

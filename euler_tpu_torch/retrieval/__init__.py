@@ -4,8 +4,8 @@ device (counterpart: euler_tpu/retrieval/).
   corpus.py  immutable versioned EmbeddingCorpus (checkpoint → paged
              table + id map + attribute columns)
   topk.py    bucket-padded brute-force top-K through the
-             `paged_topk_score` kernel, the independent NumPy oracle,
-             the canonical-order shard merge
+             `paged_topk_score` and `paged_topk_select` kernels, the
+             independent NumPy oracle, the canonical-order shard merge
   server.py  `_CorpusEngine`, the scoring unit of a server (the wire
              server, router and client are not ported yet)
 """

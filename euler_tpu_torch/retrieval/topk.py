@@ -3,8 +3,17 @@ retrieval (counterpart: euler_tpu/retrieval/topk.py).
 
 `TopKIndex` stages one (immutable) corpus's lane-row table on the device
 once and answers masked dot/cosine top-K: the queries are padded up to a
-bucket, scored by `paged_topk_score` (one launch of the CUDA kernel per
-search on the card) and the top k picked in canonical order.
+bucket and scored by `paged_topk_score`, and the top k are picked in
+canonical order. On the card a search is two kernel launches, the scorer
+and `paged_topk_select` (each tile's top k as int64 keys, the mask read
+in the kernel), and one `torch.topk` over the candidates (`topk_keys`).
+The scorer runs its FMA template when `products_exact` holds for the
+search's queries and the corpus (the corpus's |x| range is taken once at
+staging; the queries' on each search), as it does for the unit vectors
+of a cosine corpus; operands whose products could leave f32's normal
+range get the mul/add template. Both give the same bits. On CPU tensors and
+under impl 'ref' the plain versions run: the scorer's loop, the mask as
+`torch.where` and `canonical_topk` over the whole [B, N] scores.
 
 Bit-determinism contract, the JAX package's:
 
@@ -32,7 +41,15 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.device import resolve_device
-from euler_tpu_torch.ops.topk_score import paged_topk_score
+from euler_tpu_torch.ops.paged import _resolve
+from euler_tpu_torch.ops.topk_score import (
+    operand_range,
+    order_keys,
+    paged_topk_score,
+    paged_topk_select,
+    products_exact,
+    topk_keys,
+)
 from euler_tpu_torch.retrieval.corpus import (
     INVALID_ID,
     EmbeddingCorpus,
@@ -43,8 +60,6 @@ from euler_tpu_torch.retrieval.corpus import (
 # query-batch buckets: requests pad up to the smallest fitting bucket;
 # beyond the largest, to its next multiple
 BUCKETS = (1, 4, 16, 64)
-
-_LOW32 = 0xFFFFFFFF
 
 
 def bucket_for(b: int, buckets=BUCKETS) -> int:
@@ -61,15 +76,9 @@ def canonical_topk(scores: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Te
     place included. `torch.topk` alone promises no order among equal
     values, so each score is made unique first: an int64 key whose high
     half orders as the float does and whose low half is the complement of
-    the index. Needs fewer than 2^32 columns."""
-    n = scores.shape[1]
-    key = scores.contiguous().view(torch.int32).to(torch.int64)
-    key ^= (key >> 31) & 0x7FFFFFFF  # negative floats: flip the magnitude bits
-    key *= 1 << 32
-    key += _LOW32 - torch.arange(n, device=scores.device, dtype=torch.int64)
-    top = torch.topk(key, k, dim=1, largest=True, sorted=True).values
-    idx = _LOW32 - (top & _LOW32)
-    return scores.gather(1, idx), idx
+    the index (`order_keys`). The values come back from the keys bit for
+    bit. Needs fewer than 2^32 columns."""
+    return topk_keys(order_keys(scores), k)
 
 
 class TopKIndex:
@@ -89,6 +98,10 @@ class TopKIndex:
         self.table2d = (
             torch.from_numpy(corpus.lane_rows()).to(self.device) if self._n else None
         )
+        # (min nonzero |x|, max |x|) for the FMA template's guard
+        self._x_range = operand_range(corpus.vectors) if self._n else None
+        # kernel-path searches by the scorer template they ran
+        self.templates = {"fma": 0, "mul_add": 0}
         # the (bucket, k) shapes searched so far: the JAX package compiles
         # one program for each, this port runs eagerly
         self._programs: set[tuple[int, int]] = set()
@@ -134,11 +147,20 @@ class TopKIndex:
             if mask.shape != (self._n,):
                 raise ValueError(f"mask must be [{self._n}], got {mask.shape}")
         self._programs.add((bp, keff))
-        s = paged_topk_score(self.table2d, torch.from_numpy(q).to(self.device), self._n,
-                             self._dp, impl=self.impl)
-        if mask is not None:
-            s = torch.where(torch.from_numpy(mask).to(self.device)[None, :], s, float("-inf"))
-        vals, idx = canonical_topk(s[:b], keff)  # the bucket's padding rows are dropped
+        qt = torch.from_numpy(q).to(self.device)
+        mt = None if mask is None else torch.from_numpy(mask).to(self.device)
+        if _resolve(self.impl, self.table2d) == "ref":
+            s = paged_topk_score(self.table2d, qt, self._n, self._dp, impl="ref")
+            if mt is not None:
+                s = torch.where(mt[None, :], s, float("-inf"))
+            vals, idx = canonical_topk(s[:b], keff)  # the bucket's padding rows are dropped
+        else:
+            exact = products_exact(operand_range(q), self._x_range)
+            self.templates["fma" if exact else "mul_add"] += 1
+            s = paged_topk_score(self.table2d, qt, self._n, self._dp, impl=self.impl,
+                                 exact_products=exact)
+            keys = paged_topk_select(s, b, keff, mt, impl=self.impl)  # real queries only
+            vals, idx = topk_keys(keys.reshape(b, -1), keff)
         vals, idx = vals.cpu().numpy(), idx.cpu().numpy()
         ok = vals > -np.inf
         ids[:, :keff] = np.where(ok, self.corpus.ids[np.clip(idx, 0, self._n - 1)], INVALID_ID)

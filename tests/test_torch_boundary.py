@@ -1,6 +1,6 @@
 """The PyTorch port stands alone: importing euler_tpu_torch and every one
 of its modules loads nothing of JAX, of the JAX package or of bench.py,
-no source of the port (or chip_smoke.py) imports them, and no `except`
+no source of the port (or its scripts at the root) imports them, and no `except`
 silences a kernel build or launch."""
 
 import ast
@@ -17,8 +17,11 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu", "bench"}
 # calls that build or launch a kernel: by last name, or qualified
 KERNEL_CALLS = {
     "build_all", "_launch", "_run", "gather_weighted_sum", "paged_gather",
-    "paged_gather_dequant", "paged_cdf_count", "paged_topk_score", "_lib", "_build.load",
+    "paged_gather_dequant", "paged_cdf_count", "paged_topk_score", "paged_topk_select", "_lib",
+    "_build.load",
 }
+# the port's scripts at the root of the repo
+SCRIPTS = ("chip_smoke.py", "select_short_list.py")
 # every module of the slices ported so far
 PORTED = [
     "euler_tpu_torch.serving.runtime", "euler_tpu_torch.ops.gather_weighted_sum",
@@ -34,7 +37,7 @@ PORTED = [
 
 
 def _sources():
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, f) for f in SCRIPTS]
     for dirpath, dirnames, files in os.walk(PKG):
         dirnames[:] = sorted(d for d in dirnames if not d.startswith(("_build", "__")))
         out += [os.path.join(dirpath, f) for f in sorted(files) if f.endswith(".py")]
@@ -116,7 +119,7 @@ def test_source_stands_alone(path):
         tree = ast.parse(f.read(), path)
     assert not _forbidden_imports(tree)
     rel = os.path.relpath(path, ROOT)
-    strict = rel == "chip_smoke.py" or rel.startswith(os.path.join("euler_tpu_torch", "ops"))
+    strict = rel in SCRIPTS or rel.startswith(os.path.join("euler_tpu_torch", "ops"))
     assert not _silencing_handlers(tree, strict), f"{rel}: except without raise"
 
 
