@@ -11,7 +11,15 @@ Phases, each of which raises (exit code != 0) when it fails:
   2. build every CUDA library of the port from the sources in the
      checkout, one nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version on the card:
-     gather_weighted_sum within rtol = atol = 1e-5; paged_gather (int32
+     gather_weighted_sum within rtol = atol = 1e-5 at F in {1, 2, 4, 8,
+     16, 32, 64, 128, 200, 256, 512, 67}, N in {1, 127, 1280, 12800}, D in
+     {1, 3, 10, 25, 64}, iota (the grid path's layout) and random slots, f32
+     and bf16 x, slots outside [0, n_src) (against the plain version with
+     them masked out) and 64-bit offsets; gather_weighted_sum_dx against
+     the plain backward on the same sweep, bitwise for unique slots (iota,
+     permuted) and within 1e-5 of the f32 sum for repeated ones, at 64-bit
+     offsets and through torch.autograd.grad ('cuda' against 'ref');
+     paged_gather (int32
      and f32 planes), paged_gather_dequant and paged_cdf_count bitwise, at
      W in {1, 1024, 10240, 100000} draws-rows, k in {1, 10}, page sizes
      {8, 16, 128}, with padding lanes, r = 0 and r = 0xFFFFFFFF, the first
@@ -25,23 +33,28 @@ Phases, each of which raises (exit code != 0) when it fails:
      compared (rtol = atol = 1e-4) with kernel mode 'ref' on the card and
      with the port on the CPU, from fresh flows with the same seeds;
      then the median predict latency per bucket, the device idle share,
-     and gather_weighted_sum's times at the shapes one bucket-128 predict
-     launches;
+     and gather_weighted_sum's times (with the launch geometry) and its
+     dx kernel's at the shapes one bucket-128 predict launches, each held
+     first against its plain version at those shapes (the forward within
+     1e-5, dx bitwise);
   5. train supervised GraphSAGE at full width on the paged device lane —
      skewed_weighted_graph with 200 000 nodes (seed 13; degree 8-15, 1 %
      hubs at 96-159, bf16 weight plane), DeviceSageFlow(fanouts 10,10,
      batch 1024, layout paged, page size 16), dims 128,128, adam lr 0.01 —
      through `Estimator.train`: (a) 20 steps in kernel mode 'auto', whose
-     launch counts (reset just before) must grow by 6 paged launches and
-     3 gather_weighted_sum launches a step, with finite, falling losses;
+     launch counts (reset just before) must grow by 6 paged launches, 3
+     gather_weighted_sum launches and 1 gather_weighted_sum_dx launch (layer
+     1's backward: layer 0's x are features, with no gradient) a step,
+     with finite, falling losses;
      (b) the first 3 steps again in mode 'ref' on the card: bitwise equal
      batches, losses within 1e-4 relative; (c) 2 steps of the port on the
      CPU from the same draws: losses within 1e-4; (d) 3 steps with the f32
      weight plane: bitwise equal batches; (e) `save()`, and the port's
      InferenceRuntime serves that checkpoint. Then the median step time,
-     the device idle share over 10 profiled steps, and each paged
-     kernel's time at the shapes of the two hops against its plain
-     version, `flat[fidx]` (paged_gather) and its bound;
+     the device idle share over 10 profiled steps, each paged kernel's
+     time at the shapes of the two hops against its plain version,
+     `flat[fidx]` (paged_gather) and its bound, and gather_weighted_sum's
+     and its dx kernel's at the shapes of one step, checked as in 4;
   6. retrieve at full width — 1 000 000 unique random u64 ids x 128-wide
      f32 vectors (seeded; 8 vectors copied to 80 rows each, so the
      queries that are those vectors tie at the k-th place), a `cat`
@@ -59,7 +72,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      the select kernel, the rest of the selection and copies, the idle
      share, the scorer under both templates against its plain version,
      torch.matmul and its bound, and the select kernel against its plain
-     version, stage 2, `canonical_topk` and its bound.
+     version, stage 2, `canonical_topk`, `torch.topk` over the masked
+     scores and its bound.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
 {1, 2, 3, 8, 16, 20, 64, 65}, sig12 and raw f32 operands with a padded tail, an
@@ -100,6 +114,11 @@ NUM_NODES, OUT_DEGREE, FEAT_DIM, LABEL_DIM, GRAPH_SEED = 200_000, 10, 64, 2, 3
 DIMS, FANOUTS, BUCKETS = "128,128", "10,10", "8,32,128"
 REQUEST_SIZES = (1, 8, 16, 32, 100, 128, 300)
 KERNEL_TOL = 1e-5
+# kernel 1's sweep: the paths' widths (16 train, 64 serve, 128 hidden), every
+# lane group (F = 1-32), chunked rows (200-512) and the scalar path (67)
+GWS_SWEEP_F = (1, 2, 4, 8, 16, 32, 64, 128, 200, 256, 512, 67)
+GWS_SWEEP_N = (1, 127, 1280, 12800)
+GWS_SWEEP_D = (1, 3, 10, 25, 64)
 SERVE_TOL = 1e-4
 
 # the training cell: bench.py's paged lane (`_paged_device_ab`, the graph
@@ -143,6 +162,25 @@ def _emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def _gws_slots(torch, gen, kind: str, n: int, d: int):
+    """(slots int32 [n, d], n_src) of one kind: 'iota' (the grid path's
+    layout, every source row cited once), 'perm' (unique, scattered) or
+    'random' (repeats)."""
+    dev = torch.device("cuda")
+    if kind == "iota":
+        return torch.arange(n * d, device=dev, dtype=torch.int32).reshape(n, d), n * d
+    if kind == "perm":
+        n_src = n * d + 17
+        perm = torch.randperm(n_src, generator=gen, device=dev)[: n * d]
+        return perm.to(torch.int32).reshape(n, d), n_src
+    n_src = max(4096, n)
+    return torch.randint(0, n_src, (n, d), generator=gen, device=dev, dtype=torch.int32), n_src
+
+
+def _bits(torch, t):
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
 def check_kernel(torch, gen) -> dict:
     """Phase 3: gather_weighted_sum kernel vs its plain version."""
     from euler_tpu_torch.ops import gather_weighted_sum, gather_weighted_sum_ref
@@ -150,10 +188,11 @@ def check_kernel(torch, gen) -> dict:
     dev = torch.device("cuda")
     cases, failed, max_err = 0, [], 0.0
 
-    def one(x, slots, w, label):
+    def one(x, slots, w, label, ref_slots=None, ref_w=None):
         nonlocal cases, max_err
         out = gather_weighted_sum(x, slots, w, "cuda")
-        ref = gather_weighted_sum_ref(x, slots, w)
+        ref = gather_weighted_sum_ref(x, slots if ref_slots is None else ref_slots,
+                                      w if ref_w is None else ref_w)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max()) if out.numel() else 0.0
         cases += 1
@@ -162,17 +201,31 @@ def check_kernel(torch, gen) -> dict:
             failed.append({"case": label, "max_abs_err": err})
 
     for dtype in (torch.float32, torch.bfloat16):
-        # F=67 is not a multiple of 4: the scalar-load path
-        for f in (64, 128, 200, 256, 512, 67):
-            for n in (1, 127, 1280, 12800):
-                for d in (10, 25):
-                    n_src = max(4096, n)
-                    x = torch.randn(n_src, f, generator=gen, device=dev).to(dtype)
-                    slots = torch.randint(
-                        0, n_src, (n, d), generator=gen, device=dev, dtype=torch.int32
-                    )
-                    w = torch.rand(n, d, generator=gen, device=dev)
-                    one(x, slots, w, f"{dtype} N={n} D={d} F={f}")
+        # F = 67 is not a multiple of 4: the scalar-load path; F = 1-32 the
+        # lane groups narrower than a warp
+        for f in GWS_SWEEP_F:
+            for n in GWS_SWEEP_N:
+                for d in GWS_SWEEP_D:
+                    for kind in ("iota", "random"):
+                        slots, n_src = _gws_slots(torch, gen, kind, n, d)
+                        x = torch.randn(n_src, f, generator=gen, device=dev).to(dtype)
+                        w = torch.rand(n, d, generator=gen, device=dev)
+                        one(x, slots, w, f"{dtype} {kind} N={n} D={d} F={f}")
+        # slots outside [0, n_src) contribute nothing: held against the
+        # plain version with those slots masked out
+        for f in (4, 16, 64, 67, 128):
+            n, d, n_src = 1280, 10, 4096
+            slots = torch.randint(0, n_src, (n, d), generator=gen, device=dev, dtype=torch.int32)
+            bad = torch.tensor([-1, n_src, n_src + 7, -2**31, 2**31 - 1], device=dev,
+                               dtype=torch.int32)
+            pick = torch.randint(0, bad.numel(), (n, d), generator=gen, device=dev)
+            out_of_range = torch.rand(n, d, generator=gen, device=dev) < 0.2
+            slots = torch.where(out_of_range, bad[pick], slots)
+            x = torch.randn(n_src, f, generator=gen, device=dev).to(dtype)
+            w = torch.rand(n, d, generator=gen, device=dev)
+            one(x, slots, w, f"{dtype} out-of-range slots N={n} D={d} F={f}",
+                ref_slots=torch.where(out_of_range, 0, slots),
+                ref_w=torch.where(out_of_range, 0.0, w))
     # 64-bit row offsets: slot * F passes 2^31 elements
     f = 512
     n_src = 2**31 // f + 4096
@@ -190,6 +243,87 @@ def check_kernel(torch, gen) -> dict:
     _emit(res)
     if failed:
         raise AssertionError(f"gather_weighted_sum disagrees with its plain version: {failed}")
+    return res
+
+
+def check_dx(torch, gen) -> dict:
+    """Phase 3b: the dx kernel vs the plain backward
+    (gather_weighted_sum_dx_ref): bitwise where no slot repeats (iota and
+    permuted slots, dx cast to f32 and to bf16), within rtol = atol = 1e-5
+    where slots repeat (the f32 sum before the cast: the adds' order
+    changes from run to run, and a cast of two f32 sums 1e-7 apart can land
+    on neighbouring bf16 values); the 64-bit offsets case; and
+    torch.autograd.grad through gather_weighted_sum 'cuda' against 'ref'."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.ops import (
+        gather_weighted_sum,
+        gather_weighted_sum_dx,
+        gather_weighted_sum_dx_ref,
+    )
+
+    dev = torch.device("cuda")
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases, failed, max_err = 0, [], 0.0
+
+    def one(got, want, label, bitwise):
+        nonlocal cases, max_err
+        torch.cuda.synchronize()
+        ok = (torch.equal(_bits(torch, got), _bits(torch, want)) if bitwise
+              else torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL))
+        err = 0.0
+        if got.numel() and not (bitwise and ok):
+            err = float((got.float() - want.float()).abs().max())
+        cases += 1
+        max_err = max(max_err, err)
+        if not ok:
+            failed.append({"case": label, "max_abs_err": err, "bitwise": bitwise})
+
+    for f in GWS_SWEEP_F:
+        for n in GWS_SWEEP_N:
+            for d in GWS_SWEEP_D:
+                g = torch.randn(n, f, generator=gen, device=dev)
+                w = torch.rand(n, d, generator=gen, device=dev)
+                for kind in ("iota", "perm", "random"):
+                    slots, n_src = _gws_slots(torch, gen, kind, n, d)
+                    for dtype in ((f32, bf16) if kind != "random" else (f32,)):
+                        one(gather_weighted_sum_dx(w, g, slots, n_src, dtype, "cuda"),
+                            gather_weighted_sum_dx_ref(w, g, slots, n_src, dtype),
+                            f"{kind} {dtype} N={n} D={d} F={f}", kind != "random")
+    # 64-bit offsets: today's 2^31-element bf16 case, iota slots in the
+    # table's top rows
+    f, n, d = 512, 1280, 10
+    n_src = 2**31 // f + 4096
+    slots = (n_src - n * d + torch.arange(n * d, device=dev, dtype=torch.int32)).reshape(n, d)
+    g = torch.randn(n, f, generator=gen, device=dev)
+    w = torch.rand(n, d, generator=gen, device=dev)
+    one(gather_weighted_sum_dx(w, g, slots, n_src, bf16, "cuda"),
+        gather_weighted_sum_dx_ref(w, g, slots, n_src, bf16),
+        f"iota bf16 N={n} D={d} F={f} n_src={n_src} (int64 offsets)", True)
+    torch.cuda.empty_cache()
+    # the autograd path: dx through the kernel, dw plain in both
+    for dtype, kind, f in ((f32, "iota", 128), (f32, "random", 128), (bf16, "iota", 16),
+                           (f32, "iota", 67), (f32, "random", 16)):
+        slots, n_src = _gws_slots(torch, gen, kind, 1024, 10)
+        x0 = torch.randn(n_src, f, generator=gen, device=dev).to(dtype)
+        w0 = torch.rand(1024, 10, generator=gen, device=dev)
+        gout = torch.randn(1024, f, generator=gen, device=dev)
+        grads = {}
+        for impl in ("cuda", "ref"):
+            x, w = x0.clone().requires_grad_(), w0.clone().requires_grad_()
+            before = ops.launch_counts()["gather_weighted_sum_dx"]
+            grads[impl] = torch.autograd.grad(gather_weighted_sum(x, slots, w, impl), (x, w), gout)
+            launched = ops.launch_counts()["gather_weighted_sum_dx"] - before
+            if launched != (impl == "cuda"):
+                raise AssertionError(
+                    f"autograd under {impl} launched the dx kernel {launched} times")
+        for name, a, b in zip(("dx", "dw"), grads["cuda"], grads["ref"]):
+            one(a, b, f"autograd {name} {kind} {dtype} F={f}", kind == "iota")
+    res = {"phase": "kernel_check", "kernel": "gather_weighted_sum_dx",
+           "cases": cases, "max_abs_err": max_err, "rtol": KERNEL_TOL,
+           "atol": KERNEL_TOL, "failed": failed}
+    _emit(res)
+    if failed:
+        raise AssertionError(f"gather_weighted_sum_dx disagrees with its plain version: {failed}")
     return res
 
 
@@ -250,10 +384,10 @@ def serve(torch, data_dir: str, model_dir: str | None, seed: int) -> dict:
     launches = ops.launch_counts()
     main_batches = rt.device_batches
     want = 3 * main_batches  # two layers: 2 + 1 grid convs per batch
-    if launches["gather_weighted_sum"] != want:
+    if launches["gather_weighted_sum"] != want or launches["gather_weighted_sum_dx"]:
         raise AssertionError(
-            f"served path launched gather_weighted_sum {launches} times, "
-            f"expected {want} ({main_batches} device batches)"
+            f"served path launched {launches}, expected {want} gather_weighted_sum "
+            f"launches ({main_batches} device batches) and no gather_weighted_sum_dx"
         )
     for r, o in zip(requests, outs):
         if o.shape != (len(r), int(DIMS.split(",")[-1])) or not np.isfinite(o).all():
@@ -280,7 +414,7 @@ def serve(torch, data_dir: str, model_dir: str | None, seed: int) -> dict:
            "params": "--model-dir" if model_dir else f"init_like_flax(seed={seed})"}
     _emit(res)
     return {"runtime": rt, "launches": launches["gather_weighted_sum"],
-            "req_rng": req_rng}
+            "launches_dx": launches["gather_weighted_sum_dx"], "req_rng": req_rng}
 
 
 def time_predict(rt, req_rng, reps: int = 30) -> dict:
@@ -317,6 +451,13 @@ def _device_times(prof) -> dict:
         if us > 0:
             out[e.key] = float(us)
     return out
+
+
+def _kernel1_us(dev: dict, per: int) -> dict:
+    """Device µs of kernel 1's forward and dx launches in a profile
+    window, per predict or step."""
+    return {part: sum(v for k, v in dev.items() if f"::{name}<" in k) / per
+            for part, name in (("forward", "gws_kernel"), ("dx", "gws_dx_kernel"))}
 
 
 def _profile_window(torch, body, windows: int = PROFILE_WINDOWS) -> tuple[dict, float]:
@@ -383,10 +524,16 @@ def gws_shapes(b: int, f0: int) -> tuple:
 
 def time_kernels(torch, gen, shapes, what: str) -> list:
     """gather_weighted_sum, its plain version and embedding_bag at
-    `shapes` (gws_shapes), inputs cycled past the L2."""
+    `shapes` (gws_shapes), inputs cycled past the L2; `warm_ms` the kernel
+    on one input set, left in the L2 by the call before, as the path's
+    inputs are (the op before has just written them)."""
     import torch.nn.functional as F
 
-    from euler_tpu_torch.ops import gather_weighted_sum, gather_weighted_sum_ref
+    from euler_tpu_torch.ops import (
+        gather_weighted_sum,
+        gather_weighted_sum_ref,
+        launch_geometry,
+    )
 
     dev = torch.device("cuda")
     rows = []
@@ -400,8 +547,16 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
             slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
             w = torch.rand(n, d, generator=gen, device=dev)
             sets.append((x, slots, w, slots.long()))
+        x, slots, w, _ = sets[0]
+        out, ref = gather_weighted_sum(x, slots, w, "cuda"), gather_weighted_sum_ref(x, slots, w)
+        err = float((out - ref).abs().max())
+        if not torch.allclose(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL):
+            raise AssertionError(f"gather_weighted_sum disagrees with its plain version at "
+                                 f"{what} {label}: max abs err {err}")
         iters = max(200, 2 * copies)
         kern = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum(x, s, w, "cuda"), sets, iters)
+        warm = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum(x, s, w, "cuda"),
+                        sets[:1], 200)
         plain = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum_ref(x, s, w), sets, iters)
         lib = _time_ms(
             torch,
@@ -416,8 +571,9 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
         flops = 2 * n * d * f
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         rows.append({"shape": label, "N": n, "D": d, "F": f, "n_src": n_src,
-                     "ms": kern["device_ms"], "plain_ms": plain["device_ms"],
-                     "library_ms": lib["device_ms"],
+                     "geometry": launch_geometry(sets[0][0], sets[0][1]),
+                     "max_abs_err": err, "ms": kern["device_ms"], "warm_ms": warm["device_ms"],
+                     "plain_ms": plain["device_ms"], "library_ms": lib["device_ms"],
                      "loop_ms": {"kernel": kern["loop_ms"], "plain": plain["loop_ms"],
                                  "library": lib["loop_ms"]},
                      "device_kernels": {"kernel": kern["device_kernels"],
@@ -429,6 +585,77 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
                      "iters": iters})
         del sets
     _emit({"phase": "kernel_timing", "kernel": "gather_weighted_sum",
+           "what": what, "shapes": rows})
+    return rows
+
+
+def time_dx(torch, gen, shapes, what: str) -> list:
+    """gather_weighted_sum's dx at `shapes` (gws_shapes), inputs cycled
+    past the L2: the dx kernel with its memset, held bitwise against the
+    plain backward (`gather_weighted_sum_dx_ref`) first, the plain backward and
+    embedding_bag's backward with respect to the table (per-sample
+    weights, mode sum; its forward runs outside the timed window);
+    `warm_ms` the kernel on one input set, left in the L2. The bound: g,
+    slots and w read once, dx written once."""
+    import torch.nn.functional as F
+
+    from euler_tpu_torch.ops import (
+        gather_weighted_sum_dx,
+        gather_weighted_sum_dx_ref,
+        launch_geometry,
+    )
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    rows = []
+    for label, n, d, f in shapes:
+        n_src = n * d
+        set_bytes = n * f * 4 + n * d * 8 + 3 * n_src * f * 4
+        copies = min(512, max(2, math.ceil(2 * L2_BYTES / set_bytes)))
+        sets = []
+        for _ in range(copies):
+            g = torch.randn(n, f, generator=gen, device=dev)
+            slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
+            w = torch.rand(n, d, generator=gen, device=dev)
+            table = torch.randn(n_src, f, generator=gen, device=dev, requires_grad=True)
+            out = F.embedding_bag(slots.long(), table, per_sample_weights=w, mode="sum")
+            sets.append((g, slots, w, table, out))
+        def run(g, s, w, t, o):
+            return gather_weighted_sum_dx(w, g, s, n_src, f32, "cuda")
+
+        # iota slots: no two adds land on one element, so the kernel is exact
+        g, slots, w, _, _ = sets[0]
+        if not torch.equal(_bits(torch, run(*sets[0])),
+                           _bits(torch, gather_weighted_sum_dx_ref(w, g, slots, n_src, f32))):
+            raise AssertionError(f"gather_weighted_sum_dx is not bitwise the plain backward "
+                                 f"at {what} {label}")
+        iters = max(200, 2 * copies)
+        timed = {
+            "plain": _time_ms(torch, lambda g, s, w, t, o: gather_weighted_sum_dx_ref(
+                w, g, s, n_src, f32), sets, iters),
+            "library": _time_ms(torch, lambda g, s, w, t, o: torch.autograd.grad(
+                o, t, g, retain_graph=True), sets, iters),
+            "kernel": _time_ms(torch, run, sets, iters),
+            "warm": _time_ms(torch, run, sets[:1], 200),
+        }
+        if timed["kernel"]["device_ms"] <= 0:
+            raise AssertionError("the profiler saw no device time for the dx kernel")
+        nbytes = n * f * 4 + n * d * (4 + 4) + n_src * f * 4
+        flops = 2 * n * d * f
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+        rows.append({"shape": label, "N": n, "D": d, "F": f, "n_src": n_src,
+                     "geometry": launch_geometry(sets[0][0], sets[0][1]), "bitwise": True,
+                     "ms": timed["kernel"]["device_ms"], "warm_ms": timed["warm"]["device_ms"],
+                     "plain_ms": timed["plain"]["device_ms"],
+                     "library_ms": timed["library"]["device_ms"],
+                     "loop_ms": {k: v["loop_ms"] for k, v in timed.items()},
+                     "device_kernels": {k: v["device_kernels"] for k, v in timed.items()},
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "bytes": nbytes, "flops": flops, "input_sets": copies,
+                     "iters": iters})
+        del sets
+    _emit({"phase": "kernel_timing", "kernel": "gather_weighted_sum_dx",
            "what": what, "shapes": rows})
     return rows
 
@@ -454,6 +681,7 @@ def profile_predict(torch, rt, req_rng, reps: int = 20) -> dict:
            "wall_ms_per_predict": wall_ms / reps,
            "device_ms_per_predict": busy_ms / reps,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernel1_us_per_predict": _kernel1_us(dev, reps),
            "top_device_us_per_predict": {k: v / reps for k, v in top}}
     _emit(res)
     return res
@@ -658,8 +886,11 @@ def train(torch, tmp: str, seed: int) -> dict:
         tap = _Tap(flow, REF_STEPS)
         losses, launches, main_s = run(est, TRAIN_STEPS, "auto")
         tap.close()
+        # kernel 1: layer 0 over hops 0 and 1, layer 1 over hop 0; its dx
+        # only for layer 1, whose x (layer 0's hop-1 output) carries a
+        # gradient, where layer 0's x are features
         want = {"paged_gather": 2, "paged_gather_dequant": 2, "paged_cdf_count": 2,
-                "gather_weighted_sum": 3}
+                "gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
         for name, per_step in want.items():
             if launches[name] != per_step * TRAIN_STEPS:
                 raise AssertionError(
@@ -759,6 +990,7 @@ def time_train_steps(torch, est, card: str) -> dict:
            "profiled_steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms / PROFILED_STEPS,
            "device_ms_per_step": busy_ms / PROFILED_STEPS,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "kernel1_us_per_step": _kernel1_us(dev, PROFILED_STEPS),
            "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
     _emit(res)
     return res
@@ -1274,7 +1506,9 @@ def time_topk_kernel(torch, engine, pool, card: str) -> list:
     the plain version's), its plain version, stage 2
     (`torch.topk` over the candidates and the decoding), and
     `canonical_topk` over the [B, 1 M] scores (after the `torch.where` mask
-    when filtered), the one-pass selection the path ran before. Its bound:
+    when filtered), the one-pass selection the path ran before, and
+    `torch.topk` over the same masked scores, the one PyTorch call that
+    gives stage 1 + stage 2's answer (ties aside). Its bound:
     the scores (4 B a row a query) and the mask (1 B a row) read once, the
     candidates (8 B each) written once, over 3.35 TB/s."""
     from euler_tpu_torch.ops import (
@@ -1343,19 +1577,25 @@ def time_topk_kernel(torch, engine, pool, card: str) -> list:
             t2 = _time_ms(torch, lambda kk: topk_keys(kk.reshape(b, -1), RETR_K), [(keys,)], 50)
             if m is None:
                 tc = _time_ms(torch, lambda s: canonical_topk(s[:b], RETR_K), [(scores,)], 20)
+                tt = _time_ms(torch, lambda s: torch.topk(s[:b], RETR_K, dim=1), [(scores,)], 20)
             else:
                 tc = _time_ms(torch, lambda s, mm: canonical_topk(
                     torch.where(mm[None, :], s[:b], float("-inf")), RETR_K), [(scores, m)], 20)
+                tt = _time_ms(torch, lambda s, mm: torch.topk(
+                    torch.where(mm[None, :], s[:b], float("-inf")), RETR_K, dim=1),
+                    [(scores, m)], 20)
             if ts["device_ms"] <= 0:
                 raise AssertionError("the profiler saw no device time for paged_topk_select")
             sbytes = b * n * 4 + (n if m is not None else 0) + b * ntiles * kt * 8
             select[name] = {"stage1_bitwise": True,
                             "select_ms": ts["device_ms"], "plain_ms": tsp["device_ms"],
                             "stage2_ms": t2["device_ms"], "canonical_topk_ms": tc["device_ms"],
+                            "torch_topk_ms": tt["device_ms"],
                             "bytes": sbytes, "bound_ms": sbytes / HBM_BYTES_PER_S * 1e3,
                             "candidates_per_query": ntiles * kt,
                             "loop_ms": {"select": ts["loop_ms"], "stage2": t2["loop_ms"],
-                                        "canonical_topk": tc["loop_ms"]},
+                                        "canonical_topk": tc["loop_ms"],
+                                        "torch_topk": tt["loop_ms"]},
                             "device_kernels": {"stage2": t2["device_kernels"],
                                                "canonical_topk": tc["device_kernels"]}}
             del keys
@@ -1406,6 +1646,7 @@ def main(argv=None) -> int:
 
     # 3. kernels against their plain versions
     check = check_kernel(torch, gen)
+    dx_check = check_dx(torch, gen)
     paged_check = check_paged_kernels(torch, gen)
     topk_check = check_topk_kernel(torch, gen)
     select_check = check_topk_select(torch, gen)
@@ -1437,6 +1678,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
+    dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
+               + time_dx(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step"))
+    # the path's one dx a step: layer 1 over hop 0 of a train step
+    dx_path = dx_rows[-1]
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -1463,10 +1708,36 @@ def main(argv=None) -> int:
         "bound_by": bound_by(serve_rows),
         "library_ms": total(serve_rows, "library_ms"),
         "card": card,
-        "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "ms", "plain_ms",
-                                      "library_ms", "bound_ms")} for r in serve_rows],
+        "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "geometry", "max_abs_err", "ms",
+                                      "warm_ms", "plain_ms", "library_ms", "bound_ms")}
+                   for r in serve_rows],
         "train_step": {k: total(train_rows, k) for k in ("ms", "plain_ms", "library_ms",
                                                           "bound_ms")},
+        "train_shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "geometry", "max_abs_err",
+                                            "ms", "warm_ms", "plain_ms", "library_ms",
+                                            "bound_ms")}
+                         for r in train_rows],
+    }, {
+        "name": "gather_weighted_sum_dx",
+        "route": "cuda",
+        "source": "euler_tpu_torch/ops/csrc/gather_weighted_sum.cu",
+        "replaces": "euler_tpu/ops/pallas_kernels.py:166-187",
+        "replaces_what": "the custom VJP's dx of gather_weighted_sum: a scatter-add of w*g "
+                         "in plain JAX, outside any Pallas kernel",
+        "launches": served["launches_dx"] + train_launches["gather_weighted_sum_dx"],
+        "launches_by_path": {"serve": served["launches_dx"],
+                             "train": train_launches["gather_weighted_sum_dx"]},
+        "max_abs_err": dx_check["max_abs_err"],
+        "check": "bitwise for unique slots, rtol = atol = 1e-5 for repeats",
+        "ms": dx_path["ms"],
+        "plain_ms": dx_path["plain_ms"],
+        "bound_ms": dx_path["bound_ms"],
+        "bound_by": dx_path["bound_by"],
+        "library_ms": dx_path["library_ms"],
+        "library": "embedding_bag backward with respect to the table",
+        "card": card,
+        "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "geometry", "ms", "warm_ms",
+                                      "plain_ms", "library_ms", "bound_ms")} for r in dx_rows],
     }]
     sources = {"paged_gather": ("paged_gather.cu", 247),
                "paged_gather_dequant": ("paged_gather.cu", 356),
@@ -1531,10 +1802,12 @@ def main(argv=None) -> int:
         "bound_ms": total(sel, "bound_ms"),
         "bound_by": "bytes",
         "library_ms": total(sel, "canonical_topk_ms"),
+        "torch_topk_ms": total(sel, "torch_topk_ms"),
         "stage2_ms": total(sel, "stage2_ms"),
         "card": card,
         "shapes": [{"bucket": r["bucket"], **{k: r["select"][f][k] for k in (
-                        "select_ms", "plain_ms", "stage2_ms", "canonical_topk_ms", "bound_ms")},
+                        "select_ms", "plain_ms", "stage2_ms", "canonical_topk_ms",
+                        "torch_topk_ms", "bound_ms")},
                     "filtered": f == "filtered"}
                    for r in topk_rows for f in ("unfiltered", "filtered")],
     })

@@ -17,7 +17,10 @@ from euler_tpu_torch.ops._build import (  # noqa: F401
 )
 from euler_tpu_torch.ops.gather_weighted_sum import (  # noqa: F401
     gather_weighted_sum,
+    gather_weighted_sum_dx,
+    gather_weighted_sum_dx_ref,
     gather_weighted_sum_ref,
+    launch_geometry,
 )
 from euler_tpu_torch.ops.mp_ops import gather, scatter_add  # noqa: F401
 from euler_tpu_torch.ops.paged import (  # noqa: F401

@@ -21,6 +21,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,6 +42,7 @@ SOURCES = {
 # kernel name → the library that holds it
 KERNELS = {
     "gather_weighted_sum": "gather_weighted_sum",
+    "gather_weighted_sum_dx": "gather_weighted_sum",
     "paged_gather": "paged_gather",
     "paged_gather_dequant": "paged_gather",
     "paged_cdf_count": "paged_cdf_count",
@@ -165,6 +167,36 @@ def _read(path: str) -> str:
         return ""
     with open(path) as f:
         return f.read()
+
+
+def source(name: str) -> str:
+    """The text of library `name`'s CUDA source."""
+    return _read(os.path.join(CSRC, SOURCES[name]))
+
+
+def build_variant(name: str, tag: str, subs: dict[str, str]) -> tuple[str, str]:
+    """(library file, nvcc log) of a copy of library `name`'s source in
+    which every match of each regex of `subs` (each must match) is
+    replaced by its value, built into `BUILD_ROOT/<name>-<tag>/`. Tuning scripts
+    use it to time other values of a source's constants; the port's own
+    kernels never load such a copy. Raises if nvcc fails."""
+    text = source(name)
+    for pattern, repl in subs.items():
+        text, hits = re.subn(pattern, repl, text)
+        if not hits:
+            raise RuntimeError(f"{SOURCES[name]}: {pattern!r} matches nothing")
+    bdir = os.path.join(BUILD_ROOT, f"{name}-{tag}")
+    os.makedirs(bdir, exist_ok=True)
+    src = os.path.join(bdir, SOURCES[name])
+    with open(src, "w") as f:
+        f.write(text)
+    lib = os.path.join(bdir, f"lib{name}.so")
+    proc = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", lib, src],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"CUDA kernel build failed: {src} (nvcc exit {proc.returncode}):\n"
+                           f"{proc.stdout}")
+    return lib, proc.stdout
 
 
 def load(name: str) -> ctypes.CDLL:

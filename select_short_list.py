@@ -24,26 +24,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
-import os
 import re
-import subprocess
 import sys
 from concurrent.futures import ThreadPoolExecutor
 
 import chip_smoke as cs
 
-SHORT_LIST_RE = re.compile(r"constexpr int kShortList = (\d+);")
+SHORT_LIST_RE = r"constexpr int kShortList = (\d+);"
 WARPS, LANES, PER_LANE = 8, 32, 32  # the select block at tile 8192: 256 threads x 32 rows
-
-
-def _source() -> str:
-    from euler_tpu_torch.ops import _build
-
-    with open(os.path.join(_build.CSRC, _build.SOURCES["topk_score"])) as f:
-        text = f.read()
-    if len(SHORT_LIST_RE.findall(text)) != 1:
-        raise RuntimeError("topk_score.cu no longer sets kShortList in one place")
-    return text
 
 
 def build_variant(short_list: int) -> ctypes.CDLL:
@@ -51,14 +39,8 @@ def build_variant(short_list: int) -> ctypes.CDLL:
     short_list."""
     from euler_tpu_torch.ops import _build
 
-    bdir = os.path.join(_build.BUILD_ROOT, f"topk_score-short-list-{short_list}")
-    os.makedirs(bdir, exist_ok=True)
-    copy = os.path.join(bdir, "topk_score.cu")
-    with open(copy, "w") as f:
-        f.write(SHORT_LIST_RE.sub(f"constexpr int kShortList = {short_list};", _source()))
-    lib = os.path.join(bdir, "libtopk_score.so")
-    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o", lib, copy], check=True,
-                   capture_output=True)
+    lib, _ = _build.build_variant("topk_score", f"short-list-{short_list}",
+                                  {SHORT_LIST_RE: f"constexpr int kShortList = {short_list};"})
     dll = ctypes.CDLL(lib)
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     dll.euler_paged_topk_select_launch.argtypes = [ptr, i64, i32, ptr, ptr, i32, i32, ptr]
@@ -124,7 +106,9 @@ def main(argv=None) -> int:
         print("select_short_list: no CUDA device; nothing was run", file=sys.stderr)
         return 1
     print(cs._card_line(), flush=True)
-    built_short_list = int(SHORT_LIST_RE.search(_source()).group(1))
+    from euler_tpu_torch.ops import _build
+
+    built_short_list = int(re.search(SHORT_LIST_RE, _build.source("topk_score")).group(1))
     with ThreadPoolExecutor(max(1, len(args.variants))) as pool:  # one nvcc each, at once
         dlls = dict(zip(args.variants, pool.map(build_variant, args.variants)))
     data = cs.retrieval_data(args.seed)

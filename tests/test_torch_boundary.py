@@ -16,12 +16,13 @@ PKG = os.path.join(ROOT, "euler_tpu_torch")
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu", "bench"}
 # calls that build or launch a kernel: by last name, or qualified
 KERNEL_CALLS = {
-    "build_all", "_launch", "_run", "gather_weighted_sum", "paged_gather",
+    "build_all", "_launch", "_launch_dx", "_run", "gather_weighted_sum",
+    "gather_weighted_sum_dx", "paged_gather",
     "paged_gather_dequant", "paged_cdf_count", "paged_topk_score", "paged_topk_select", "_lib",
     "_build.load",
 }
 # the port's scripts at the root of the repo
-SCRIPTS = ("chip_smoke.py", "select_short_list.py")
+SCRIPTS = ("chip_smoke.py", "select_short_list.py", "gws_variants.py")
 # every module of the slices ported so far
 PORTED = [
     "euler_tpu_torch.serving.runtime", "euler_tpu_torch.ops.gather_weighted_sum",
