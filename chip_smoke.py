@@ -23,7 +23,15 @@ Phases, each of which raises (exit code != 0) when it fails:
      and f32 planes), paged_gather_dequant and paged_cdf_count bitwise, at
      W in {1, 1024, 10240, 100000} draws-rows, k in {1, 10}, page sizes
      {8, 16, 128}, with padding lanes, r = 0 and r = 0xFFFFFFFF, the first
-     and last elements and odd and even bf16 halves;
+     and last elements and odd and even bf16 halves; paged_sample_hop
+     bitwise against paged_sample_hop_ref on tables the flow's own staging
+     (DeviceGraphTables) builds from a 3 000-node graph with hubs of 256,
+     257, 270, 600 and 4 200 edges (past 32 pages at every page size),
+     degree-0 rows and two trailing degree-0 nodes: page sizes {1, 8, 16,
+     128} x packed bf16 and f32 weight planes (3 zero-weight rows) and unit
+     weights x k in {1, 3, 10, 12, 17, 33}, every row plus the hubs 8 times,
+     draws at page bounds and one below and above, r = 0 and 0xFFFFFFFF,
+     and the train path's hop shapes at page size 16;
   4. serve supervised GraphSAGE at full width — random_graph with 200 000
      nodes, out-degree 10, 64-wide f32 features; fanouts 10,10; dims
      128,128; buckets 8,32,128 — through `tools.serve.build_runtime` and
@@ -42,19 +50,25 @@ Phases, each of which raises (exit code != 0) when it fails:
      hubs at 96-159, bf16 weight plane), DeviceSageFlow(fanouts 10,10,
      batch 1024, layout paged, page size 16), dims 128,128, adam lr 0.01 —
      through `Estimator.train`: (a) 20 steps in kernel mode 'auto', whose
-     launch counts (reset just before) must grow by 6 paged launches, 3
-     gather_weighted_sum launches and 1 gather_weighted_sum_dx launch (layer
-     1's backward: layer 0's x are features, with no gradient) a step,
-     with finite, falling losses;
+     launch counts (reset just before) must grow by 2 paged_sample_hop
+     launches (one a hop, and none of kernels 2-4), 3 gather_weighted_sum
+     launches and 1 gather_weighted_sum_dx launch (layer 1's backward:
+     layer 0's x are features, with no gradient) a step, with finite,
+     falling losses;
      (b) the first 3 steps again in mode 'ref' on the card: bitwise equal
      batches, losses within 1e-4 relative; (c) 2 steps of the port on the
      CPU from the same draws: losses within 1e-4; (d) 3 steps with the f32
-     weight plane: bitwise equal batches; (e) `save()`, and the port's
-     InferenceRuntime serves that checkpoint. Then the median step time,
-     the device idle share over 10 profiled steps, each paged kernel's
-     time at the shapes of the two hops against its plain version,
-     `flat[fidx]` (paged_gather) and its bound, and gather_weighted_sum's
-     and its dx kernel's at the shapes of one step, checked as in 4;
+     weight plane: bitwise equal batches, 2 hop launches a step; (e)
+     `save()`, and the port's InferenceRuntime serves that checkpoint.
+     Then the median step time, the device idle share and the kernel
+     launches a step over 10 profiled steps; paged_sample_hop per hop on
+     the path's tables, rows and draws (held bitwise first), cycled past the
+     L2 and L2-warm, against its plain version, the composition of kernels
+     2-4 it replaced (mode 'cuda') and its bound; each of kernels 2-4 at
+     the inputs the hop's plain version gives them, against its plain
+     version, `flat[fidx]` (paged_gather) and its bound; and
+     gather_weighted_sum's and its dx kernel's at the shapes of one step,
+     checked as in 4;
   6. retrieve at full width — 1 000 000 unique random u64 ids x 128-wide
      f32 vectors (seeded; 8 vectors copied to 80 rows each, so the
      queries that are those vectors tie at the k-th place), a `cat`
@@ -129,6 +143,13 @@ TRAIN_STEPS, REF_STEPS, CPU_STEPS, F32_STEPS = 20, 3, 2, 3
 TIMED_STEPS, PROFILED_STEPS = 15, 10
 TRAIN_TOL = 1e-4
 PAGED_KERNELS = ("paged_gather", "paged_gather_dequant", "paged_cdf_count")
+# kernel 2-4h, one hop of the paged draw, and the graph of its sweep: hubs
+# of 256 / 257 / 270 edges (32 / 33 / 34 pages at P = 8), 600 (38 at P =
+# 16) and 4 200 (33 at P = 128)
+HOP_KERNEL = "paged_sample_hop"
+HOP_NODES, HOP_GRAPH_SEED, HOP_HUBS = 3000, 21, (256, 257, 270, 600, 4200)
+HOP_PAGE_SIZES = (1, 8, 16, 128)
+HOP_KS = (1, 3, 10, 12, 17, 33)
 # one DRAM sector: the least a gather of one 4-byte word moves
 SECTOR_BYTES = 32
 
@@ -441,15 +462,15 @@ def time_predict(rt, req_rng, reps: int = 30) -> dict:
     return out
 
 
-def _device_times(prof) -> dict:
-    """{kernel name: device µs} from a torch.profiler run."""
+def _device_records(prof) -> dict:
+    """{device op name: (device µs, records)} from a torch.profiler run."""
     out = {}
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
-            out[e.key] = float(us)
+            out[e.key] = (float(us), int(e.count))
     return out
 
 
@@ -460,14 +481,17 @@ def _kernel1_us(dev: dict, per: int) -> dict:
             for part, name in (("forward", "gws_kernel"), ("dx", "gws_dx_kernel"))}
 
 
-def _profile_window(torch, body, windows: int = PROFILE_WINDOWS) -> tuple[dict, float]:
-    """({kernel name: device µs}, host-clock ms) of one run of `body`,
+def _profile_window(torch, body, windows: int = PROFILE_WINDOWS,
+                    counts: dict | None = None) -> tuple[dict, float]:
+    """({device op name: device µs}, host-clock ms) of one run of `body`,
     which ends synchronised, under torch.profiler. The body runs once as
     the profiler's warm-up step, then `windows` times as recorded steps,
     and the recorded step with the most device time is kept: CUPTI now
     and then drops kernel records from a window (a drop only ever lowers
     the sum; the same work repeats within ~1 %). The
-    profiler's step markers are spans, not device work, and are left out."""
+    profiler's step markers are spans, not device work, and are left out.
+    `counts`, when given, receives {device op name: records} of the kept
+    window."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     runs = []
@@ -475,7 +499,7 @@ def _profile_window(torch, body, windows: int = PROFILE_WINDOWS) -> tuple[dict, 
         got = {}
         with profile(activities=[ProfilerActivity.CUDA],
                      schedule=schedule(wait=0, warmup=1, active=1),
-                     on_trace_ready=lambda p, got=got: got.update(_device_times(p))) as prof:
+                     on_trace_ready=lambda p, got=got: got.update(_device_records(p))) as prof:
             body()
             prof.step()
             t0 = time.perf_counter()
@@ -483,7 +507,10 @@ def _profile_window(torch, body, windows: int = PROFILE_WINDOWS) -> tuple[dict, 
             wall_ms = (time.perf_counter() - t0) * 1e3
             prof.step()
         runs.append(({k: v for k, v in got.items() if not k.startswith("ProfilerStep")}, wall_ms))
-    return max(runs, key=lambda r: sum(r[0].values()))
+    kept, wall_ms = max(runs, key=lambda r: sum(us for us, _ in r[0].values()))
+    if counts is not None:
+        counts.update({k: n for k, (_, n) in kept.items()})
+    return {k: us for k, (us, _) in kept.items()}, wall_ms
 
 
 def _time_ms(torch, fn, sets, iters: int) -> dict:
@@ -509,9 +536,11 @@ def _time_ms(torch, fn, sets, iters: int) -> dict:
             fn(*sets[i % len(sets)])
         torch.cuda.synchronize()
 
-    kernels, _ = _profile_window(torch, loop)
+    counts = {}
+    kernels, _ = _profile_window(torch, loop, counts=counts)
     return {"device_ms": sum(kernels.values()) / 1e3 / iters,
-            "loop_ms": loop_ms, "device_kernels": sorted(k[:60] for k in kernels)}
+            "loop_ms": loop_ms, "device_kernels": sorted(k[:60] for k in kernels),
+            "device_ops_per_call": sum(counts.values()) / iters}
 
 
 def gws_shapes(b: int, f0: int) -> tuple:
@@ -766,12 +795,134 @@ def check_paged_kernels(torch, gen) -> dict:
                     paged_cdf_count_ref(q2d, page, r, p))
     del planes
     torch.cuda.empty_cache()
-    res = {"phase": "kernel_check", "kernel": list(PAGED_KERNELS), "cases": cases,
-           "check": "bitwise", "max_abs_err": worst, "failed": failed}
+    hop_cases, hop_failed = check_hop_kernel(torch, gen)
+    failed += hop_failed
+    res = {"phase": "kernel_check", "kernel": [*PAGED_KERNELS, HOP_KERNEL],
+           "cases": cases + hop_cases, "hop_cases": hop_cases, "check": "bitwise",
+           "max_abs_err": worst, "failed": failed}
     _emit(res)
     if failed:
         raise AssertionError(f"paged kernels disagree with their plain versions: {failed}")
     return res
+
+
+def _hop_degrees() -> np.ndarray:
+    """Out-degrees of the hop sweep's graph: hubs past the kernel's 32-lane
+    chunk at every page size, skewed rows, degree-0 rows among them and
+    two trailing degree-0 nodes."""
+    rng = np.random.default_rng(HOP_GRAPH_SEED)
+    deg = rng.integers(0, 21, HOP_NODES)
+    deg[rng.random(HOP_NODES) < 0.02] = 0
+    deg[: len(HOP_HUBS)] = HOP_HUBS
+    deg[-2:] = 0
+    return deg
+
+
+def _hop_draws(torch, gen, t, cur, k: int):
+    """[W, k] draws for rows `cur` of tables t: u32 bits (as int32), the
+    draws of each row of two pages or more set to its page bounds, one
+    below and one above them, then r = 0 in the first row and the
+    second-last and r = 0xFFFFFFFF in the last (hubs, in the sweep); or f32
+    uniforms with 0, the largest float below 1 and slot boundaries j / deg."""
+    dev = cur.device
+    w = cur.numel()
+    if t.unit_w:
+        u = torch.rand((w, k), generator=gen, device=dev)
+        u[0, 0] = 0.0
+        u[1] = torch.nextafter(torch.tensor(1.0), torch.tensor(0.0)).item()
+        deg = t.deg[cur.long()].clamp_min(1).float()
+        u[:, k // 2] = (torch.arange(w, device=dev) % deg) / deg
+        return u
+    r = torch.randint(-(2**31), 2**31, (w, k), dtype=torch.int32, generator=gen, device=dev)
+    rows = cur.cpu().numpy()
+    ps, bound = t.page_start.cpu().numpy(), t.page_bound.cpu().numpy()
+    pick = np.random.default_rng(k)
+    off = np.array([0, -1, 1])[np.arange(k) % 3]  # at, below and above a bound
+    planted = r.cpu().numpy().view(np.uint32)
+    for i in np.nonzero(ps[rows + 1] - ps[rows] > 1)[0]:
+        pages = bound[ps[rows[i]] : ps[rows[i] + 1]].astype(np.int64)
+        planted[i] = np.clip(pages[pick.integers(0, len(pages), k)] + off, 0, 2**32 - 1)
+    planted[0, 0], planted[-2, 0], planted[-1, -1] = 0, 0, 2**32 - 1
+    return torch.from_numpy(planted.view(np.int32).copy()).to(dev)
+
+
+def _hop_mismatches(torch, got, want) -> list:
+    """The hop outputs (nbr, ew, idx) whose presence, type, shape or bits
+    differ between two (nbr, ew, idx) triples."""
+    bad = []
+    for name, a, b in zip(("nbr", "ew", "idx"), got, want):
+        if a is None or b is None:
+            if (a is None) != (b is None):
+                bad.append(name)
+        elif a.dtype != b.dtype or a.shape != b.shape:
+            bad.append(name)
+        elif not torch.equal(*((a.view(torch.int16), b.view(torch.int16))
+                               if a.dtype == torch.bfloat16 else (a, b))):
+            bad.append(name)
+    return bad
+
+
+def check_hop_kernel(torch, gen) -> tuple[int, list]:
+    """Phase 3, paged_sample_hop: bitwise against its plain version on tables
+    staged by the flow itself from a graph with hubs (`_hop_degrees`), at
+    every page size of HOP_PAGE_SIZES, with the packed bf16 and the f32
+    weight planes (three zero-weight rows among them) and unit weights; every
+    row (the padding row and the trailing degree-0 nodes too) plus the hubs
+    8 times more, at each k of HOP_KS (lane groups of 8, 16 and 32, and two
+    draw blocks a lane); then the train path's hop shapes (1 024 and 10 240
+    random rows, k 10) at page size 16. (cases, failed)."""
+    from euler_tpu_torch.dataflow.device import DeviceGraphTables
+    from euler_tpu_torch.datasets import graph_with_degrees
+    from euler_tpu_torch.ops import paged_sample_hop, paged_sample_hop_ref
+
+    dev = torch.device("cuda")
+    deg = _hop_degrees()
+    zero_rows = [i for i in range(len(HOP_HUBS), len(HOP_HUBS) + 40) if deg[i]][:3]
+    graphs = {"unit": graph_with_degrees(deg, HOP_GRAPH_SEED, unit_weights=True),
+              "weighted": graph_with_degrees(deg, HOP_GRAPH_SEED, zero_weight_rows=zero_rows)}
+    hubs = torch.arange(1, len(HOP_HUBS) + 1, dtype=torch.int32, device=dev)
+    prev = os.environ.get("EULER_TPU_PAGE_DTYPE")
+    cases, failed = 0, []
+
+    def same(label, got, want):
+        nonlocal cases
+        torch.cuda.synchronize()
+        cases += 1
+        bad = _hop_mismatches(torch, got, want)
+        if bad:
+            failed.append({"kernel": HOP_KERNEL, "case": label, "outputs": bad})
+
+    try:
+        for plane in ("bf16", "f32", "unit"):
+            os.environ["EULER_TPU_PAGE_DTYPE"] = "f32" if plane == "unit" else plane
+            g = graphs["unit" if plane == "unit" else "weighted"]
+            for p in HOP_PAGE_SIZES:
+                tables = DeviceGraphTables(g, layout="paged", page_size=p, device="cuda")
+                t = tables.hop_tables()
+                if t.unit_w != (plane == "unit") or t.w_packed != (plane == "bf16" and p > 1):
+                    raise AssertionError(f"hop sweep staged plane {plane} at P={p} wrongly")
+                cur = torch.cat([torch.arange(t.deg.numel(), dtype=torch.int32, device=dev),
+                                 hubs.repeat(8)])
+                for k in HOP_KS:
+                    draw = _hop_draws(torch, gen, t, cur, k)
+                    same(f"{plane} P={p} k={k} W={cur.numel()}",
+                         paged_sample_hop(t, cur, draw, "cuda"), paged_sample_hop_ref(t, cur, draw))
+                if p == PAGE_SIZE:
+                    for w in (TRAIN_BATCH, TRAIN_BATCH * TRAIN_FANOUTS[0]):
+                        cur = torch.randint(1, t.deg.numel(), (w,), dtype=torch.int32,
+                                            generator=gen, device=dev)
+                        draw = _hop_draws(torch, gen, t, cur, TRAIN_FANOUTS[0])
+                        same(f"{plane} P={p} k={TRAIN_FANOUTS[0]} W={w} (path shape)",
+                             paged_sample_hop(t, cur, draw, "cuda"),
+                             paged_sample_hop_ref(t, cur, draw))
+                del tables, t
+    finally:
+        if prev is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev
+    torch.cuda.empty_cache()
+    return cases, failed
 
 
 class _Tap:
@@ -886,10 +1037,11 @@ def train(torch, tmp: str, seed: int) -> dict:
         tap = _Tap(flow, REF_STEPS)
         losses, launches, main_s = run(est, TRAIN_STEPS, "auto")
         tap.close()
-        # kernel 1: layer 0 over hops 0 and 1, layer 1 over hop 0; its dx
-        # only for layer 1, whose x (layer 0's hop-1 output) carries a
-        # gradient, where layer 0's x are features
-        want = {"paged_gather": 2, "paged_gather_dequant": 2, "paged_cdf_count": 2,
+        # one hop kernel a hop, and none of kernels 2-4 it replaced; kernel
+        # 1: layer 0 over hops 0 and 1, layer 1 over hop 0; its dx only for
+        # layer 1, whose x (layer 0's hop-1 output) carries a gradient,
+        # where layer 0's x are features
+        want = {HOP_KERNEL: 2, **{name: 0 for name in PAGED_KERNELS},
                 "gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
         for name, per_step in want.items():
             if launches[name] != per_step * TRAIN_STEPS:
@@ -923,13 +1075,14 @@ def train(torch, tmp: str, seed: int) -> dict:
         err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], "card vs CPU")
         del flow_cpu, cache_cpu, est_cpu
 
-        # (d) the f32 weight plane: paged_gather also reads the weights
+        # (d) the f32 weight plane: the hop kernel rounds f32 weights
         flow_f32, cache_f32, _ = lane("f32", "cuda")
         est_f32 = estimator(flow_f32, cache_f32, "cuda", "f32")
         tap_f32 = _Tap(flow_f32, F32_STEPS)
         losses_f32, launches_f32, _ = run(est_f32, F32_STEPS, "auto")
         tap_f32.close()
-        if launches_f32["paged_gather"] != 4 * F32_STEPS or launches_f32["paged_gather_dequant"]:
+        if (flow_f32._page_w_packed or launches_f32[HOP_KERNEL] != 2 * F32_STEPS
+                or any(launches_f32[name] for name in PAGED_KERNELS)):
             raise AssertionError(f"f32 plane launches: {launches_f32}")
         same_f32 = _assert_same_batches(torch, tap_f32.batches, tap.batches[:F32_STEPS],
                                         "bf16 vs f32 plane")
@@ -982,27 +1135,40 @@ def time_train_steps(torch, est, card: str) -> dict:
         est.train(PROFILED_STEPS, log=False, save=False)
         torch.cuda.synchronize()
 
-    dev, wall_ms = _profile_window(torch, window)
+    counts = {}
+    dev, wall_ms = _profile_window(torch, window, counts=counts)
     busy_ms = sum(dev.values()) / 1e3
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    copies = sum(n for k, n in counts.items() if k.startswith(("Memcpy", "Memset")))
     res = {"phase": "train_timing", "card": card, "median_step_ms": statistics.median(times),
            "min_step_ms": min(times), "max_step_ms": max(times), "steps": TIMED_STEPS,
            "profiled_steps": PROFILED_STEPS, "wall_ms_per_step": wall_ms / PROFILED_STEPS,
            "device_ms_per_step": busy_ms / PROFILED_STEPS,
            "device_idle_share": 1.0 - busy_ms / wall_ms,
+           # profiler kernel records a step; memcpy and memset records apart
+           "kernel_launches_per_step": (sum(counts.values()) - copies) / PROFILED_STEPS,
+           "copies_per_step": copies / PROFILED_STEPS,
+           "hop_kernel_us_per_step": sum(
+               v for k, v in dev.items() if "paged_sample_hop_kernel" in k) / PROFILED_STEPS,
            "kernel1_us_per_step": _kernel1_us(dev, PROFILED_STEPS),
            "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
     _emit(res)
     return res
 
 
-def _paged_calls(flow, gen) -> list:
-    """(kernel name, args) of each paged op one flow.sample makes, in order
-    (per hop: count, neighbour gather, weight gather)."""
+def _paged_calls(flow, gen) -> tuple[list, list]:
+    """What one flow.sample hands the paged ops, run through the hop's
+    plain version (kernel mode 'ref', which launches nothing): ([(kernel
+    name, args)] of kernels 2-4 in the order the composition calls them —
+    per hop count, neighbour gather, weight gather —, [(tables, cur, draw)]
+    of paged_sample_hop per hop)."""
     import euler_tpu_torch.dataflow.device as device_mod
+    import euler_tpu_torch.ops.paged as paged_mod
+    from euler_tpu_torch import ops
 
-    calls = []
-    saved = {name: getattr(device_mod, name) for name in PAGED_KERNELS}
+    calls, hops = [], []
+    saved = {name: getattr(paged_mod, name) for name in PAGED_KERNELS}
+    hop = device_mod.paged_sample_hop
 
     def wrap(name):
         def inner(*args, **kw):
@@ -1010,14 +1176,22 @@ def _paged_calls(flow, gen) -> list:
             return saved[name](*args, **kw)
         return inner
 
+    def hop_tap(t, cur, draw, impl):
+        hops.append((t, cur, draw))
+        return hop(t, cur, draw, impl)
+
     try:
         for name in saved:
-            setattr(device_mod, name, wrap(name))
+            setattr(paged_mod, name, wrap(name))
+        device_mod.paged_sample_hop = hop_tap
+        ops.set_kernel_mode("ref")
         flow.sample(gen)
     finally:
+        ops.set_kernel_mode("auto")
+        device_mod.paged_sample_hop = hop
         for name, fn in saved.items():
-            setattr(device_mod, name, fn)
-    return calls
+            setattr(paged_mod, name, fn)
+    return calls, hops
 
 
 def _sectors(torch, word_idx, words_per_item: int = 1) -> int:
@@ -1029,9 +1203,10 @@ def _sectors(torch, word_idx, words_per_item: int = 1) -> int:
     return int(torch.unique(first[:, None] + torch.arange(span, device=first.device)).numel())
 
 
-def time_paged_kernels(torch, flow, gen, card: str) -> list:
-    """Each paged kernel at the two hops' shapes of one train step, with
-    the main path's own inputs (captured from one sample), the tables
+def time_paged_kernels(torch, calls, card: str) -> list:
+    """Each of kernels 2-4 at the two hops' shapes of one train step, with
+    the inputs the hop's plain version gives them on the main path
+    (`_paged_calls`; on the card the hop kernel does their work), the tables
     cycled through copies past the L2 as the step finds them in device
     memory; beside its plain version, `flat[fidx]` for paged_gather, and
     the bound: distinct sectors read (each input byte read once at the
@@ -1043,7 +1218,6 @@ def time_paged_kernels(torch, flow, gen, card: str) -> list:
         paged_gather_dequant_ref, paged_gather_ref,
     )
 
-    calls = _paged_calls(flow, gen)
     hop_of = {}
     rows = []
     for name, args in calls:
@@ -1102,6 +1276,102 @@ def time_paged_kernels(torch, flow, gen, card: str) -> list:
         del sets, tables
     torch.cuda.empty_cache()
     _emit({"phase": "paged_kernel_timing", "card": card, "shapes": rows})
+    return rows
+
+
+def _hop_bytes(torch, t, cur, draw, idx) -> tuple[int, int]:
+    """(bytes, integer compares) one hop needs for these inputs. Bytes: the
+    distinct 32-byte sectors of every table word it reads (the row
+    headers, the page bounds of rows of two pages or more, the chosen
+    pages' CDF words, the neighbour and weight words of the live draws),
+    plus the row ids, the draws and the three outputs once each. Compares:
+    a draw's P CDF words and its row's bounds. idx: the hop's slot output."""
+    from euler_tpu_torch.ops import paged_page_search
+
+    w, k = draw.shape
+    c = cur.long()
+    deg, ps = t.deg[c].long(), t.page_start[c].long()
+    npages = t.page_start[c + 1].long() - ps
+    nbytes = (_sectors(torch, c) + _sectors(torch, torch.cat([c, c + 1]))) * SECTOR_BYTES
+    nbytes += 4 * w + 4 * w * k + (4 + 4 + (0 if t.unit_w else 2)) * w * k
+    p = t.page_size
+    compares = 0
+    if not t.unit_w:
+        multi = npages > 1
+        compares = w * k * p + k * int(npages[multi].sum())
+        if bool(multi.any()):
+            lens = npages[multi]
+            first = torch.repeat_interleave(ps[multi], lens)
+            seg = torch.arange(int(lens.sum()), device=c.device) - torch.repeat_interleave(
+                torch.cumsum(lens, 0) - lens, lens)
+            nbytes += _sectors(torch, 2 * (first + seg), 2) * SECTOR_BYTES
+        pg = paged_page_search(t.page_bound, ps.int(), npages.int(), draw, t.search_iters).long()
+        pgc = torch.minimum(pg, (npages[:, None] - 1).clamp_min(0))
+        page = (ps[:, None] + pgc).clamp_max(t.page_cap)
+        nbytes += _sectors(torch, page * p, p) * SECTOR_BYTES
+    fidx = (ps[:, None] * p + idx.long()).clamp_max(t.slot_cap)
+    live = fidx[(deg > 0)[:, None].expand_as(fidx)]
+    nbytes += _sectors(torch, live) * SECTOR_BYTES if live.numel() else 0
+    if not t.unit_w and live.numel():
+        nbytes += _sectors(torch, live >> 1 if t.w_packed else live) * SECTOR_BYTES
+    return nbytes, compares
+
+
+def time_hop_kernel(torch, hops, card: str) -> list:
+    """paged_sample_hop at each hop of one train step, on the main path's
+    own tables, rows and draws (`_paged_calls`), first held bitwise against
+    its plain version there; then timed with the tables cycled through
+    copies past the L2 (`ms`) and on one copy left in the L2 (`warm_ms`),
+    beside its plain version (`plain_ms`), the composition of kernels 2-4
+    it replaced in mode 'cuda' (`composition_ms`, with its device ops per
+    call) and its bound: `_hop_bytes` over 3.35 TB/s, or its integer
+    compares over 67 T/s, whichever is larger."""
+    from euler_tpu_torch.ops import paged_sample_hop, paged_sample_hop_ref
+    from euler_tpu_torch.ops.paged import _compose_hop
+
+    fields = ("deg", "page_start", "pages2d", "page_bound", "page_q2d", "page_w2d")
+    rows = []
+    for hop, (t, cur, draw) in enumerate(hops):
+        want = paged_sample_hop_ref(t, cur, draw)
+        bad = _hop_mismatches(torch, paged_sample_hop(t, cur, draw, "cuda"), want)
+        if bad:
+            raise AssertionError(f"{HOP_KERNEL} differs from its plain version at hop {hop}: {bad}")
+        table_bytes = sum(getattr(t, f).numel() * getattr(t, f).element_size()
+                          for f in fields if getattr(t, f) is not None)
+        copies = min(16, max(2, math.ceil(2 * L2_BYTES / table_bytes)))
+        tables = [t] + [t._replace(**{f: getattr(t, f).clone() for f in fields
+                                      if getattr(t, f) is not None})
+                        for _ in range(copies - 1)]
+        sets = [(ti, cur.clone(), draw.clone()) for ti in tables]
+        kern = lambda t, c, d: paged_sample_hop(t, c, d, "cuda")  # noqa: E731
+        comp = lambda t, c, d: _compose_hop(t, c, d, "cuda")  # noqa: E731
+        iters = max(200, 2 * copies)
+        tk = _time_ms(torch, kern, sets, iters)
+        tp = _time_ms(torch, paged_sample_hop_ref, sets, iters)
+        tc = _time_ms(torch, comp, sets, iters)
+        warm = _time_ms(torch, kern, sets[:1], iters)
+        if tk["device_ms"] <= 0:
+            raise AssertionError(f"the profiler saw no device time for {HOP_KERNEL}")
+        w, k = draw.shape
+        nbytes, compares = _hop_bytes(torch, t, cur, draw, want[2])
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = compares / F32_FLOPS * 1e3
+        rows.append({"kernel": HOP_KERNEL, "hop": hop, "shape": [w, k], "draws": w * k,
+                     "table_bytes": table_bytes, "input_sets": copies,
+                     "ms": tk["device_ms"], "warm_ms": warm["device_ms"],
+                     "plain_ms": tp["device_ms"], "composition_ms": tc["device_ms"],
+                     "library_ms": None,
+                     "device_ops_per_call": {"kernel": tk["device_ops_per_call"],
+                                             "plain": tp["device_ops_per_call"],
+                                             "composition": tc["device_ops_per_call"]},
+                     "loop_ms": {"kernel": tk["loop_ms"], "plain": tp["loop_ms"],
+                                 "composition": tc["loop_ms"]},
+                     "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                     "iters": iters})
+        del sets, tables
+    torch.cuda.empty_cache()
+    _emit({"phase": "hop_kernel_timing", "card": card, "shapes": rows})
     return rows
 
 
@@ -1666,7 +1936,10 @@ def main(argv=None) -> int:
         # 5. the training path, and its timings
         trained = train(torch, tmp, args.seed)
         time_train_steps(torch, trained["estimator"], card)
-        paged_rows = time_paged_kernels(torch, trained["flow"], gen, card)
+        paged_calls, hops = _paged_calls(trained["flow"], gen)
+        paged_rows = time_paged_kernels(torch, paged_calls, card)
+        hop_rows = time_hop_kernel(torch, hops, card)
+        del paged_calls, hops
         del trained["estimator"], trained["flow"]
         torch.cuda.empty_cache()
 
@@ -1739,6 +2012,33 @@ def main(argv=None) -> int:
         "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "geometry", "ms", "warm_ms",
                                       "plain_ms", "library_ms", "bound_ms")} for r in dx_rows],
     }]
+    # the hop kernel: the sums over the two hops of one train step
+    kernels.append({
+        "name": HOP_KERNEL,
+        "route": "cuda",
+        "source": "euler_tpu_torch/ops/csrc/paged_sample_hop.cu",
+        "replaces": "euler_tpu/ops/pallas_kernels.py:356, :436, :247 and :478-503 "
+                    "(paged_page_search), as euler_tpu/dataflow/device.py:922-975 "
+                    "composes them",
+        "launches": train_launches[HOP_KERNEL],
+        "max_abs_err": paged_check["max_abs_err"],
+        "check": "bitwise",
+        "cases": paged_check["hop_cases"],
+        "ms": total(hop_rows, "ms"),
+        "warm_ms": total(hop_rows, "warm_ms"),
+        "plain_ms": total(hop_rows, "plain_ms"),
+        "composition_ms": total(hop_rows, "composition_ms"),
+        "bound_ms": total(hop_rows, "bound_ms"),
+        "bound_by": bound_by(hop_rows),
+        "library_ms": None,
+        "library": "none: no one PyTorch call draws a hop",
+        "card": card,
+        "shapes": [{k: r[k] for k in ("hop", "shape", "ms", "warm_ms", "plain_ms",
+                                      "composition_ms", "device_ops_per_call", "bound_ms")}
+                   for r in hop_rows],
+    })
+    # kernels 2-4: off the train path (the hop kernel does their work),
+    # timed standalone at the inputs the hop's plain version gives them
     sources = {"paged_gather": ("paged_gather.cu", 247),
                "paged_gather_dequant": ("paged_gather.cu", 356),
                "paged_cdf_count": ("paged_cdf_count.cu", 436)}

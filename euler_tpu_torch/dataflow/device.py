@@ -11,11 +11,14 @@ per-row uint32-quantized CDF of the edge weights. Two layouts:
 - `layout="dense"`: an [N+1, Dmax] table; `max_degree` guards its width;
 - `layout="paged"`: fixed-size pages (`page_size` slots, dividing 128) in
   flat buffers viewed as [M, 128] lane rows, plus a per-node page table,
-  so a hub spans ⌈deg/P⌉ pages. Its draws run the paged ops of
-  `ops/paged.py`: the page-boundary search (plain torch), then the
-  hand-written kernels `paged_cdf_count`, `paged_gather` (neighbour and
-  f32 weight planes) and `paged_gather_dequant` (the weight plane packed
-  two bf16 per word when EULER_TPU_PAGE_DTYPE=bf16).
+  so a hub spans ⌈deg/P⌉ pages. A hop of its draws is one call of
+  `ops/paged.py` `paged_sample_hop`, one launch of the hand-written kernel
+  `csrc/paged_sample_hop.cu` on the card: page-boundary search, in-page
+  CDF count, neighbour and weight gathers (the weight plane f32, or packed
+  two bf16 per word when EULER_TPU_PAGE_DTYPE=bf16). Its plain version,
+  which the CPU runs, is the JAX package's composition of the page search
+  and the plain versions of `paged_cdf_count`, `paged_gather` and
+  `paged_gather_dequant`.
 - `layout="auto"` picks dense while the max degree fits `max_degree` and
   paged past it.
 
@@ -44,13 +47,11 @@ from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.distributed.codec import page_dtype
 from euler_tpu_torch.ops import (
     PAGE_LANES,
+    HopTables,
     as_lane_rows,
     pack_bf16_words,
-    paged_cdf_count,
-    paged_gather,
-    paged_gather_dequant,
     paged_impl,
-    paged_page_search,
+    paged_sample_hop,
 )
 from euler_tpu_torch.ops.paged import u32
 
@@ -360,37 +361,22 @@ class DeviceGraphTables:
             ew = self.wtab[cur].gather(1, idx.long()).reshape(-1).to(torch.bfloat16)
         return nbr.reshape(-1), ew, idx
 
+    def hop_tables(self) -> HopTables:
+        """The staged paged tables one draw reads (layout "paged")."""
+        return HopTables(
+            self.deg, self.page_start, self.pages2d, self.page_bound, self.page_q2d,
+            self.page_w2d, self.page_size, self._search_iters, self._page_cap,
+            self._slot_cap, self.unit_w, self._page_w_packed,
+        )
+
     def _draw_neighbors_paged(self, cur: torch.Tensor, draw: torch.Tensor):
         """Paged twin of the dense draw: page-boundary search plus in-page
         count, then the neighbour and weight gathers through the page
-        indirection — the same integers as the dense inversion. The page
-        reads run the kernels of ops/paged.py under the kernel mode."""
-        deg = self.deg[cur]
-        ps = self.page_start[cur]
-        P = self.page_size
-        impl = paged_impl()
-        if self.unit_w:
-            idx = (draw * deg[:, None]).to(torch.int32)
-        else:
-            npages = self.page_start[cur + 1] - ps
-            pg = paged_page_search(self.page_bound, ps, npages, draw, self._search_iters)
-            pgc = torch.minimum(pg, (npages[:, None] - 1).clamp_min(0))
-            page = (ps[:, None] + pgc).clamp_max(self._page_cap)
-            cnt = paged_cdf_count(self.page_q2d, page, draw, P, impl=impl)
-            idx = pgc * P + cnt
-        idx = torch.minimum(idx, (deg[:, None] - 1).clamp_min(0))
-        fidx = (ps[:, None] * P + idx).clamp_max(self._slot_cap)
-        live = deg[:, None] > 0
-        nbr = torch.where(live, paged_gather(self.pages2d, fidx, impl=impl), 0).reshape(-1)
-        ew = None
-        if not self.unit_w:
-            wvals = (
-                paged_gather_dequant(self.page_w2d, fidx, impl=impl)
-                if self._page_w_packed
-                else paged_gather(self.page_w2d, fidx, impl=impl)
-            )
-            ew = torch.where(live, wvals, 0.0).reshape(-1).to(torch.bfloat16)
-        return nbr, ew, idx
+        indirection — the same integers as the dense inversion. One
+        `paged_sample_hop` call: its kernel under the kernel mode, its plain
+        version (the JAX package's composition) on the CPU and in modes
+        'off' and 'ref'."""
+        return paged_sample_hop(self.hop_tables(), cur, draw, impl=paged_impl())
 
 
 class DeviceSageFlow(DeviceGraphTables):

@@ -1,4 +1,5 @@
 from euler_tpu_torch.datasets.synthetic import (  # noqa: F401
+    graph_with_degrees,
     random_graph,
     shard_arrays,
     skewed_weighted_graph,

@@ -136,10 +136,38 @@ def skewed_weighted_graph(num_nodes: int, seed: int) -> Graph:
     deg = rng.integers(8, 16, n)
     hubs = rng.choice(n, max(n // 100, 1), replace=False)
     deg[hubs] = rng.integers(96, 160, len(hubs))
-    ids = np.arange(1, n + 1, dtype=np.uint64)
     e = int(deg.sum())
     dst = rng.integers(1, n + 1, size=e).astype(np.uint64)
     ew = rng.uniform(0.5, 2.0, size=e).astype(np.float32)
+    return _out_edge_graph(deg, dst, ew, rng)
+
+
+def graph_with_degrees(deg, seed: int = 0, unit_weights: bool = False,
+                       zero_weight_rows=()) -> Graph:
+    """A digraph in which node i + 1 has deg[i] out-edges to uniform random
+    nodes, built as `skewed_weighted_graph` is: f32 edge weights in [0.5,
+    2) (all 1 with unit_weights), 16-wide normal features, 2 all-zero label
+    columns. The edges of the nodes at the 0-based positions
+    `zero_weight_rows` all weigh 0, so staging gives those rows degree 0.
+    The paged lane's edge cases are degrees: hubs spanning many pages,
+    degree-0 rows, a trailing degree-0 node."""
+    rng = np.random.default_rng(seed)
+    deg = np.asarray(deg, np.int64)
+    n, e = len(deg), int(deg.sum())
+    dst = rng.integers(1, n + 1, size=e).astype(np.uint64)
+    ew = (np.ones(e, np.float32) if unit_weights
+          else rng.uniform(0.5, 2.0, size=e).astype(np.float32))
+    indptr = np.r_[0, np.cumsum(deg)]
+    for r in zero_weight_rows:
+        ew[indptr[r] : indptr[r + 1]] = 0.0
+    return _out_edge_graph(deg, dst, ew, rng)
+
+
+def _out_edge_graph(deg, dst, ew, rng) -> Graph:
+    """One-shard graph on nodes 1..len(deg), node i + 1's out-edges being
+    the next deg[i] of dst / ew; features drawn from `rng`."""
+    n, e = len(deg), len(dst)
+    ids = np.arange(1, n + 1, dtype=np.uint64)
     feat_dim, label_dim = 16, 2
     meta = synthetic_meta(feat_dim, label_dim, 1)
     arrays = {

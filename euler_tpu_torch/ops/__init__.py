@@ -25,6 +25,7 @@ from euler_tpu_torch.ops.gather_weighted_sum import (  # noqa: F401
 from euler_tpu_torch.ops.mp_ops import gather, scatter_add  # noqa: F401
 from euler_tpu_torch.ops.paged import (  # noqa: F401
     PAGE_LANES,
+    HopTables,
     as_lane_rows,
     pack_bf16_words,
     paged_cdf_count,
@@ -34,6 +35,8 @@ from euler_tpu_torch.ops.paged import (  # noqa: F401
     paged_gather_dequant_ref,
     paged_gather_ref,
     paged_page_search,
+    paged_sample_hop,
+    paged_sample_hop_ref,
 )
 from euler_tpu_torch.ops.topk_score import (  # noqa: F401
     operand_range,

@@ -36,6 +36,7 @@ SOURCES = {
     "gather_weighted_sum": "gather_weighted_sum.cu",
     "paged_gather": "paged_gather.cu",
     "paged_cdf_count": "paged_cdf_count.cu",
+    "paged_sample_hop": "paged_sample_hop.cu",
     "topk_score": "topk_score.cu",
 }
 
@@ -46,6 +47,7 @@ KERNELS = {
     "paged_gather": "paged_gather",
     "paged_gather_dequant": "paged_gather",
     "paged_cdf_count": "paged_cdf_count",
+    "paged_sample_hop": "paged_sample_hop",
     "paged_topk_score": "topk_score",
     "paged_topk_select": "topk_score",
 }

@@ -30,6 +30,7 @@ kernel; raises on CPU tensors). Nothing falls back from a kernel.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -192,6 +193,106 @@ def paged_page_search(
     return (lo - pstart.long()[:, None]).to(torch.int32)
 
 
+# -- one hop of the paged draw -------------------------------------------------
+
+
+class HopTables(NamedTuple):
+    """The staged tables a paged draw reads (`DeviceGraphTables.hop_tables`,
+    layout "paged"): deg int32 [N+1] and page_start int32 [N+2] by row+1;
+    pages2d int32 [M, 128] neighbour rows (row+1, 0 = padding); for weighted
+    graphs page_bound int64 [pages] (u32 values), page_q2d [M, 128] int32
+    bits of the quantized CDF and page_w2d [M, 128] weights (int32 words of
+    packed bf16 pairs when w_packed, else f32); page_cap, slot_cap the last
+    page and slot; search_iters the page search's depth."""
+
+    deg: torch.Tensor
+    page_start: torch.Tensor
+    pages2d: torch.Tensor
+    page_bound: torch.Tensor | None
+    page_q2d: torch.Tensor | None
+    page_w2d: torch.Tensor | None
+    page_size: int
+    search_iters: int
+    page_cap: int
+    slot_cap: int
+    unit_w: bool
+    w_packed: bool
+
+
+def _compose_hop(t: HopTables, cur: torch.Tensor, draw: torch.Tensor, impl: str):
+    """The hop as the JAX package composes it (euler_tpu/dataflow/
+    device.py:922-975): page search, in-page count, neighbour and weight
+    gathers, the page reads under `impl`. With impl 'ref' it is the hop's
+    plain version; with 'cuda' it is the composition of kernels 2-4 that
+    `paged_sample_hop`'s kernel replaced, which `chip_smoke.py` times."""
+    deg = t.deg[cur]
+    ps = t.page_start[cur]
+    P = t.page_size
+    if t.unit_w:
+        idx = (draw * deg[:, None]).to(torch.int32)
+    else:
+        npages = t.page_start[cur + 1] - ps
+        pg = paged_page_search(t.page_bound, ps, npages, draw, t.search_iters)
+        pgc = torch.minimum(pg, (npages[:, None] - 1).clamp_min(0))
+        page = (ps[:, None] + pgc).clamp_max(t.page_cap)
+        cnt = paged_cdf_count(t.page_q2d, page, draw, P, impl=impl)
+        idx = pgc * P + cnt
+    idx = torch.minimum(idx, (deg[:, None] - 1).clamp_min(0))
+    fidx = (ps[:, None] * P + idx).clamp_max(t.slot_cap)
+    live = deg[:, None] > 0
+    nbr = torch.where(live, paged_gather(t.pages2d, fidx, impl=impl), 0).reshape(-1)
+    ew = None
+    if not t.unit_w:
+        wvals = (
+            paged_gather_dequant(t.page_w2d, fidx, impl=impl)
+            if t.w_packed
+            else paged_gather(t.page_w2d, fidx, impl=impl)
+        )
+        ew = torch.where(live, wvals, 0.0).reshape(-1).to(torch.bfloat16)
+    return nbr, ew, idx
+
+
+def paged_sample_hop_ref(t: HopTables, cur: torch.Tensor, draw: torch.Tensor):
+    """Plain version of `paged_sample_hop`: the plain versions of kernels
+    2-4 and `paged_page_search`, composed as the JAX package composes them."""
+    return _compose_hop(t, cur, draw, "ref")
+
+
+def paged_sample_hop(t: HopTables, cur: torch.Tensor, draw: torch.Tensor, impl: str = "auto"):
+    """One hop of the paged draw: [W] source rows (row+1 space, int32) and
+    their [W, k] draws (int32 bit patterns of u32 random bits, or f32
+    uniforms on unit-weight tables) → ([W·k] int32 neighbour rows, [W·k]
+    bf16 edge weights or None for unit weights, [W, k] int32 slot index).
+    Weighted rows invert their quantized CDF (page search, then in-page
+    count); unit-weight rows scale the uniforms by the degree. Padding rows
+    (degree 0) yield row 0 and weight +0.0. On CUDA tensors one launch of
+    `csrc/paged_sample_hop.cu`, bitwise equal to `paged_sample_hop_ref`."""
+    if _resolve(impl, cur) == "ref":
+        return paged_sample_hop_ref(t, cur, draw)
+    w, k = _check_hop(t, cur, draw)
+    dev = cur.device
+    nbr = torch.empty(w * k, dtype=torch.int32, device=dev)
+    idx = torch.empty((w, k), dtype=torch.int32, device=dev)
+    ew = None if t.unit_w else torch.empty(w * k, dtype=torch.bfloat16, device=dev)
+    if t.unit_w:
+        plane, vec, bound, q, wts = 0, 0, None, None, None
+    else:
+        plane = 2 if t.w_packed else 1
+        vec = int(t.page_size % 4 == 0 and t.page_q2d.data_ptr() % 16 == 0)
+        bound, q, wts = t.page_bound, t.page_q2d, t.page_w2d
+
+    def buf(x):
+        return (None, 0) if x is None else (x.data_ptr(), x.numel())
+
+    n_rows = min(t.deg.numel(), t.page_start.numel() - 1)
+    _run("paged_sample_hop", "euler_paged_sample_hop_launch", nbr,
+         cur.data_ptr(), w, k, draw.data_ptr(), t.deg.data_ptr(), t.page_start.data_ptr(),
+         n_rows, *buf(bound), *buf(q), *buf(t.pages2d), *buf(wts), t.page_size, t.page_cap,
+         t.slot_cap, plane, vec, nbr.data_ptr(), None if ew is None else ew.data_ptr(),
+         idx.data_ptr())
+    return nbr, ew, idx
+
+
 # -- kernel launch -----------------------------------------------------------
 
 
@@ -214,20 +315,69 @@ def _check(table: torch.Tensor, idx: torch.Tensor, name: str, dtypes) -> None:
         raise ValueError(f"{name}: empty table")
 
 
+def _check_hop(t: HopTables, cur: torch.Tensor, draw: torch.Tensor) -> tuple[int, int]:
+    """(W, k) of a hop the kernel can take; raises on anything else."""
+    name = "paged_sample_hop"
+    if draw.dim() != 2 or cur.shape != draw.shape[:1]:
+        raise ValueError(f"{name}: cur {tuple(cur.shape)} and draw {tuple(draw.shape)} "
+                         "must be [W] and [W, k]")
+    p = int(t.page_size)
+    if p <= 0 or PAGE_LANES % p:
+        raise ValueError(f"page_size must divide {PAGE_LANES}, got {p}")
+    want = {"cur": (cur, torch.int32), "deg": (t.deg, torch.int32),
+            "page_start": (t.page_start, torch.int32), "pages2d": (t.pages2d, torch.int32),
+            "draw": (draw, torch.float32 if t.unit_w else torch.int32)}
+    if not t.unit_w:
+        want.update(page_bound=(t.page_bound, torch.int64), page_q2d=(t.page_q2d, torch.int32),
+                    page_w2d=(t.page_w2d, torch.int32 if t.w_packed else torch.float32))
+    for what, (x, dtype) in want.items():
+        if x is None or not x.is_cuda:
+            raise ValueError(
+                f"{name} kernel needs CUDA tensors; {what} is "
+                f"{'missing' if x is None else f'on {x.device}'} (use impl='ref' or 'auto' on the CPU)"
+            )
+        if x.device != cur.device:
+            raise ValueError(f"{name}: {what} on {x.device}, cur on {cur.device}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: {what} must be contiguous")
+        if x.dtype != dtype:
+            raise ValueError(f"{name}: {what} must be {dtype}, got {x.dtype}")
+        if x.numel() == 0 and what not in ("cur", "draw"):
+            raise ValueError(f"{name}: empty {what}")
+    return draw.shape[0], draw.shape[1]
+
+
+_PTR, _I64, _I32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+# library → {launch symbol: argument types}; the last argument is the stream
+_SIGNATURES = {
+    "paged_gather": {
+        "euler_paged_gather_launch": [_PTR, _I64, _PTR, _PTR, _I64, _PTR],
+        "euler_paged_gather_dequant_launch": [_PTR, _I64, _PTR, _PTR, _I64, _PTR],
+    },
+    "paged_cdf_count": {
+        "euler_paged_cdf_count_launch": [_PTR, _I64, _PTR, _PTR, _PTR, _I64, _I32, _I32, _PTR],
+    },
+    "paged_sample_hop": {
+        "euler_paged_sample_hop_launch": [
+            _PTR, _I64, _I32, _PTR, _PTR, _PTR, _I64,  # cur, W, k, draw, deg, page_start, rows
+            _PTR, _I64, _PTR, _I64, _PTR, _I64, _PTR, _I64,  # bound, q, pages, weights
+            _I32, _I32, _I32, _I32, _I32,  # P, page_cap, slot_cap, plane, vec
+            _PTR, _PTR, _PTR, _PTR,  # nbr, ew, idx, stream
+        ],
+    },
+}
+
+
 def _lib(library: str) -> ctypes.CDLL:
     lib = _bound_libs.get(library)
     if lib is None:
         lib = _build.load(library)
-        ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-        if library == "paged_gather":
-            for fn in (lib.euler_paged_gather_launch, lib.euler_paged_gather_dequant_launch):
-                fn.argtypes = [ptr, i64, ptr, ptr, i64, ptr]
-                fn.restype = i32
-        else:
-            lib.euler_paged_cdf_count_launch.argtypes = [ptr, i64, ptr, ptr, ptr, i64, i32, i32, ptr]
-            lib.euler_paged_cdf_count_launch.restype = i32
+        for symbol, argtypes in _SIGNATURES[library].items():
+            fn = getattr(lib, symbol)
+            fn.argtypes = argtypes
+            fn.restype = _I32
         err = getattr(lib, f"euler_{library}_error_string")
-        err.argtypes = [i32]
+        err.argtypes = [_I32]
         err.restype = ctypes.c_char_p
         _bound_libs[library] = lib
     return lib

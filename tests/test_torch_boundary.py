@@ -18,11 +18,12 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "euler_tpu", "bench"}
 KERNEL_CALLS = {
     "build_all", "_launch", "_launch_dx", "_run", "gather_weighted_sum",
     "gather_weighted_sum_dx", "paged_gather",
-    "paged_gather_dequant", "paged_cdf_count", "paged_topk_score", "paged_topk_select", "_lib",
+    "paged_gather_dequant", "paged_cdf_count", "paged_sample_hop", "paged_topk_score",
+    "paged_topk_select", "_lib",
     "_build.load",
 }
 # the port's scripts at the root of the repo
-SCRIPTS = ("chip_smoke.py", "select_short_list.py", "gws_variants.py")
+SCRIPTS = ("chip_smoke.py", "select_short_list.py", "gws_variants.py", "train_step_ab.py")
 # every module of the slices ported so far
 PORTED = [
     "euler_tpu_torch.serving.runtime", "euler_tpu_torch.ops.gather_weighted_sum",

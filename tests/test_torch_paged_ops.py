@@ -66,7 +66,7 @@ def test_paged_gather_matches_jax_interpret():
     # Pallas interpret mode emulates every row DMA, so the sizes stay tiny
     rng = np.random.default_rng(1)
     flat = rng.integers(0, 1000, 300).astype(np.int32)
-    fidx = rng.integers(0, 300, (8, 2)).astype(np.int32)
+    fidx = rng.integers(0, 300, (8, 1)).astype(np.int32)
     want = np.asarray(jpk.paged_gather(jpk._as_lane_rows(jnp.asarray(flat)), jnp.asarray(fidx), "interpret"))
     got = ops.paged_gather(paged.as_lane_rows(torch.from_numpy(flat)), torch.from_numpy(fidx))
     np.testing.assert_array_equal(got.numpy(), want)
@@ -104,11 +104,12 @@ def test_pack_bf16_words_matches_jax():
 @pytest.mark.parametrize("impl", ["xla", "interpret"])
 def test_paged_gather_dequant_matches_jax(impl):
     rng = np.random.default_rng(3)
-    n, shape = (600, (41, 10)) if impl == "xla" else (256, (8, 3))
+    # interpret mode emulates one row DMA per draw: one draw a row
+    n, shape = (600, (41, 10)) if impl == "xla" else (256, (8, 1))
     x = _bf16_values(rng, n)
     words = jpk._as_lane_rows(jpk.pack_bf16_words(jnp.asarray(x)))
     fidx = rng.integers(0, len(x), shape).astype(np.int32)
-    fidx[0, :3] = [0, 1, len(x) - 1]  # even, odd, last logical element
+    fidx.reshape(-1)[:3] = [0, 1, len(x) - 1]  # even, odd, last logical element
     want = np.asarray(jpk.paged_gather_dequant(words, jnp.asarray(fidx), impl))
     got = ops.paged_gather_dequant(_i32(words), torch.from_numpy(fidx)).numpy()
     assert got.dtype == np.float32
@@ -144,8 +145,8 @@ def test_paged_cdf_count_and_page_search_match_jax(P):
 def test_paged_cdf_count_matches_jax_interpret():
     rng = np.random.default_rng(5)
     P = 8
-    flat_q, _, ps, npages, r = _cdf_inputs(rng, P, np.array([5, 12, 3]), 2)
-    page = np.minimum(ps[:-1, None] + rng.integers(0, 2, (3, 2)), len(flat_q) // P - 1).astype(np.int32)
+    flat_q, _, ps, npages, r = _cdf_inputs(rng, P, np.array([5, 12, 3]), 1)
+    page = np.minimum(ps[:-1, None] + rng.integers(0, 2, (3, 1)), len(flat_q) // P - 1).astype(np.int32)
     q2d = jpk._as_lane_rows(jnp.asarray(flat_q))
     want = np.asarray(jpk.paged_cdf_count(q2d, jnp.asarray(page), jnp.asarray(r), P, "interpret"))
     got = ops.paged_cdf_count(_i32(q2d), torch.from_numpy(page), _i32(r), P)
