@@ -87,7 +87,34 @@ Phases, each of which raises (exit code != 0) when it fails:
      share, the scorer under both templates against its plain version,
      torch.matmul and its bound, and the select kernel against its plain
      version, stage 2, `canonical_topk`, `torch.topk` over the masked
-     scores and its bound.
+     scores and its bound;
+  7. train the north-star quality config through the host-batch lane —
+     products_like_graph() (50 000 nodes, 47 Zipf classes, 100-wide
+     features, average degree 16, seed 0), SageDataFlow(fanouts 10,5) and
+     128 train roots a step from one default_rng(0), dims 128,128, adam lr
+     0.01, the JAX package's tests/test_quality.py:383-430 — 500 steps
+     through `Estimator.train`: exactly 3 gather_weighted_sum and 1
+     gather_weighted_sum_dx launches a step (counts reset just before),
+     finite, falling losses; `evaluate` on the first 5 000 test nodes in
+     10 batches of 500 (3 launches each) with f1 in (0.74, 0.84), the JAX
+     test's band; the first 3 steps again in mode 'ref' on the card and 2
+     on the CPU from the same host batches (losses within 1e-4 relative);
+     a Prefetcher(workers=1, device_put=True) run bitwise equal to the
+     plain one; then the median step, its host sampling part, device time,
+     H2D copies, idle share and top device ops, without a Prefetcher and
+     with one of 2 and of 1 workers;
+  8. the trainer CLI (`python -m euler_tpu_torch.tools.train`, the
+     products graph written to a dir, dims 128,128, batch 128, max degree
+     10, a checkpoint every 10 steps) as subprocesses: 40 steps straight
+     against 20 then a fresh --resume process up to 40, per-step losses and
+     the final checkpoint bitwise equal; a SIGTERM after the first
+     committed checkpoint gives exit 3 and a checkpoint at the preempted
+     step; then the same trainer in process, 3 + 1 launches a step;
+  9. on the CLI's checkpoint, `Estimator.infer` in chunks of 128 against
+     `InferenceRuntime.predict` at bucket 128, both over
+     FullNeighborDataFlow, 1 000 test ids: bitwise equal, 3 launches a
+     chunk. Then kernel 1 and its dx at the host lane's shapes, each held
+     first against its plain version.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
 {1, 2, 3, 8, 16, 20, 64, 65}, sig12 and raw f32 operands with a padded tail, an
@@ -110,6 +137,7 @@ import argparse
 import json
 import math
 import os
+import signal
 import statistics
 import subprocess
 import sys
@@ -169,6 +197,23 @@ PROFILE_WINDOWS = 3
 SELECT_TILES = (1024, 8192)
 SELECT_ROWS = (1, 1000, 10_007, 100_003)
 SELECT_BP, SELECT_B = 16, 13
+
+# the host-batch training cells: the JAX package's north-star quality
+# config (tests/test_quality.py:383-430) and its trainer CLI
+# (euler_tpu/tools/train.py) on the same products-like graph
+NS_FEAT, NS_CLASSES, NS_DIMS, NS_FANOUTS, NS_BATCH = 100, 47, [128, 128], [10, 5], 128
+NS_STEPS, NS_EVAL, NS_EVAL_BATCH, NS_F1_BAND = 500, 5000, 500, (0.74, 0.84)
+NS_TIMED, NS_PROFILED, NS_SAME_STEPS = 30, 10, 20
+CLI_MAX_DEGREE, CLI_CADENCE, CLI_STEPS, CLI_COUNTED = 10, 10, 40, 5
+CLI_WAIT_S = 300  # bound on every wait for a trainer process
+INFER_IDS, INFER_BUCKET = 1000, 128
+# kernel 1 at the host lane's shapes (N roots of the hop, D slots, F):
+# a north-star step's three launches (its dx is the third's), the CLI's
+# hop 1 and an evaluate batch's three
+HOST_SHAPES = (("ns layer0 hop0", 128, 10, 100), ("ns layer0 hop1", 1280, 5, 100),
+               ("ns layer1 hop0", 128, 10, 128), ("cli layer0 hop1", 1280, 10, 100),
+               ("eval layer0 hop0", 500, 10, 100), ("eval layer0 hop1", 5000, 5, 100),
+               ("eval layer1 hop0", 500, 10, 128))
 
 
 def _card_line() -> str:
@@ -1877,6 +1922,356 @@ def time_topk_kernel(torch, engine, pool, card: str) -> list:
     return rows
 
 
+def _expect_launches(launches: dict, want: dict, what: str) -> None:
+    """Every kernel's launch count: `want` where given, 0 elsewhere."""
+    for name, n in launches.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{what} launched {name} {n} times, expected "
+                                 f"{want.get(name, 0)}: {launches}")
+
+
+def _products_source(g, tr_ids):
+    """The north-star batch stream as tests/test_quality.py:409-419 draws
+    it: one default_rng(0) shared by SageDataFlow([10, 5]) and the choice
+    of 128 train roots a step."""
+    from euler_tpu_torch.dataflow import SageDataFlow
+
+    rng = np.random.default_rng(0)
+    flow = SageDataFlow(g, ["feature"], fanouts=NS_FANOUTS, label_feature="label", rng=rng)
+
+    def batch_fn():
+        return (flow.query(rng.choice(tr_ids, size=NS_BATCH, replace=True)),)
+
+    return flow, batch_fn
+
+
+def _host_window(torch, est, batch_fn, card: str, what: str) -> dict:
+    """Median step (host clock, each step ends synchronised: train()
+    brings its loss to the host) and, given `batch_fn`, the host sampling
+    part (batch_fn timed alone), then the device time, H2D copies and
+    idle share over NS_PROFILED back-to-back steps."""
+    est.train(3, log=False, save=False)
+    steps, query = [], []
+    for _ in range(NS_TIMED):
+        t = time.perf_counter()
+        est.train(1, log=False, save=False)
+        steps.append((time.perf_counter() - t) * 1e3)
+    for _ in range(NS_TIMED if batch_fn is not None else 0):
+        t = time.perf_counter()
+        batch_fn()
+        query.append((time.perf_counter() - t) * 1e3)
+
+    def window():
+        est.train(NS_PROFILED, log=False, save=False)
+        torch.cuda.synchronize()
+
+    counts = {}
+    dev, wall_ms = _profile_window(torch, window, counts=counts)
+    busy_ms = sum(dev.values()) / 1e3
+    h2d = {k: v for k, v in dev.items() if k.startswith("Memcpy HtoD")}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:10]
+    copies = sum(n for k, n in counts.items() if k.startswith(("Memcpy", "Memset")))
+    return {"what": what, "card": card, "median_step_ms": statistics.median(steps),
+            "min_step_ms": min(steps), "max_step_ms": max(steps),
+            "median_query_ms": statistics.median(query) if query else None, "steps": NS_TIMED,
+            "profiled_steps": NS_PROFILED, "wall_ms_per_step": wall_ms / NS_PROFILED,
+            "device_ms_per_step": busy_ms / NS_PROFILED,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "h2d_ms_per_step": sum(h2d.values()) / 1e3 / NS_PROFILED,
+            "h2d_kinds": sorted(h2d),
+            "kernel_launches_per_step": (sum(counts.values()) - copies) / NS_PROFILED,
+            "copies_per_step": copies / NS_PROFILED,
+            "kernel1_us_per_step": _kernel1_us(dev, NS_PROFILED),
+            "top_device_us_per_step": {k[:60]: v / NS_PROFILED for k, v in top}}
+
+
+def train_host(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 7: the north-star quality config through the host lane."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.datasets import products_like_graph
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, Prefetcher
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    t0 = time.perf_counter()
+    g, types = products_like_graph()
+    graph_s = time.perf_counter() - t0
+    tr_ids = (np.nonzero(types == 0)[0] + 1).astype(np.uint64)
+    te_ids = (np.nonzero(types == 2)[0][:NS_EVAL] + 1).astype(np.uint64)
+
+    def estimator(batch_fn, device: str, name: str):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
+                              log_steps=10**9, seed=seed)
+        return Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), batch_fn, cfg,
+                         device=device)
+
+    # (a) the main path: 500 steps in kernel mode auto, the first draws
+    # kept (the init draw, then REF_STEPS steps)
+    flow, batch_fn = _products_source(g, tr_ids)
+    kept = []
+
+    def tap():
+        out = batch_fn()
+        if len(kept) <= REF_STEPS:
+            kept.append(out)
+        return out
+
+    est = estimator(tap, "cuda", "ns")
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    losses = est.train(NS_STEPS, log=False, save=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    # kernel 1: layer 0 over hops 0 and 1, layer 1 over hop 0; its dx for
+    # layer 1 only (layer 0's x are features, with no gradient)
+    _expect_launches(launches, {"gather_weighted_sum": 3 * NS_STEPS,
+                                "gather_weighted_sum_dx": NS_STEPS}, "the host train path")
+    if not np.isfinite(losses).all() or not np.mean(losses[-50:]) < np.mean(losses[:50]):
+        raise AssertionError(f"host-lane losses not finite and falling: {losses[:5]} ... "
+                             f"{losses[-5:]}")
+
+    # evaluate on the first 5 000 test nodes, 10 batches of 500 (the same
+    # flow, as the JAX test queries them)
+    evals = [(flow.query(te_ids[i : i + NS_EVAL_BATCH]),)
+             for i in range(0, NS_EVAL, NS_EVAL_BATCH)]
+    ops.reset_launch_counts()
+    metrics = est.evaluate(evals)
+    eval_launches = ops.launch_counts()
+    _expect_launches(eval_launches, {"gather_weighted_sum": 3 * len(evals)}, "evaluate")
+    lo, hi = NS_F1_BAND
+    if not lo < metrics["f1"] < hi:
+        raise AssertionError(f"north-star f1 {metrics['f1']:.4f} outside ({lo}, {hi})")
+
+    # (b) mode ref on the card and (c) the port on the CPU, from the kept
+    # host batches
+    def replay():
+        it = iter(kept)
+        return lambda: next(it)
+
+    ops.set_kernel_mode("ref")
+    ops.reset_launch_counts()
+    try:
+        losses_ref = estimator(replay(), "cuda", "ref").train(REF_STEPS, log=False, save=False)
+    finally:
+        ops.set_kernel_mode("auto")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"mode ref launched kernels: {ops.launch_counts()}")
+    err_ref = _assert_close(losses_ref, losses[:REF_STEPS], "host lane auto vs ref")
+    losses_cpu = estimator(replay(), "cpu", "cpu").train(CPU_STEPS, log=False, save=False)
+    err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], "host lane card vs CPU")
+
+    # (d) a Prefetcher with one worker stages the same batches in order:
+    # the same losses, bitwise
+    _, plain_fn = _products_source(g, tr_ids)
+    plain = estimator(plain_fn, "cuda", "same_a").train(NS_SAME_STEPS, log=False, save=False)
+    _, pre_fn = _products_source(g, tr_ids)
+    pre = Prefetcher(pre_fn, depth=4, workers=1, device_put=True, device="cuda")
+    try:
+        prefetched = estimator(pre, "cuda", "same_b").train(NS_SAME_STEPS, log=False,
+                                                             save=False)
+    finally:
+        pre.close()
+    if prefetched != plain:
+        raise AssertionError(f"prefetched losses differ: {prefetched} against {plain}")
+
+    # (e) where a step's time goes, without and with a Prefetcher of 2
+    # workers (and of 1, which shares the interpreter lock with one fewer)
+    _, fn = _products_source(g, tr_ids)
+    timing = _host_window(torch, estimator(fn, "cuda", "time"), fn, card, "unprefetched")
+    timing_pre = {}
+    for workers in (2, 1):
+        _, fn = _products_source(g, tr_ids)
+        pre = Prefetcher(fn, depth=4, workers=workers, device_put=True, device="cuda")
+        try:
+            # (the workers draw meanwhile: no separate query time)
+            timing_pre[workers] = _host_window(
+                torch, estimator(pre, "cuda", f"time_pre{workers}"), None, card,
+                f"Prefetcher(workers={workers}, device_put=True)")
+        finally:
+            pre.close()
+
+    res = {"phase": "train_host", "nodes": g.shards[0].num_nodes,
+           "edges": int(g.shards[0].adj[0].indptr[-1]), "batch": NS_BATCH,
+           "fanouts": NS_FANOUTS, "dims": NS_DIMS, "steps": NS_STEPS,
+           "losses_head": losses[:10], "losses_tail": losses[-10:], "launches": launches,
+           "eval": metrics, "eval_batches": len(evals), "eval_launches": eval_launches,
+           "f1_band": NS_F1_BAND,
+           "ref_on_card": {"losses": losses_ref, "max_rel_err": err_ref},
+           "port_on_cpu": {"losses": losses_cpu, "max_rel_err": err_cpu},
+           "prefetch_one_worker_bitwise": {"steps": NS_SAME_STEPS, "equal": True},
+           "graph_s": graph_s, "train_s": train_s, "rtol": TRAIN_TOL}
+    _emit(res)
+    _emit({"phase": "train_host_timing", "card": card, "unprefetched": timing,
+           "prefetched": timing_pre[2], "prefetched_one_worker": timing_pre[1]})
+    return {"graph": g, "te_ids": te_ids, "launches": launches,
+            "eval_launches": eval_launches, "result": res}
+
+
+def write_products(g, directory: str) -> None:
+    from euler_tpu_torch.graph import write_arrays
+
+    for p, shard in enumerate(g.shards):
+        write_arrays(os.path.join(directory, f"part_{p}"), shard.arrays)
+    g.meta.save(directory)
+
+
+def _cli_args(data: str, model_dir: str, total: int, losses_out: str | None, *extra) -> list:
+    args = ["--data", data, "--model-dir", model_dir, "--dims", ",".join(map(str, NS_DIMS)),
+            "--label-dim", str(NS_CLASSES), "--features", "feature", "--label-feature", "label",
+            "--batch-size", str(NS_BATCH), "--max-degree", str(CLI_MAX_DEGREE),
+            "--checkpoint-every", str(CLI_CADENCE), "--total-steps", str(total), *extra]
+    return args + (["--losses-out", losses_out] if losses_out else [])
+
+
+def _trainer(args: list) -> subprocess.Popen:
+    return subprocess.Popen([sys.executable, "-m", "euler_tpu_torch.tools.train", *args],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def _finish(proc: subprocess.Popen, want_rc: int, what: str) -> dict:
+    """Wait (bounded) for a trainer; its final JSON line. A trainer left
+    running is killed."""
+    try:
+        out, _ = proc.communicate(timeout=CLI_WAIT_S)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    if proc.returncode != want_rc:
+        raise AssertionError(f"{what}: exit {proc.returncode}, expected {want_rc}:\n"
+                             f"{out[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def _losses_by_step(path: str) -> dict:
+    out = {}
+    with open(path, encoding="utf-8") as f:
+        for line in f:
+            seg = json.loads(line)
+            out.update(zip(seg["loss_steps"], seg["losses"]))
+    return out
+
+
+def train_cli(torch, g, tmp: str) -> dict:
+    """Phase 8: the trainer CLI on the card, as subprocesses: 40 steps
+    straight against 20 then a fresh --resume process up to 40 (bitwise),
+    and a SIGTERM run; then the CLI's trainer in process, its launches
+    counted."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.tools.train import build_parser, build_trainer
+    from euler_tpu_torch.training import CheckpointStore
+
+    data = os.path.join(tmp, "products")
+    write_products(g, data)
+    straight, split, term = (os.path.join(tmp, n) for n in ("cli_a", "cli_b", "cli_c"))
+    t0 = time.perf_counter()
+    rep_a = _finish(_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl")), 0,
+                    "straight run")
+    rep_b1 = _finish(_trainer(_cli_args(data, split, CLI_STEPS // 2, split + ".jsonl")), 0,
+                     "first half")
+    rep_b2 = _finish(_trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume")),
+                     0, "resumed half")
+    runs_s = time.perf_counter() - t0
+    want, got = _losses_by_step(straight + ".jsonl"), _losses_by_step(split + ".jsonl")
+    if sorted(want) != list(range(1, CLI_STEPS + 1)) or got != want:
+        raise AssertionError(f"split + resume losses differ from the straight run:\n{got}\n{want}")
+    if not np.isfinite(list(want.values())).all():
+        raise AssertionError(f"non-finite CLI losses {want}")
+    a, b = CheckpointStore(straight).load(), CheckpointStore(split).load()
+    if a["step"] != CLI_STEPS or b["step"] != CLI_STEPS or not all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(a["params"] + a["opt_state"], b["params"] + b["opt_state"],
+                            strict=True)):
+        raise AssertionError("the resumed run's final checkpoint differs from the straight run's")
+    if rep_b2["resumed"]["step"] != CLI_STEPS // 2 or rep_b2["resumed"]["epoch_match"] is not True:
+        raise AssertionError(f"bad resume report {rep_b2['resumed']}")
+
+    # SIGTERM once the first checkpoint is committed: exit 3, a final
+    # checkpoint at the preempted step
+    proc = _trainer(_cli_args(data, term, 100_000, term + ".jsonl"))
+    store = CheckpointStore(term)
+    try:
+        deadline = time.monotonic() + CLI_WAIT_S
+        while time.monotonic() < deadline and not store.steps() and proc.poll() is None:
+            time.sleep(0.05)
+        if not store.steps():
+            raise AssertionError("the SIGTERM run never committed a checkpoint")
+        proc.send_signal(signal.SIGTERM)
+    except BaseException:
+        proc.kill()
+        proc.communicate()
+        raise
+    rep_c = _finish(proc, 3, "SIGTERM run")
+    if not rep_c["preempted"] or store.latest_step() != rep_c["step"]:
+        raise AssertionError(f"SIGTERM: report {rep_c}, latest checkpoint {store.latest_step()}")
+    if sorted(_losses_by_step(term + ".jsonl")) != list(range(1, rep_c["step"] + 1)):
+        raise AssertionError("SIGTERM run lost losses")
+
+    # the same trainer in process: its launches a step
+    args = build_parser().parse_args(_cli_args(data, os.path.join(tmp, "cli_n"), CLI_COUNTED,
+                                               None, "--device", "cuda"))
+    session, _, _, _ = build_trainer(args)
+    ops.reset_launch_counts()
+    session.run(CLI_COUNTED)
+    launches = ops.launch_counts()
+    _expect_launches(launches, {"gather_weighted_sum": 3 * CLI_COUNTED,
+                                "gather_weighted_sum_dx": CLI_COUNTED}, "the trainer CLI")
+    res = {"phase": "train_cli", "steps": CLI_STEPS, "cadence": CLI_CADENCE,
+           "max_degree": CLI_MAX_DEGREE, "losses": [want[s] for s in sorted(want)],
+           "split_resume_bitwise": True, "final_checkpoint_bitwise": True,
+           "resumed": rep_b2["resumed"], "sigterm": {"step": rep_c["step"], "exit": 3,
+                                                      "latest_checkpoint": store.latest_step()},
+           "telemetry": rep_a["telemetry"], "first_half": rep_b1["step"],
+           "runs_s": runs_s, "launches_in_process": launches, "steps_in_process": CLI_COUNTED}
+    _emit(res)
+    return {"data": data, "model_dir": straight, "launches": launches, "result": res}
+
+
+def infer_parity(torch, data: str, model_dir: str, ids) -> dict:
+    """Phase 9: on the CLI's checkpoint, Estimator.infer in chunks of 128
+    against InferenceRuntime.predict at bucket 128, both over
+    FullNeighborDataFlow: the same shapes, so bitwise."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import FullNeighborDataFlow
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, id_batches
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.models import GraphSAGESupervised
+    from euler_tpu_torch.params import from_checkpoint_leaves
+    from euler_tpu_torch.serving import InferenceRuntime
+    from euler_tpu_torch.training import CheckpointStore
+
+    g = Graph.load(data)
+    flow = FullNeighborDataFlow(g, ["feature"], num_hops=len(NS_DIMS), max_degree=CLI_MAX_DEGREE)
+    ckpt = CheckpointStore(model_dir).load()
+    est = Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), None,
+                    EstimatorConfig(model_dir=os.path.join(model_dir, "infer")),
+                    init_params=from_checkpoint_leaves(ckpt["params"]), device="cuda")
+    chunks = math.ceil(len(ids) / INFER_BUCKET)
+    ops.reset_launch_counts()
+    out_ids, emb = est.infer(*id_batches(flow, ids, INFER_BUCKET))
+    infer_launches = ops.launch_counts()
+    rt = InferenceRuntime(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), flow,
+                          model_dir=model_dir, buckets=(INFER_BUCKET,), device="cuda")
+    ops.reset_launch_counts()
+    served = rt.predict(ids)
+    predict_launches = ops.launch_counts()
+    for what, n in (("infer", infer_launches), ("predict", predict_launches)):
+        _expect_launches(n, {"gather_weighted_sum": 3 * chunks}, what)
+    if not np.array_equal(out_ids, ids) or emb.shape != (len(ids), NS_DIMS[-1]) \
+            or not np.isfinite(emb).all():
+        raise AssertionError(f"bad infer output {emb.shape}")
+    if not np.array_equal(emb, served):
+        raise AssertionError(f"infer and predict differ: max abs "
+                             f"{float(np.abs(emb - served).max())}")
+    res = {"phase": "infer_parity", "ids": len(ids), "bucket": INFER_BUCKET, "chunks": chunks,
+           "checkpoint_step": ckpt["step"], "bitwise": True, "shape": list(emb.shape),
+           "launches": {"infer": infer_launches["gather_weighted_sum"],
+                        "predict": predict_launches["gather_weighted_sum"]}}
+    _emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -1949,12 +2344,20 @@ def main(argv=None) -> int:
         topk_rows = time_topk_kernel(torch, retrieved["engine"], retrieved["pool"], card)
         del retrieved["engine"]
         torch.cuda.empty_cache()
+
+        # 7-9. the host-batch training lane, the trainer CLI, infer parity
+        host = train_host(torch, tmp, args.seed, card)
+        cli = train_cli(torch, host["graph"], tmp)
+        parity = infer_parity(torch, cli["data"], cli["model_dir"], host["te_ids"][:INFER_IDS])
+        del host["graph"]
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
                + time_dx(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step"))
     # the path's one dx a step: layer 1 over hop 0 of a train step
     dx_path = dx_rows[-1]
+    host_rows = time_kernels(torch, gen, HOST_SHAPES, "host lane")
+    host_dx_rows = time_dx(torch, gen, HOST_SHAPES[2:3], "host train step")
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -1966,14 +2369,24 @@ def main(argv=None) -> int:
     # 6. the kernels line: per kernel, the sums over the launches of one
     # bucket-128 predict (gather_weighted_sum) or one train step (paged)
     train_launches = trained["launches"]
+    host_launches = {
+        "train_host": host["launches"]["gather_weighted_sum"],
+        "evaluate": host["eval_launches"]["gather_weighted_sum"],
+        "train_cli": cli["launches"]["gather_weighted_sum"],
+        "infer": parity["launches"]["infer"], "predict": parity["launches"]["predict"]}
+    host_dx_launches = {"train_host": host["launches"]["gather_weighted_sum_dx"],
+                        "train_cli": cli["launches"]["gather_weighted_sum_dx"]}
+    shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
+                  "library_ms", "bound_ms")
     kernels = [{
         "name": "gather_weighted_sum",
         "route": "cuda",
         "source": "euler_tpu_torch/ops/csrc/gather_weighted_sum.cu",
         "replaces": "euler_tpu/ops/pallas_kernels.py:96",
-        "launches": served["launches"] + train_launches["gather_weighted_sum"],
+        "launches": (served["launches"] + train_launches["gather_weighted_sum"]
+                     + sum(host_launches.values())),
         "launches_by_path": {"serve": served["launches"],
-                             "train": train_launches["gather_weighted_sum"]},
+                             "train": train_launches["gather_weighted_sum"], **host_launches},
         "max_abs_err": check["max_abs_err"],
         "ms": total(serve_rows, "ms"),
         "plain_ms": total(serve_rows, "plain_ms"),
@@ -1990,6 +2403,9 @@ def main(argv=None) -> int:
                                             "ms", "warm_ms", "plain_ms", "library_ms",
                                             "bound_ms")}
                          for r in train_rows],
+        "host_train_step": {k: total(host_rows[:3], k) for k in ("ms", "plain_ms",
+                                                                 "library_ms", "bound_ms")},
+        "host_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in host_rows],
     }, {
         "name": "gather_weighted_sum_dx",
         "route": "cuda",
@@ -1997,9 +2413,11 @@ def main(argv=None) -> int:
         "replaces": "euler_tpu/ops/pallas_kernels.py:166-187",
         "replaces_what": "the custom VJP's dx of gather_weighted_sum: a scatter-add of w*g "
                          "in plain JAX, outside any Pallas kernel",
-        "launches": served["launches_dx"] + train_launches["gather_weighted_sum_dx"],
+        "launches": (served["launches_dx"] + train_launches["gather_weighted_sum_dx"]
+                     + sum(host_dx_launches.values())),
         "launches_by_path": {"serve": served["launches_dx"],
-                             "train": train_launches["gather_weighted_sum_dx"]},
+                             "train": train_launches["gather_weighted_sum_dx"],
+                             **host_dx_launches},
         "max_abs_err": dx_check["max_abs_err"],
         "check": "bitwise for unique slots, rtol = atol = 1e-5 for repeats",
         "ms": dx_path["ms"],
@@ -2009,8 +2427,8 @@ def main(argv=None) -> int:
         "library_ms": dx_path["library_ms"],
         "library": "embedding_bag backward with respect to the table",
         "card": card,
-        "shapes": [{k: r[k] for k in ("shape", "N", "D", "F", "geometry", "ms", "warm_ms",
-                                      "plain_ms", "library_ms", "bound_ms")} for r in dx_rows],
+        "shapes": [{k: r[k] for k in shape_keys} for r in dx_rows],
+        "host_shapes": [{k: r[k] for k in shape_keys} for r in host_dx_rows],
     }]
     # the hop kernel: the sums over the two hops of one train step
     kernels.append({

@@ -7,5 +7,5 @@ from euler_tpu_torch.dataflow.base import (  # noqa: F401
     hydrate_blocks,
     to_device,
 )
-from euler_tpu_torch.dataflow.sage import SageDataFlow  # noqa: F401
+from euler_tpu_torch.dataflow.sage import FullNeighborDataFlow, SageDataFlow  # noqa: F401
 from euler_tpu_torch.dataflow.device import DeviceGraphTables, DeviceSageFlow  # noqa: F401

@@ -57,31 +57,47 @@ class MiniBatch:
     hop_ids: tuple | None = None
 
 
-def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if pinned:
+        # a page-locked copy, so the copy to the card runs asynchronously
+        # on the caller's current stream
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
 
 
-def to_device(batch: MiniBatch, device) -> MiniBatch:
+def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     """The batch with every array as a tensor on `device` (the port's
-    counterpart of the JAX `Estimator._put` + `hydrate_blocks`). hop_ids
-    stay on the host: no model of the port reads them on the device."""
+    counterpart of the JAX `Estimator._put` + `hydrate_blocks`); arrays
+    that already are tensors are moved, or kept where they are. hop_ids
+    stay on the host: no model of the port reads them on the device.
+    pinned=True stages each host array in page-locked memory and copies
+    it without blocking: the caller must order its use after the current
+    stream's copies (the Prefetcher records an event)."""
     device = torch.device(device)
+
+    def put(a):
+        return _tensor(a, device, pinned)
+
     blocks = tuple(
         dataclasses.replace(
             b,
-            edge_src=_tensor(b.edge_src, device),
-            edge_dst=_tensor(b.edge_dst, device),
-            edge_w=_tensor(np.asarray(b.edge_w, np.float32), device),
-            mask=_tensor(b.mask, device),
+            edge_src=put(b.edge_src),
+            edge_dst=put(b.edge_dst),
+            edge_w=put(b.edge_w if isinstance(b.edge_w, torch.Tensor)
+                       else np.asarray(b.edge_w, np.float32)),
+            mask=put(b.mask),
         )
         for b in batch.blocks
     )
     return MiniBatch(
-        feats=tuple(_tensor(f, device) for f in batch.feats),
-        masks=tuple(_tensor(m, device) for m in batch.masks),
+        feats=tuple(put(f) for f in batch.feats),
+        masks=tuple(put(m) for m in batch.masks),
         blocks=blocks,
-        root_idx=_tensor(batch.root_idx, device),
-        labels=None if batch.labels is None else _tensor(batch.labels, device),
+        root_idx=put(batch.root_idx),
+        labels=None if batch.labels is None else put(batch.labels),
         hop_ids=batch.hop_ids,
     )
 

@@ -1,5 +1,6 @@
-"""Sampled-fanout dataflow (GraphSAGE) with padded static shapes
-(counterpart: euler_tpu/dataflow/sage.py, dense feature mode)."""
+"""Sampled-fanout (GraphSAGE) and full-neighbor dataflows with padded
+static shapes (counterpart: euler_tpu/dataflow/sage.py, dense feature
+mode, local graphs)."""
 
 from __future__ import annotations
 
@@ -82,6 +83,70 @@ class SageDataFlow(DataFlow):
             feats = self.node_feats_hops(hop_ids)
         return MiniBatch(
             feats=feats,
+            masks=tuple(hop_masks),
+            blocks=tuple(blocks),
+            root_idx=roots.astype(np.int64).astype(np.int32),
+            labels=self.labels_of(roots),
+            hop_ids=tuple(ids.astype(np.int64).astype(np.int32) for ids in hop_ids),
+        )
+
+
+class FullNeighborDataFlow(DataFlow):
+    """Full-neighbor dataflow with a degree cap (counterpart:
+    euler_tpu/dataflow/sage.py:317-394, the local path).
+
+    Every hop expands each node to its neighbor list in storage order,
+    cut at `max_degree` and padded to it, so the shapes are static and a
+    root set always gives the same batch. Not ported yet: the remote
+    planner (`_query_plan`, which waits for the distributed client) and
+    `gcn_norm` (the true degrees GCNConv reads); asking for either
+    raises.
+    """
+
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        edge_types=None,
+        num_hops=2,
+        max_degree=32,
+        label_feature=None,
+        rng=None,
+        gcn_norm: bool = False,
+    ):
+        if gcn_norm:
+            raise NotImplementedError(
+                "FullNeighborDataFlow(gcn_norm=True) is not ported yet: it "
+                "feeds GCNConv, which the port does not have"
+            )
+        shards = getattr(graph, "shards", None)
+        if shards and all(hasattr(sh, "call") for sh in shards):
+            # a graph of wire shards (euler_tpu/query/plan.py:665-667)
+            raise NotImplementedError(
+                "FullNeighborDataFlow over a remote graph (the query planner) "
+                "is not ported yet"
+            )
+        super().__init__(graph, feature_names, label_feature, rng)
+        self.edge_types = edge_types
+        self.num_hops = num_hops
+        self.max_degree = max_degree
+
+    def query(self, roots: np.ndarray) -> MiniBatch:
+        roots = np.asarray(roots, dtype=np.uint64)
+        hop_ids = [roots]
+        hop_masks = [roots != DEFAULT_ID]
+        blocks = []
+        cur = roots
+        for _ in range(self.num_hops):
+            nbr, w, _, mask, _ = self.graph.get_full_neighbor(
+                cur, self.edge_types, max_degree=self.max_degree
+            )
+            blocks.append(fanout_block(len(cur), self.max_degree, w, mask))
+            cur = nbr.reshape(-1)
+            hop_ids.append(cur)
+            hop_masks.append(mask.reshape(-1))
+        return MiniBatch(
+            feats=self.node_feats_hops(hop_ids),
             masks=tuple(hop_masks),
             blocks=tuple(blocks),
             root_idx=roots.astype(np.int64).astype(np.int32),

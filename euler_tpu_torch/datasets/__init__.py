@@ -5,3 +5,4 @@ from euler_tpu_torch.datasets.synthetic import (  # noqa: F401
     skewed_weighted_graph,
     synthetic_meta,
 )
+from euler_tpu_torch.datasets.quality import products_like_graph  # noqa: F401

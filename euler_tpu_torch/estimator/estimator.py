@@ -1,34 +1,40 @@
-"""The training loop over a device flow
-(counterpart: euler_tpu/estimator/estimator.py:28-90, 312-609, 822-881).
+"""The train / evaluate / infer loops
+(counterpart: euler_tpu/estimator/estimator.py:28-90, 312-881, 1047-1163).
 
 The model contract is the JAX package's: calling the model on a batch
-returns (embedding, loss, metric_name, metric). Each step draws its batch
-on the device from a generator seeded from (cfg.seed + 2, global step), so
-the batch stream is a function of the global step, as JAX's `fold_in`
-makes it; the draws go through the flow's one `draw_inputs` method. The
-batch is hydrated (`hydrate_blocks`, then the feature cache), the loss
-back-propagated, and the optimizer steps. Losses stay on the device until
-`train` returns.
+returns (embedding, loss, metric_name, metric). Two lanes feed it:
 
-Checkpoints are the JAX package's format (`training/checkpoint.py`):
-flax-order param leaves and optax-order optimizer leaves, so a JAX
-`Estimator.restore` reads what `save` wrote, and `restore` reads what the
-JAX `Estimator.save` wrote.
+- a host batch function: `batch_fn()` returns a tuple of numpy
+  `MiniBatch`es (e.g. `node_batches`, a `ResumableSource` or a
+  `Prefetcher`), which go through `to_device` → `hydrate_blocks` → the
+  feature cache → the step;
+- a device flow (`DeviceSageFlow`): each step draws its batch on the
+  device from a generator seeded from (cfg.seed + 2, global step), so the
+  batch stream is a function of the global step, as JAX's `fold_in`
+  makes it; the draws go through the flow's one `draw_inputs` method.
 
-Not ported yet: host batch functions, `evaluate`/`infer`, the lax.scan
-grouping of steps (`steps_per_call`), the profiler hook and
-`TrainingSession`.
+Losses stay on the device until `train` drains them (every 4 096 steps
+and at the end). Checkpoints are the JAX package's format
+(`training/checkpoint.py`): flax-order param leaves and optax-order
+optimizer leaves, so each package restores what the other saved.
+
+Not ported yet: the lax.scan grouping of steps (`steps_per_call` > 1),
+meshes, `pipelined_batches` and the shard-failure policy of remote
+batch sources.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
+import sys
 import time
+from typing import Callable, Iterable, Iterator
 
 import numpy as np
 import torch
 
-from euler_tpu_torch.dataflow.base import hydrate_blocks
+from euler_tpu_torch.dataflow.base import MiniBatch, hydrate_blocks, to_device
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.params import (
     checkpoint_order,
@@ -40,10 +46,15 @@ from euler_tpu_torch.params import (
 )
 from euler_tpu_torch.training.checkpoint import CheckpointStore
 
+# losses kept on the device before a drain to the host: one live scalar
+# a step would otherwise pin an unbounded number of small buffers
+DRAIN_EVERY = 4096
+
 
 @dataclasses.dataclass
 class EstimatorConfig:
     model_dir: str = "/tmp/euler_tpu_model"
+    batch_size: int = 32
     total_steps: int = 100
     learning_rate: float = 0.01
     optimizer: str = "adam"  # adam | adagrad | sgd | momentum
@@ -52,16 +63,48 @@ class EstimatorConfig:
     checkpoint_steps: int = 0  # 0 = only at end
     keep_checkpoints: int = 3
     seed: int = 0
+    # when set, one torch.profiler trace of `profile_steps` steps is
+    # written there once, starting at global step `profile_start_step`
+    profile_dir: str = ""
+    profile_start_step: int = 10
+    profile_steps: int = 5
+    # optimizer steps per dispatch; only 1 is ported
+    steps_per_call: int = 1
 
 
-# optax's defaults for each optimizer, written out for torch.optim
+class OptaxAdagrad(torch.optim.Optimizer):
+    """optax.adagrad's update (`scale_by_rss` then `scale(-lr)`): s += g²;
+    p += (g · rsqrt(s + eps)) · (-lr), with s starting at
+    `initial_accumulator_value`. torch's Adagrad divides by sqrt(s) + eps
+    instead. The state slot keeps torch's name, "sum"."""
+
+    def __init__(self, params, lr: float, initial_accumulator_value: float = 0.1,
+                 eps: float = 1e-7):
+        super().__init__(params, dict(lr=lr, initial_accumulator_value=initial_accumulator_value,
+                                      eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("OptaxAdagrad takes no closure")
+        for group in self.param_groups:
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                st = self.state[p]
+                if "sum" not in st:
+                    st["sum"] = torch.full_like(p, group["initial_accumulator_value"])
+                g = p.grad
+                s = st["sum"].add_(g * g)
+                p.add_((g * torch.rsqrt(s + group["eps"])) * (-group["lr"]))
+
+
+# optax's defaults for each optimizer, written out for torch
 _OPTIMIZERS = {
     "adam": lambda p, cfg: torch.optim.Adam(
         p, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8
     ),
-    "adagrad": lambda p, cfg: torch.optim.Adagrad(
-        p, lr=cfg.learning_rate, initial_accumulator_value=0.1, eps=1e-7
-    ),
+    "adagrad": lambda p, cfg: OptaxAdagrad(p, lr=cfg.learning_rate),
     "sgd": lambda p, cfg: torch.optim.SGD(p, lr=cfg.learning_rate),
     "momentum": lambda p, cfg: torch.optim.SGD(
         p, lr=cfg.learning_rate, momentum=cfg.momentum, dampening=0
@@ -70,9 +113,10 @@ _OPTIMIZERS = {
 
 
 def make_optimizer(cfg: EstimatorConfig, params) -> torch.optim.Optimizer:
-    """torch.optim under optax's conventions: adam eps 1e-8 (bias
-    correction as both libraries do it); adagrad with initial accumulator
-    0.1 and eps 1e-7; momentum without dampening."""
+    """torch optimizers under optax's conventions: adam eps 1e-8 (bias
+    correction as both libraries do it); adagrad as optax computes it
+    (`OptaxAdagrad`: initial accumulator 0.1, eps 1e-7); momentum without
+    dampening."""
     if cfg.optimizer not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
     return _OPTIMIZERS[cfg.optimizer](params, cfg)
@@ -85,33 +129,40 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
 
 
 class Estimator:
-    """Drives a (emb, loss, metric_name, metric) model over a device flow."""
+    """Drives a (emb, loss, metric_name, metric) model over a host batch
+    function or a device flow."""
 
     def __init__(
         self,
         model: torch.nn.Module,
-        flow,
+        batch_fn: Callable[[], tuple],
         cfg: EstimatorConfig | None = None,
         feature_cache=None,
         init_params: dict | None = None,
         device=None,
     ):
-        """init_params: a state_dict to start from (e.g. `params.from_flax`
-        of a flax init); otherwise every Linear is initialised as flax's
-        Dense is, from a generator seeded with cfg.seed. Runs on the CUDA
-        card unless device="cpu"; the flow and the feature cache must
-        live on the same device."""
-        if not getattr(flow, "is_device_flow", False):
-            raise TypeError(
-                "the port's Estimator trains from a device flow (DeviceSageFlow); "
-                "host batch functions are not ported yet"
-            )
+        """batch_fn: a host batch function returning a tuple of model
+        args (`(MiniBatch,)` for supervised heads), or a device flow
+        (`is_device_flow`). init_params: a state_dict to start from (e.g.
+        `params.from_flax` of a flax init); otherwise every Linear is
+        initialised as flax's Dense is, from a generator seeded with
+        cfg.seed, and — on the host lane — the first train, evaluate,
+        infer, save or restore consumes one `batch_fn()` draw, where the
+        JAX package initialises from it. Runs on the CUDA card unless
+        device="cpu"; a device flow and the feature cache must live on
+        the same device."""
         self.cfg = cfg or EstimatorConfig()
+        if int(self.cfg.steps_per_call) != 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 (several optimizer steps a dispatch) is not ported yet"
+            )
         self.device = resolve_device(device)
-        for what, obj in (("flow", flow), ("feature_cache", feature_cache)):
+        is_flow = getattr(batch_fn, "is_device_flow", False)
+        self.flow = batch_fn if is_flow else None
+        self.batch_fn = None if is_flow else batch_fn
+        for what, obj in (("flow", self.flow), ("feature_cache", feature_cache)):
             if obj is not None and obj.device != self.device:
                 raise ValueError(f"{what} lives on {obj.device}, the estimator on {self.device}")
-        self.flow = flow
         self.feature_cache = feature_cache
         model = model.cpu()
         if init_params is None:
@@ -121,37 +172,107 @@ class Estimator:
         self.model = model.to(self.device)
         self.optimizer = make_optimizer(self.cfg, self.model.parameters())
         self.step = 0
+        self._init_draw = init_params is None and not is_flow
+        self._profiled = False
+        self._profile_first = 0
         # losses of the most recent train(), published even when it raises
         self.last_losses: list[float] = []
 
+    # -- batches ------------------------------------------------------------
+
+    def _ensure_init(self) -> None:
+        """Consume the draw JAX's `_ensure_init` initialises from
+        (estimator.py:411-416), once, so the batch stream and every
+        source cursor stay aligned with the JAX package's."""
+        if self._init_draw:
+            self._init_draw = False
+            self.batch_fn()
+
     def batch(self, step: int):
-        """The lean batch of global step `step`."""
+        """The lean batch of global step `step` (device flows)."""
         gen = step_generator(self.cfg.seed, step, self.device)
         return self.flow.fanout_batch(*self.flow.draw_inputs(gen))
+
+    def _next_batch(self):
+        """One step's batch: a device-flow draw for the global step, or
+        the next host batch."""
+        if self.flow is not None:
+            return self.batch(self.step)
+        return self.batch_fn()
 
     def _hydrate(self, batch):
         batch = hydrate_blocks(batch)
         return self.feature_cache.hydrate(batch) if self.feature_cache is not None else batch
 
+    def _model_args(self, batch) -> tuple:
+        """The model's args on the device: a device-flow batch hydrated;
+        each MiniBatch of a host batch tuple moved, then hydrated."""
+        if self.flow is not None:
+            return (self._hydrate(batch),)
+        return tuple(
+            self._hydrate(to_device(b, self.device)) if isinstance(b, MiniBatch) else b
+            for b in batch
+        )
+
     def _update(self, batch):
         self.optimizer.zero_grad(set_to_none=True)
-        _, loss, _, metric = self.model(self._hydrate(batch))
+        _, loss, _, metric = self.model(*self._model_args(batch))
         loss.backward()
         self.optimizer.step()
         return loss.detach(), metric.detach()
 
+    # -- profiling ----------------------------------------------------------
+
+    def _maybe_profile(self, prof):
+        """Start the one profiler trace at `profile_start_step`; stop and
+        write it `profile_steps` steps later. Returns the live profile or
+        None."""
+        cfg = self.cfg
+        if prof is None and cfg.profile_dir and not self._profiled \
+                and self.step >= cfg.profile_start_step:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=acts)
+            prof.start()
+            self._profile_first = self.step
+            self._profiled = True
+        elif prof is not None and self.step >= self._profile_first + cfg.profile_steps:
+            self._stop_profile(prof)
+            prof = None
+        return prof
+
+    def _stop_profile(self, prof) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof.stop()
+        os.makedirs(self.cfg.profile_dir, exist_ok=True)
+        prof.export_chrome_trace(
+            os.path.join(self.cfg.profile_dir, f"trace_step{self._profile_first}.json")
+        )
+
+    # -- train / evaluate / infer / train_and_evaluate ----------------------
+
     def train(self, total_steps: int | None = None, log: bool = True, save: bool = True) -> list:
         """Run `total_steps` (default cfg.total_steps) optimizer steps;
-        returns their losses and sets `last_losses`."""
+        returns their losses and sets `last_losses`, also when a step
+        raises (then a checkpoint is saved best-effort)."""
+        self._ensure_init()
         steps = self.cfg.total_steps if total_steps is None else int(total_steps)
         self.model.train()
-        losses = []
+        history: list = []  # device losses not yet drained
+        fetched: list[float] = []
+        prof = None
         t0 = time.time()
         try:
             for _ in range(steps):
-                loss, metric = self._update(self.batch(self.step))
+                prof = self._maybe_profile(prof)
+                loss, metric = self._update(self._next_batch())
                 self.step += 1
-                losses.append(loss)
+                history.append(loss)
+                if len(history) >= DRAIN_EVERY:
+                    fetched.extend(torch.stack(history).cpu().tolist())
+                    history = []
                 if log and self.step % self.cfg.log_steps == 0:
                     print(
                         f"step {self.step}: loss={float(loss):.4f} "
@@ -159,25 +280,135 @@ class Estimator:
                     )
                 if self.cfg.checkpoint_steps and self.step % self.cfg.checkpoint_steps == 0:
                     self.save()
+            prof = self._maybe_profile(prof)
         finally:
-            self.last_losses = torch.stack(losses).cpu().tolist() if losses else []
-        if save:
-            self.save()
+            self._finish_train(history, fetched, prof, save)
         return list(self.last_losses)
+
+    def _finish_train(self, history, fetched, prof, save) -> None:
+        """The train loop's epilogue, run from a `finally`
+        (counterpart: estimator.py:610-649): stop a live profile, drain
+        the device losses, publish what was fetched on `last_losses`, and
+        save. While an error unwinds, the drain and the save are
+        best-effort, so the original error is the one surfaced; on the
+        clean path a failure raises."""
+        exc_live = sys.exc_info()[0] is not None
+        if prof is not None:
+            try:
+                self._stop_profile(prof)
+            except Exception:
+                if not exc_live:
+                    raise
+        if history:
+            try:
+                fetched.extend(torch.stack(history).cpu().tolist())
+            except Exception:
+                if not exc_live:
+                    raise
+        self.last_losses = list(fetched)
+        if save:
+            if exc_live:
+                try:
+                    self.save()
+                except Exception as e:
+                    print(f"# estimator: best-effort checkpoint after a raising train "
+                          f"loop failed: {e!r}", file=sys.stderr)
+            else:
+                self.save()
+
+    def evaluate(self, batches: Iterable[tuple]) -> dict:
+        """Mean loss and metric over host batches: {"loss", <metric name>}."""
+        self._ensure_init()
+        name = None
+        losses, metrics = [], []
+        with torch.inference_mode():
+            for batch in batches:
+                _, loss, name, metric = self.model(*self._model_args(batch))
+                losses.append(float(loss))
+                metrics.append(float(metric))
+        return {
+            "loss": float(np.mean(losses)) if losses else float("nan"),
+            (name or "metric"): float(np.mean(metrics)) if metrics else float("nan"),
+        }
+
+    def embed_program(self) -> Callable:
+        """`batch -> embeddings` (a device tensor): what `infer` runs on
+        each host MiniBatch — moved, hydrated and through `model.embed`,
+        as `InferenceRuntime` serves a checkpoint."""
+
+        def embed(batch: MiniBatch) -> torch.Tensor:
+            with torch.inference_mode():
+                return self.model.embed(*self._model_args((batch,)))
+
+        return embed
+
+    def infer(
+        self, batches: Iterable[tuple], ids: Iterable[np.ndarray], worker: int = 0
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Embeds batches; writes embedding_{worker}.npy + ids_{worker}.npy
+        under model_dir. Returns (ids, embeddings)."""
+        self._ensure_init()
+        embed = self.embed_program()
+        embs, all_ids = [], []
+        for batch, chunk_ids in zip(batches, ids):
+            emb = embed(batch[0]).cpu().numpy()
+            embs.append(emb[: len(chunk_ids)])
+            all_ids.append(np.asarray(chunk_ids))
+        emb = np.concatenate(embs) if embs else np.zeros((0, 0))
+        idv = np.concatenate(all_ids) if all_ids else np.zeros((0,), np.uint64)
+        os.makedirs(self.cfg.model_dir, exist_ok=True)
+        np.save(os.path.join(self.cfg.model_dir, f"embedding_{worker}.npy"), emb)
+        np.save(os.path.join(self.cfg.model_dir, f"ids_{worker}.npy"), idv)
+        return idv, emb
+
+    def train_and_evaluate(self, eval_batches_fn: Callable[[], Iterable], eval_every: int):
+        """Alternate `eval_every` train steps and one evaluate of
+        `eval_batches_fn()` up to cfg.total_steps; returns the evaluations."""
+        results = []
+        remaining = self.cfg.total_steps
+        while remaining > 0:
+            chunk = min(eval_every, remaining)
+            self.train(chunk)
+            results.append(self.evaluate(eval_batches_fn()))
+            remaining -= chunk
+        return results
+
+    # -- checkpointing ------------------------------------------------------
 
     def _named_params(self) -> dict:
         return dict(self.model.named_parameters())
 
+    def state_leaves(self) -> tuple[list, list]:
+        """(param leaves, optimizer leaves): host numpy copies in the JAX
+        package's checkpoint order."""
+        return (
+            to_checkpoint_leaves(self.model.state_dict()),
+            optimizer_leaves(self.cfg.optimizer, self.optimizer, self._named_params()),
+        )
+
+    def load_leaves(self, params_leaves, opt_leaves) -> None:
+        """Set the params and the optimizer state from checkpoint-order
+        leaves (either package's)."""
+        keys = checkpoint_order(self.model.state_dict())
+        if len(params_leaves) != len(keys):
+            raise ValueError(
+                f"checkpoint carries {len(params_leaves)} param leaves where the "
+                f"model has {len(keys)}"
+            )
+        self.model.load_state_dict(
+            {k: from_flax_leaf(k, leaf) for k, leaf in zip(keys, params_leaves)}
+        )
+        load_optimizer_leaves(
+            self.cfg.optimizer, self.optimizer, self._named_params(), opt_leaves
+        )
+
     def save(self) -> str:
         """Commit one retained atomic checkpoint (`ckpt_<step>/` under
         model_dir); returns its path."""
+        self._ensure_init()
         store = CheckpointStore(self.cfg.model_dir, keep=self.cfg.keep_checkpoints)
-        return store.save_leaves(
-            self.step,
-            to_checkpoint_leaves(self.model.state_dict()),
-            optimizer_leaves(self.cfg.optimizer, self.optimizer, self._named_params()),
-            {"seed": int(self.cfg.seed)},
-        )
+        p, o = self.state_leaves()
+        return store.save_leaves(self.step, p, o, {"seed": int(self.cfg.seed)})
 
     def restore(self) -> bool:
         """Restore the newest complete checkpoint (either package's);
@@ -185,18 +416,74 @@ class Estimator:
         store = CheckpointStore(self.cfg.model_dir, keep=self.cfg.keep_checkpoints)
         if store.latest_step() is None:
             return False
+        self._ensure_init()
         ckpt = store.load()
-        keys = checkpoint_order(self.model.state_dict())
-        if len(ckpt["params"]) != len(keys):
-            raise ValueError(
-                f"checkpoint carries {len(ckpt['params'])} param leaves where the "
-                f"model has {len(keys)}"
-            )
-        self.model.load_state_dict(
-            {k: from_flax_leaf(k, leaf) for k, leaf in zip(keys, ckpt["params"])}
-        )
-        load_optimizer_leaves(
-            self.cfg.optimizer, self.optimizer, self._named_params(), ckpt["opt_state"]
-        )
+        self.load_leaves(ckpt["params"], ckpt["opt_state"])
         self.step = int(ckpt["step"])
         return True
+
+
+# ---- host batch sources (counterpart: estimator.py:1047-1163) -------------
+
+
+def node_batches(graph, flow, batch_size: int, node_type: int = -1, rng=None) -> Callable:
+    """Training source: `batch_size` sampled roots a call, through
+    `flow.query`. (The JAX package's shard-failure policy serves remote
+    graphs and is not ported.)"""
+    rng = rng if rng is not None else np.random.default_rng()
+
+    def fn():
+        roots = graph.sample_node(batch_size, node_type, rng=rng)
+        return (flow.query(roots),)
+
+    return fn
+
+
+def _padded_chunks(ids: np.ndarray, batch_size: int) -> Iterator[np.ndarray]:
+    """Fixed-size id chunks; the last one pads by repeating its final id."""
+    for i in range(0, len(ids), batch_size):
+        chunk = ids[i : i + batch_size]
+        if len(chunk) < batch_size:  # pad to keep shapes static
+            chunk = np.concatenate(
+                [chunk, np.repeat(chunk[-1:], batch_size - len(chunk))]
+            )
+        yield chunk
+
+
+def read_sample_ids(path: str, column: int = 0) -> np.ndarray:
+    """u64 root ids from a local comma-separated sample file (one sample a
+    line)."""
+    with open(path, "r", encoding="utf-8") as f:
+        rows = [line.strip().split(",") for line in f if line.strip()]
+    return np.asarray([np.uint64(r[column]) for r in rows], dtype=np.uint64)
+
+
+def sample_file_batches(
+    flow, path: str, batch_size: int, epochs: int = 1, column: int = 0
+) -> Iterator[tuple]:
+    """Training source over a sample file: padded fixed-size batches of
+    its `column` ids for `epochs` passes (the last batch repeats its
+    final id; `id_batches(flow, read_sample_ids(path), ...)` identifies
+    the padding for exact evaluation)."""
+    ids = read_sample_ids(path, column)
+    for _ in range(epochs):
+        for chunk in _padded_chunks(ids, batch_size):
+            yield (flow.query(chunk),)
+
+
+def id_batches(
+    flow, ids: np.ndarray, batch_size: int
+) -> tuple[Iterator[tuple], Iterator[np.ndarray]]:
+    """Fixed-id evaluation/inference source: (batches, the id chunks each
+    batch's leading rows belong to); the last chunk is padded."""
+    ids = np.asarray(ids, dtype=np.uint64)
+
+    def batches():
+        for chunk in _padded_chunks(ids, batch_size):
+            yield (flow.query(chunk),)
+
+    def id_chunks():
+        for i in range(0, len(ids), batch_size):
+            yield ids[i : i + batch_size]
+
+    return batches(), id_chunks()

@@ -96,6 +96,9 @@ class GraphStore:
         self.node_weights = np.asarray(arrays["node_weights"])
         self.num_nodes = len(self.node_ids)
         self.arrays = arrays
+        # data version of this shard: 0 at load (counterpart:
+        # euler_tpu/graph/store.py:356); a training checkpoint records it
+        self.graph_epoch = 0
         self.adj = [
             _CSR(
                 arrays[f"adj_{t}_indptr"],

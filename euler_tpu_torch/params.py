@@ -184,8 +184,6 @@ def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> N
             st[slot] = from_flax_leaf(k, leaves[i * len(keys) + j]).to(p.device)
             if step is not None:
                 st["step"] = step.clone()
-            elif slot == "sum":
-                st.setdefault("step", torch.tensor(0.0))
 
 
 @torch.no_grad()

@@ -3,3 +3,12 @@ from euler_tpu_torch.training.checkpoint import (  # noqa: F401
     is_complete,
     step_of,
 )
+from euler_tpu_torch.training.session import (  # noqa: F401
+    AnomalyError,
+    HungStepError,
+    ResumableSource,
+    SessionConfig,
+    TrainingError,
+    TrainingSession,
+    resumable_node_batches,
+)

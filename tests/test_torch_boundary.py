@@ -21,6 +21,8 @@ KERNEL_CALLS = {
     "paged_gather_dequant", "paged_cdf_count", "paged_sample_hop", "paged_topk_score",
     "paged_topk_select", "_lib",
     "_build.load",
+    # a training step, which launches the step's kernels
+    "_update", "_step", "_watched_step",
 }
 # the port's scripts at the root of the repo
 SCRIPTS = ("chip_smoke.py", "select_short_list.py", "gws_variants.py", "train_step_ab.py")
@@ -34,7 +36,9 @@ PORTED = [
     "euler_tpu_torch.graph.index", "euler_tpu_torch.ops.topk_score",
     "euler_tpu_torch.retrieval", "euler_tpu_torch.retrieval.corpus",
     "euler_tpu_torch.retrieval.topk", "euler_tpu_torch.retrieval.server",
-    "euler_tpu_torch.tools.knn",
+    "euler_tpu_torch.tools.knn", "euler_tpu_torch.training.session",
+    "euler_tpu_torch.tools.train", "euler_tpu_torch.estimator.prefetch",
+    "euler_tpu_torch.datasets.quality", "euler_tpu_torch.dataflow.sage",
 ]
 
 
