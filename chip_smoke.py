@@ -64,7 +64,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      launches a step over 10 profiled steps; paged_sample_hop per hop on
      the path's tables, rows and draws (held bitwise first), cycled past the
      L2 and L2-warm, against its plain version, the composition of kernels
-     2-4 it replaced (mode 'cuda') and its bound; each of kernels 2-4 at
+     2-4 it replaced (mode 'cuda') and its bound; then `train_grouped`:
+     the 20 steps again at steps_per_call 16 (one call of 16 and a
+     remainder of 4; the first step eager, then 19 replays of the
+     captured step), with the same launches a step, counted launches equal
+     to the captured ones times the replays, losses within 1e-4 relative
+     of (a)'s K = 1 run, and calls of 16 steps timed at K = 1 and K = 16
+     (median step, device time, idle share, kernels on the card a step
+     by profiler record); each of kernels 2-4 at
      the inputs the hop's plain version gives them, against its plain
      version, `flat[fidx]` (paged_gather) and its bound; and
      gather_weighted_sum's and its dx kernel's at the shapes of one step,
@@ -102,7 +109,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      a Prefetcher(workers=1, device_put=True) run bitwise equal to the
      plain one; then the median step, its host sampling part, device time,
      H2D copies, idle share and top device ops, without a Prefetcher and
-     with one of 2 and of 1 workers;
+     with one of 2 and of 1 workers; then 32 steps at steps_per_call 16
+     over `stack_batches` against 32 at K = 1 from the same init and
+     batches, bitwise, and calls of 16 steps timed at both K;
   8. the trainer CLI (`python -m euler_tpu_torch.tools.train`, the
      products graph written to a dir, dims 128,128, batch 128, max degree
      10, a checkpoint every 10 steps) as subprocesses: 40 steps straight
@@ -113,8 +122,22 @@ Phases, each of which raises (exit code != 0) when it fails:
   9. on the CLI's checkpoint, `Estimator.infer` in chunks of 128 against
      `InferenceRuntime.predict` at bucket 128, both over
      FullNeighborDataFlow, 1 000 test ids: bitwise equal, 3 launches a
-     chunk. Then kernel 1 and its dx at the host lane's shapes, each held
-     first against its plain version.
+     chunk;
+ 10. the headline training leg, bench.py's accelerator cell
+     (bench.py:1774-1804, :1832-1870) — random_graph with 200 000 nodes,
+     out-degree 15, 64-wide features (seed 0), DeviceSageFlow(fanouts
+     10,10, batch 1024, layout auto: dense), DeviceFeatureCache, dims
+     128,128, adam lr 0.01 — at steps_per_call 1 and 64, f32 and bf16
+     convs: 128 warm-up steps (K = 64's losses within 1e-4 of K = 1's),
+     then 30 calls of 64 steps with exactly 3 gather_weighted_sum and 1
+     gather_weighted_sum_dx launches a step (one capture at K = 64, whose
+     launches times its replays are the counts), and
+     graphsage_sampled_edges_per_sec_per_chip (bench.py:350-355's 112 640
+     edges a step over the calls' host-clock time), the median step,
+     device time, idle share and kernels on the card a step (kernel 1 on
+     bf16 features once a step under bf16 convs).
+Then kernel 1 and its dx at the host lane's shapes, each held first
+against its plain version.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
 {1, 2, 3, 8, 16, 20, 64, 65}, sig12 and raw f32 operands with a padded tail, an
@@ -214,6 +237,21 @@ HOST_SHAPES = (("ns layer0 hop0", 128, 10, 100), ("ns layer0 hop1", 1280, 5, 100
                ("ns layer1 hop0", 128, 10, 128), ("cli layer0 hop1", 1280, 10, 100),
                ("eval layer0 hop0", 500, 10, 100), ("eval layer0 hop1", 5000, 5, 100),
                ("eval layer1 hop0", 500, 10, 128))
+
+# steps_per_call on both training lanes: K = 16 runs beside K = 1, then the
+# headline cell, bench.py's accelerator training leg (bench.py:1774-1804,
+# :1832-1870): random_graph 200 000 nodes, out-degree 15, 64-wide features
+# (seed 0), DeviceSageFlow(fanouts 10,10, batch 1024, layout auto -> dense),
+# DeviceFeatureCache, dims 128,128, adam lr 0.01, 2K warm-up steps then 30
+# calls of K = 64, at K 1 and 64, f32 and bf16 convs
+GROUP_K, GROUP_CALLS = 16, 10
+HEAD_NODES, HEAD_DEGREE, HEAD_FEAT, HEAD_SEED = 200_000, 15, 64, 0
+HEAD_BATCH, HEAD_FANOUTS, HEAD_DIMS, HEAD_K = 1024, [10, 10], [128, 128], 64
+HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 30
+# the port's kernels as the profiler names them (kernel 1's forward carries
+# its x type: `gws_kernel<__nv_bfloat16, ...>` on bf16 features)
+CARD_KERNELS = {"gather_weighted_sum": "::gws_kernel<", "gather_weighted_sum_dx": "::gws_dx_kernel<",
+                HOP_KERNEL: "paged_sample_hop_kernel"}
 
 
 def _card_line() -> str:
@@ -526,8 +564,8 @@ def _kernel1_us(dev: dict, per: int) -> dict:
             for part, name in (("forward", "gws_kernel"), ("dx", "gws_dx_kernel"))}
 
 
-def _profile_window(torch, body, windows: int = PROFILE_WINDOWS,
-                    counts: dict | None = None) -> tuple[dict, float]:
+def _profile_window(torch, body, windows: int = PROFILE_WINDOWS, counts: dict | None = None,
+                    every: list | None = None) -> tuple[dict, float]:
     """({device op name: device µs}, host-clock ms) of one run of `body`,
     which ends synchronised, under torch.profiler. The body runs once as
     the profiler's warm-up step, then `windows` times as recorded steps,
@@ -536,7 +574,7 @@ def _profile_window(torch, body, windows: int = PROFILE_WINDOWS,
     the sum; the same work repeats within ~1 %). The
     profiler's step markers are spans, not device work, and are left out.
     `counts`, when given, receives {device op name: records} of the kept
-    window."""
+    window, and `every` one such dict for each window."""
     from torch.profiler import ProfilerActivity, profile, schedule
 
     runs = []
@@ -553,6 +591,8 @@ def _profile_window(torch, body, windows: int = PROFILE_WINDOWS,
             prof.step()
         runs.append(({k: v for k, v in got.items() if not k.startswith("ProfilerStep")}, wall_ms))
     kept, wall_ms = max(runs, key=lambda r: sum(us for us, _ in r[0].values()))
+    if every is not None:
+        every.extend({k: n for k, (_, n) in got.items()} for got, _ in runs)
     if counts is not None:
         counts.update({k: n for k, (_, n) in kept.items()})
     return {k: us for k, (us, _) in kept.items()}, wall_ms
@@ -596,11 +636,14 @@ def gws_shapes(b: int, f0: int) -> tuple:
             ("layer1 hop0", b, 10, 128))
 
 
-def time_kernels(torch, gen, shapes, what: str) -> list:
+def time_kernels(torch, gen, shapes, what: str, bf16: tuple = ()) -> list:
     """gather_weighted_sum, its plain version and embedding_bag at
     `shapes` (gws_shapes), inputs cycled past the L2; `warm_ms` the kernel
     on one input set, left in the L2 by the call before, as the path's
-    inputs are (the op before has just written them)."""
+    inputs are (the op before has just written them). The shapes labelled
+    in `bf16` take bf16 x, as bf16 convs give layer 1 (the VEC-8 path);
+    there embedding_bag, which wants its weights in the table's type,
+    runs in bf16 on w rounded to bf16 (outside the timed window)."""
     import torch.nn.functional as F
 
     from euler_tpu_torch.ops import (
@@ -613,38 +656,43 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
     rows = []
     for label, n, d, f in shapes:
         n_src = n * d
-        set_bytes = n_src * f * 4 + n * d * 8 + n * f * 4
+        x_dtype = torch.bfloat16 if label in bf16 else torch.float32
+        x_bytes = 2 if label in bf16 else 4
+        set_bytes = n_src * f * x_bytes + n * d * 8 + n * f * 4
         copies = min(512, max(2, math.ceil(2 * L2_BYTES / set_bytes)))
         sets = []
         for _ in range(copies):
-            x = torch.randn(n_src, f, generator=gen, device=dev)
+            x = torch.randn(n_src, f, generator=gen, device=dev).to(x_dtype)
             slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
             w = torch.rand(n, d, generator=gen, device=dev)
-            sets.append((x, slots, w, slots.long()))
-        x, slots, w, _ = sets[0]
+            sets.append((x, slots, w, slots.long(), w.to(x_dtype)))
+        x, slots, w, _, _ = sets[0]
         out, ref = gather_weighted_sum(x, slots, w, "cuda"), gather_weighted_sum_ref(x, slots, w)
         err = float((out - ref).abs().max())
         if not torch.allclose(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL):
             raise AssertionError(f"gather_weighted_sum disagrees with its plain version at "
                                  f"{what} {label}: max abs err {err}")
         iters = max(200, 2 * copies)
-        kern = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum(x, s, w, "cuda"), sets, iters)
-        warm = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum(x, s, w, "cuda"),
+        kern = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum(x, s, w, "cuda"),
+                        sets, iters)
+        warm = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum(x, s, w, "cuda"),
                         sets[:1], 200)
-        plain = _time_ms(torch, lambda x, s, w, sl: gather_weighted_sum_ref(x, s, w), sets, iters)
+        plain = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum_ref(x, s, w),
+                         sets, iters)
         lib = _time_ms(
             torch,
-            lambda x, s, w, sl: F.embedding_bag(sl, x, per_sample_weights=w, mode="sum"),
+            lambda x, s, w, sl, wl: F.embedding_bag(sl, x, per_sample_weights=wl, mode="sum"),
             sets, iters,
         )
         if kern["device_ms"] <= 0:
             raise AssertionError("the profiler saw no device time for the kernel")
         # each input read once (every table row is cited once in the grid
         # layout), the output written once
-        nbytes = n_src * f * 4 + n * d * (4 + 4) + n * f * 4
+        nbytes = n_src * f * x_bytes + n * d * (4 + 4) + n * f * 4
         flops = 2 * n * d * f
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         rows.append({"shape": label, "N": n, "D": d, "F": f, "n_src": n_src,
+                     "x_dtype": str(x_dtype).replace("torch.", ""),
                      "geometry": launch_geometry(sets[0][0], sets[0][1]),
                      "max_abs_err": err, "ms": kern["device_ms"], "warm_ms": warm["device_ms"],
                      "plain_ms": plain["device_ms"], "library_ms": lib["device_ms"],
@@ -663,14 +711,16 @@ def time_kernels(torch, gen, shapes, what: str) -> list:
     return rows
 
 
-def time_dx(torch, gen, shapes, what: str) -> list:
+def time_dx(torch, gen, shapes, what: str, dtype=None) -> list:
     """gather_weighted_sum's dx at `shapes` (gws_shapes), inputs cycled
     past the L2: the dx kernel with its memset, held bitwise against the
     plain backward (`gather_weighted_sum_dx_ref`) first, the plain backward and
     embedding_bag's backward with respect to the table (per-sample
     weights, mode sum; its forward runs outside the timed window);
     `warm_ms` the kernel on one input set, left in the L2. The bound: g,
-    slots and w read once, dx written once."""
+    slots and w read once, dx written once. `dtype`: dx's type (f32, or
+    bf16 as bf16 convs give layer 1's x; embedding_bag then runs on a
+    bf16 table, weights and g)."""
     import torch.nn.functional as F
 
     from euler_tpu_torch.ops import (
@@ -680,44 +730,47 @@ def time_dx(torch, gen, shapes, what: str) -> list:
     )
 
     dev = torch.device("cuda")
-    f32 = torch.float32
+    dtype = dtype or torch.float32
+    dx_bytes = torch.empty((), dtype=dtype).element_size()
     rows = []
     for label, n, d, f in shapes:
         n_src = n * d
-        set_bytes = n * f * 4 + n * d * 8 + 3 * n_src * f * 4
+        set_bytes = n * f * 4 + n * d * 8 + 3 * n_src * f * dx_bytes
         copies = min(512, max(2, math.ceil(2 * L2_BYTES / set_bytes)))
         sets = []
         for _ in range(copies):
             g = torch.randn(n, f, generator=gen, device=dev)
             slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
             w = torch.rand(n, d, generator=gen, device=dev)
-            table = torch.randn(n_src, f, generator=gen, device=dev, requires_grad=True)
-            out = F.embedding_bag(slots.long(), table, per_sample_weights=w, mode="sum")
-            sets.append((g, slots, w, table, out))
-        def run(g, s, w, t, o):
-            return gather_weighted_sum_dx(w, g, s, n_src, f32, "cuda")
+            table = torch.randn(n_src, f, generator=gen, device=dev).to(dtype).requires_grad_()
+            out = F.embedding_bag(slots.long(), table, per_sample_weights=w.to(dtype),
+                                  mode="sum")
+            sets.append((g, slots, w, table, out, g.to(dtype)))
+        def run(g, s, w, t, o, gl):
+            return gather_weighted_sum_dx(w, g, s, n_src, dtype, "cuda")
 
         # iota slots: no two adds land on one element, so the kernel is exact
-        g, slots, w, _, _ = sets[0]
+        g, slots, w = sets[0][:3]
         if not torch.equal(_bits(torch, run(*sets[0])),
-                           _bits(torch, gather_weighted_sum_dx_ref(w, g, slots, n_src, f32))):
+                           _bits(torch, gather_weighted_sum_dx_ref(w, g, slots, n_src, dtype))):
             raise AssertionError(f"gather_weighted_sum_dx is not bitwise the plain backward "
                                  f"at {what} {label}")
         iters = max(200, 2 * copies)
         timed = {
-            "plain": _time_ms(torch, lambda g, s, w, t, o: gather_weighted_sum_dx_ref(
-                w, g, s, n_src, f32), sets, iters),
-            "library": _time_ms(torch, lambda g, s, w, t, o: torch.autograd.grad(
-                o, t, g, retain_graph=True), sets, iters),
+            "plain": _time_ms(torch, lambda g, s, w, t, o, gl: gather_weighted_sum_dx_ref(
+                w, g, s, n_src, dtype), sets, iters),
+            "library": _time_ms(torch, lambda g, s, w, t, o, gl: torch.autograd.grad(
+                o, t, gl, retain_graph=True), sets, iters),
             "kernel": _time_ms(torch, run, sets, iters),
             "warm": _time_ms(torch, run, sets[:1], 200),
         }
         if timed["kernel"]["device_ms"] <= 0:
             raise AssertionError("the profiler saw no device time for the dx kernel")
-        nbytes = n * f * 4 + n * d * (4 + 4) + n_src * f * 4
+        nbytes = n * f * 4 + n * d * (4 + 4) + n_src * f * dx_bytes
         flops = 2 * n * d * f
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
         rows.append({"shape": label, "N": n, "D": d, "F": f, "n_src": n_src,
+                     "dx_dtype": str(dtype).replace("torch.", ""),
                      "geometry": launch_geometry(sets[0][0], sets[0][1]), "bitwise": True,
                      "ms": timed["kernel"]["device_ms"], "warm_ms": timed["warm"]["device_ms"],
                      "plain_ms": timed["plain"]["device_ms"],
@@ -1138,7 +1191,7 @@ def train(torch, tmp: str, seed: int) -> dict:
         host_flow = SageDataFlow(g, ["feat"], fanouts=TRAIN_FANOUTS,
                                  rng=np.random.default_rng(seed))
         rt = InferenceRuntime(GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2), host_flow,
-                              model_dir=est.cfg.model_dir, device="cuda")
+                              cfg=est.cfg, device="cuda")
         for k, v in est.model.state_dict().items():
             if not torch.equal(rt.params[k], v):
                 raise AssertionError(f"served checkpoint differs from the trained {k}")
@@ -1199,6 +1252,115 @@ def time_train_steps(torch, est, card: str) -> dict:
            "top_device_us_per_step": {k[:60]: v / PROFILED_STEPS for k, v in top}}
     _emit(res)
     return res
+
+
+def _on_card(counts: dict) -> dict:
+    """The port's kernels in a window's profiler records, by name, with
+    kernel 1's bf16-input launches apart."""
+    on_card = {kernel: sum(n for name, n in counts.items() if tag in name)
+               for kernel, tag in CARD_KERNELS.items()}
+    on_card["gather_weighted_sum_bf16_x"] = sum(
+        n for name, n in counts.items() if CARD_KERNELS["gather_weighted_sum"] in name
+        and "bfloat16" in name)
+    return on_card
+
+
+def _call_window(torch, est, k: int, calls: int, card: str, what: str, want: dict) -> dict:
+    """`calls` calls of k steps (`est.train(k)`, each ending synchronised:
+    train drains its losses): the median step (a call's time over k),
+    then over one profiled call the device time and idle share a step and
+    the port's kernels run on the card a step (`_on_card`). Those are held
+    to `want` a step, as the card saw them, independently of the
+    wrappers' counts (which a replay adds from its capture): CUPTI now
+    and then drops a record from a window and never adds one, so no
+    profiled call may show more than k·want of a kernel, and one at least
+    must show exactly k·want of each."""
+    times = []
+    for _ in range(calls):
+        t = time.perf_counter()
+        est.train(k, log=False, save=False)
+        times.append((time.perf_counter() - t) * 1e3 / k)
+
+    def window():
+        est.train(k, log=False, save=False)
+        torch.cuda.synchronize()
+
+    counts, every = {}, []
+    dev, wall_ms = _profile_window(torch, window, counts=counts, every=every)
+    busy_ms = sum(dev.values()) / 1e3
+    copies = sum(n for name, n in counts.items() if name.startswith(("Memcpy", "Memset")))
+    want = {name: want.get(name, 0) * k for name in _on_card({})}
+    seen = [_on_card(c) for c in every]
+    if (any(s[name] > n for s in seen for name, n in want.items())
+            or not any(s == want for s in seen)):
+        raise AssertionError(f"{what}: the port's kernels on the card in the profiled calls of "
+                             f"{k} steps were {seen}, expected {want} in one at least and no "
+                             f"more in any")
+    on_card = {name: n / k for name, n in _on_card(counts).items()}
+    top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    return {"what": what, "card": card, "steps_per_call": k, "calls": calls,
+            "median_step_ms": statistics.median(times), "min_step_ms": min(times),
+            "max_step_ms": max(times), "wall_ms_per_step": wall_ms / k,
+            "device_ms_per_step": busy_ms / k, "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "kernel_launches_per_step": (sum(counts.values()) - copies) / k,
+            "copies_per_step": copies / k, "port_kernels_on_card_per_step": on_card,
+            "port_kernels_on_card_by_window": seen,
+            "captures": est.captures,
+            "top_device_us_per_step": {name[:60]: us / k for name, us in top}}
+
+
+def _replay_launches(est, launches: dict, eager: dict, before: dict | None = None) -> dict:
+    """The bookkeeping of a grouped run's counted launches: its eager
+    steps' (`eager`) plus each captured graph's recorded launches times
+    its replays since the counts were reset (`before`: the graphs'
+    replays then); returns the replays by graph. A replay adds its
+    capture's launches, so this holds by construction; the evidence that
+    replays launch the kernels is the profiler's count (`_call_window`)."""
+    want, replays = dict(eager), []
+    for key, g in est._graphs.items():
+        replays.append(g.replays - (before or {}).get(key, 0))
+        for name, n in g.launches.items():
+            want[name] = want.get(name, 0) + n * replays[-1]
+    _expect_launches(launches, want, "replayed graphs")
+    return {"graphs": len(est._graphs), "replays": replays,
+            "launches_per_replay": [{n: c for n, c in g.launches.items() if c}
+                                    for g in est._graphs.values()]}
+
+
+def train_grouped(torch, trained: dict, tmp: str, seed: int, card: str) -> dict:
+    """Phase 5 at steps_per_call = GROUP_K: TRAIN_STEPS steps (one call of
+    16 and a remainder of 4) from the main run's init, each step after
+    the first a replay of the captured step: the main run's launches a
+    step, losses within TRAIN_TOL of the K = 1 run's; then calls of 16
+    steps at K = 1 and K = 16, timed the same way."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    est1 = trained["estimator"]
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, "grouped"), learning_rate=0.01,
+                          optimizer="adam", log_steps=10**9, seed=seed, steps_per_call=GROUP_K)
+    est = Estimator(GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2), trained["flow"], cfg,
+                    feature_cache=est1.feature_cache, device="cuda")
+    ops.reset_launch_counts()
+    losses = est.train(TRAIN_STEPS, log=False, save=False)
+    launches = ops.launch_counts()
+    per_step = {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
+    _expect_launches(launches, {k: n * TRAIN_STEPS for k, n in per_step.items()},
+                     f"the device lane at K = {GROUP_K}")
+    # each capture's first step ran eagerly
+    replays = _replay_launches(est, launches,
+                               {k: n * est.captures for k, n in per_step.items()})
+    err = _assert_close(losses, trained["result"]["losses"], f"K = {GROUP_K} vs K = 1")
+    res = {"phase": "train_grouped", "card": card, "steps": TRAIN_STEPS,
+           "steps_per_call": GROUP_K, "losses": losses, "max_rel_err": err,
+           "bitwise": losses == trained["result"]["losses"], "launches": launches,
+           "captures": est.captures, **replays,
+           "k1": _call_window(torch, est1, GROUP_K, GROUP_CALLS, card, "K = 1", per_step),
+           f"k{GROUP_K}": _call_window(torch, est, GROUP_K, GROUP_CALLS, card,
+                                       f"K = {GROUP_K}", per_step)}
+    _emit(res)
+    return {"launches": launches, "result": res}
 
 
 def _paged_calls(flow, gen) -> tuple[list, list]:
@@ -1989,8 +2151,9 @@ def train_host(torch, tmp: str, seed: int, card: str) -> dict:
     """Phase 7: the north-star quality config through the host lane."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.datasets import products_like_graph
-    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, Prefetcher
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, Prefetcher, stack_batches
     from euler_tpu_torch.models import GraphSAGESupervised
+    from euler_tpu_torch.params import init_like_flax
 
     t0 = time.perf_counter()
     g, types = products_like_graph()
@@ -2090,6 +2253,39 @@ def train_host(torch, tmp: str, seed: int, card: str) -> dict:
         finally:
             pre.close()
 
+    # (f) steps_per_call = GROUP_K: two calls of replayed steps over
+    # K-stacked host items, bitwise equal to K = 1 from the same init and
+    # the same host batches; then calls of 16 steps at K = 1 and K = 16
+    init = init_like_flax(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES),
+                          torch.Generator().manual_seed(seed))
+
+    def grouped(k: int):
+        _, fn = _products_source(g, tr_ids)
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"k{k}"), learning_rate=0.01,
+                              log_steps=10**9, seed=seed, steps_per_call=k)
+        return Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES),
+                         fn if k == 1 else stack_batches(fn, k), cfg, init_params=init,
+                         device="cuda")
+
+    est_one, est_k = grouped(1), grouped(GROUP_K)
+    one = est_one.train(2 * GROUP_K, log=False, save=False)
+    ops.reset_launch_counts()
+    got = est_k.train(2 * GROUP_K, log=False, save=False)
+    launches_k = ops.launch_counts()
+    per_step = {"gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
+    _expect_launches(launches_k, {k: n * 2 * GROUP_K for k, n in per_step.items()},
+                     f"the host lane at K = {GROUP_K}")
+    replays_k = _replay_launches(est_k, launches_k,
+                                 {k: n * est_k.captures for k, n in per_step.items()})
+    if got != one:
+        raise AssertionError(f"K = {GROUP_K} host-lane losses differ from K = 1: {got} "
+                             f"against {one}")
+    timing_grouped = {
+        "k1": _call_window(torch, est_one, GROUP_K, GROUP_CALLS, card, "host lane, K = 1",
+                           per_step),
+        f"k{GROUP_K}": _call_window(torch, est_k, GROUP_K, GROUP_CALLS, card,
+                                    f"host lane, K = {GROUP_K}", per_step)}
+
     res = {"phase": "train_host", "nodes": g.shards[0].num_nodes,
            "edges": int(g.shards[0].adj[0].indptr[-1]), "batch": NS_BATCH,
            "fanouts": NS_FANOUTS, "dims": NS_DIMS, "steps": NS_STEPS,
@@ -2099,12 +2295,15 @@ def train_host(torch, tmp: str, seed: int, card: str) -> dict:
            "ref_on_card": {"losses": losses_ref, "max_rel_err": err_ref},
            "port_on_cpu": {"losses": losses_cpu, "max_rel_err": err_cpu},
            "prefetch_one_worker_bitwise": {"steps": NS_SAME_STEPS, "equal": True},
+           "grouped": {"steps_per_call": GROUP_K, "steps": 2 * GROUP_K, "bitwise": True,
+                       "launches": launches_k, "captures": est_k.captures, **replays_k},
            "graph_s": graph_s, "train_s": train_s, "rtol": TRAIN_TOL}
     _emit(res)
     _emit({"phase": "train_host_timing", "card": card, "unprefetched": timing,
-           "prefetched": timing_pre[2], "prefetched_one_worker": timing_pre[1]})
+           "prefetched": timing_pre[2], "prefetched_one_worker": timing_pre[1],
+           "grouped": timing_grouped})
     return {"graph": g, "te_ids": te_ids, "launches": launches,
-            "eval_launches": eval_launches, "result": res}
+            "grouped_launches": launches_k, "eval_launches": eval_launches, "result": res}
 
 
 def write_products(g, directory: str) -> None:
@@ -2252,7 +2451,7 @@ def infer_parity(torch, data: str, model_dir: str, ids) -> dict:
     out_ids, emb = est.infer(*id_batches(flow, ids, INFER_BUCKET))
     infer_launches = ops.launch_counts()
     rt = InferenceRuntime(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), flow,
-                          model_dir=model_dir, buckets=(INFER_BUCKET,), device="cuda")
+                          cfg=model_dir, buckets=(INFER_BUCKET,), device="cuda")
     ops.reset_launch_counts()
     served = rt.predict(ids)
     predict_launches = ops.launch_counts()
@@ -2270,6 +2469,95 @@ def infer_parity(torch, data: str, model_dir: str, ids) -> dict:
                         "predict": predict_launches["gather_weighted_sum"]}}
     _emit(res)
     return res
+
+
+def headline(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 10: bench.py's headline training leg on the port (the cell
+    above HEAD_*), at K = 1 and K = 64, f32 and bf16 convs, in this order.
+    Each run: 2K warm-up steps (fresh estimator, the same init and draws),
+    then 30 calls of 64 steps with the launch counts reset just before: 3
+    gather_weighted_sum and 1 gather_weighted_sum_dx a step, exactly; at K
+    = 64 one capture, and the counts equal the captured launches times the
+    replays. The K = 64 warm-up losses lie within TRAIN_TOL of K = 1's of
+    the same dtype. Reported: graphsage_sampled_edges_per_sec_per_chip
+    (bench.py:350-355's edges a step over the 30 calls' host-clock time),
+    then `_call_window`'s median step, device time, idle share and
+    kernels on the card a step."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import DeviceSageFlow
+    from euler_tpu_torch.datasets import random_graph
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    t0 = time.perf_counter()
+    g = random_graph(num_nodes=HEAD_NODES, out_degree=HEAD_DEGREE, feat_dim=HEAD_FEAT,
+                     seed=HEAD_SEED)
+    flow = DeviceSageFlow(g, fanouts=HEAD_FANOUTS, batch_size=HEAD_BATCH, label_feature="label")
+    if flow.layout != "dense":
+        raise AssertionError(f"the headline flow staged {flow.layout!r}, expected dense")
+    cache = DeviceFeatureCache(g, ["feat"])
+    setup_s = time.perf_counter() - t0
+    edges_per_step, width = 0, HEAD_BATCH
+    for k in HEAD_FANOUTS:
+        edges_per_step += width * k
+        width *= k
+    per_step = {"gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
+    steps = HEAD_CALLS * HEAD_K
+    runs, warm = [], {}
+    for k, dtype in ((1, "f32"), (1, "bf16"), (HEAD_K, "f32"), (HEAD_K, "bf16")):
+        kwargs = {"dtype": torch.bfloat16} if dtype == "bf16" else None
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"head_{k}_{dtype}"),
+                              learning_rate=0.01, log_steps=10**9, seed=seed, steps_per_call=k)
+        est = Estimator(GraphSAGESupervised(HEAD_FEAT, HEAD_DIMS, 2, conv_kwargs=kwargs), flow,
+                        cfg, feature_cache=cache, device="cuda")
+        losses = est.train(HEAD_WARMUP, log=False, save=False)
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"headline K = {k} {dtype}: losses not finite")
+        run = {"steps_per_call": k, "convs": dtype, "warmup_steps": HEAD_WARMUP,
+               "warmup_loss_first_last": [losses[0], losses[-1]]}
+        if k == 1:
+            warm[dtype] = losses
+        else:
+            run["warmup_vs_k1_max_rel_err"] = _assert_close(
+                losses, warm[dtype], f"headline K = {k} vs K = 1, {dtype} convs")
+            run["warmup_bitwise_k1"] = losses == warm[dtype]
+        before = {key: g.replays for key, g in est._graphs.items()}
+        ops.reset_launch_counts()
+        calls = []
+        for _ in range(HEAD_CALLS):
+            t = time.perf_counter()
+            est.train(HEAD_K, log=False, save=False)
+            calls.append(time.perf_counter() - t)
+        launches = ops.launch_counts()
+        _expect_launches(launches, {name: n * steps for name, n in per_step.items()},
+                         f"the headline leg at K = {k}, {dtype} convs")
+        if k > 1:
+            # every measured step is a replay: counts = captured x replays
+            run.update(_replay_launches(est, launches, {}, before))
+        # bf16 convs: layer 1's launch reads bf16 x
+        window = _call_window(torch, est, HEAD_K, 1, card, f"headline K = {k}, {dtype} convs",
+                              {**per_step, "gather_weighted_sum_bf16_x": int(dtype == "bf16")})
+        run.update({"graphsage_sampled_edges_per_sec_per_chip": steps * edges_per_step / sum(calls),
+                    "steps": steps, "seconds": sum(calls),
+                    "median_step_ms": statistics.median(calls) * 1e3 / HEAD_K,
+                    "launches": launches, "captures": est.captures,
+                    **{key: window[key] for key in (
+                        "device_ms_per_step", "device_idle_share", "wall_ms_per_step",
+                        "kernel_launches_per_step", "copies_per_step",
+                        "port_kernels_on_card_per_step", "top_device_us_per_step")}})
+        runs.append(run)
+        del est
+    res = {"phase": "headline", "card": card, "nodes": HEAD_NODES, "out_degree": HEAD_DEGREE,
+           "feat_dim": HEAD_FEAT, "batch": HEAD_BATCH, "fanouts": HEAD_FANOUTS,
+           "dims": HEAD_DIMS, "layout": flow.layout, "edges_per_step": edges_per_step,
+           "setup_s": setup_s, "rtol": TRAIN_TOL,
+           "graphsage_sampled_edges_per_sec_per_chip": {
+               f"k{r['steps_per_call']}_{r['convs']}":
+                   r["graphsage_sampled_edges_per_sec_per_chip"] for r in runs},
+           "runs": runs}
+    _emit(res)
+    return {"launches": {name: sum(r["launches"][name] for r in runs) for name in per_step},
+            "result": res}
 
 
 def main(argv=None) -> int:
@@ -2331,6 +2619,7 @@ def main(argv=None) -> int:
         # 5. the training path, and its timings
         trained = train(torch, tmp, args.seed)
         time_train_steps(torch, trained["estimator"], card)
+        grouped = train_grouped(torch, trained, tmp, args.seed, card)
         paged_calls, hops = _paged_calls(trained["flow"], gen)
         paged_rows = time_paged_kernels(torch, paged_calls, card)
         hop_rows = time_hop_kernel(torch, hops, card)
@@ -2350,6 +2639,10 @@ def main(argv=None) -> int:
         cli = train_cli(torch, host["graph"], tmp)
         parity = infer_parity(torch, cli["data"], cli["model_dir"], host["te_ids"][:INFER_IDS])
         del host["graph"]
+        torch.cuda.empty_cache()
+
+        # 10. the headline training leg, at K = 1 and K = 64, f32 and bf16
+        head = headline(torch, tmp, args.seed, card)
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -2358,6 +2651,16 @@ def main(argv=None) -> int:
     dx_path = dx_rows[-1]
     host_rows = time_kernels(torch, gen, HOST_SHAPES, "host lane")
     host_dx_rows = time_dx(torch, gen, HOST_SHAPES[2:3], "host train step")
+    # the headline step: layer 1 reads f32 x under f32 convs and bf16 x
+    # under bf16 convs (layer 0 reads the f32 features either way), and
+    # its dx is written in the convs' type
+    head_shapes = gws_shapes(HEAD_BATCH, HEAD_FEAT)
+    head_bf16 = ("layer1 hop0 bf16 x",) + head_shapes[2][1:]
+    head_rows = time_kernels(torch, gen, head_shapes + (head_bf16,), "headline step",
+                             bf16=(head_bf16[0],))
+    head_dx_rows = (time_dx(torch, gen, head_shapes[2:], "headline step, f32 convs")
+                    + time_dx(torch, gen, (head_bf16,), "headline step, bf16 convs",
+                              torch.bfloat16))
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -2370,12 +2673,18 @@ def main(argv=None) -> int:
     # bucket-128 predict (gather_weighted_sum) or one train step (paged)
     train_launches = trained["launches"]
     host_launches = {
+        "train_grouped": grouped["launches"]["gather_weighted_sum"],
         "train_host": host["launches"]["gather_weighted_sum"],
+        "train_host_grouped": host["grouped_launches"]["gather_weighted_sum"],
         "evaluate": host["eval_launches"]["gather_weighted_sum"],
         "train_cli": cli["launches"]["gather_weighted_sum"],
-        "infer": parity["launches"]["infer"], "predict": parity["launches"]["predict"]}
-    host_dx_launches = {"train_host": host["launches"]["gather_weighted_sum_dx"],
-                        "train_cli": cli["launches"]["gather_weighted_sum_dx"]}
+        "infer": parity["launches"]["infer"], "predict": parity["launches"]["predict"],
+        "headline": head["launches"]["gather_weighted_sum"]}
+    host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
+                        "train_host": host["launches"]["gather_weighted_sum_dx"],
+                        "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
+                        "train_cli": cli["launches"]["gather_weighted_sum_dx"],
+                        "headline": head["launches"]["gather_weighted_sum_dx"]}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -2406,6 +2715,12 @@ def main(argv=None) -> int:
         "host_train_step": {k: total(host_rows[:3], k) for k in ("ms", "plain_ms",
                                                                  "library_ms", "bound_ms")},
         "host_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in host_rows],
+        "headline_step": {convs: {k: total(rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                               "bound_ms")}
+                          for convs, rows in (("f32", head_rows[:3]),
+                                              ("bf16", head_rows[:2] + head_rows[3:]))},
+        "headline_shapes": [{k: r[k] for k in shape_keys + ("x_dtype", "max_abs_err")}
+                            for r in head_rows],
     }, {
         "name": "gather_weighted_sum_dx",
         "route": "cuda",
@@ -2429,6 +2744,8 @@ def main(argv=None) -> int:
         "card": card,
         "shapes": [{k: r[k] for k in shape_keys} for r in dx_rows],
         "host_shapes": [{k: r[k] for k in shape_keys} for r in host_dx_rows],
+        "headline_shapes": [{k: r[k] for k in shape_keys + ("dx_dtype",)}
+                            for r in head_dx_rows],
     }]
     # the hop kernel: the sums over the two hops of one train step
     kernels.append({
@@ -2438,7 +2755,9 @@ def main(argv=None) -> int:
         "replaces": "euler_tpu/ops/pallas_kernels.py:356, :436, :247 and :478-503 "
                     "(paged_page_search), as euler_tpu/dataflow/device.py:922-975 "
                     "composes them",
-        "launches": train_launches[HOP_KERNEL],
+        "launches": train_launches[HOP_KERNEL] + grouped["launches"][HOP_KERNEL],
+        "launches_by_path": {"train": train_launches[HOP_KERNEL],
+                             "train_grouped": grouped["launches"][HOP_KERNEL]},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],

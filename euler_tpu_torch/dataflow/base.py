@@ -165,12 +165,24 @@ class DataFlow:
         graph,
         feature_names: list[str],
         label_feature: str | None = None,
+        label_dim: int | None = None,
         rng: np.random.Generator | None = None,
+        feature_mode: str = "dense",
     ):
+        """The reference's parameters in its order; feature_mode "rows"
+        (int32 feature rows for a DeviceFeatureCache) is not ported yet."""
+        if feature_mode not in ("dense", "rows"):
+            raise ValueError(f"unknown feature_mode {feature_mode!r}")
+        if feature_mode != "dense":
+            raise NotImplementedError(
+                f"feature_mode={feature_mode!r} (the rows-mode host lane) is not ported yet"
+            )
         self.graph = graph
         self.feature_names = list(feature_names)
         self.label_feature = label_feature
+        self.label_dim = label_dim
         self.rng = rng if rng is not None else np.random.default_rng()
+        self.feature_mode = feature_mode
 
     def node_feats_hops(self, ids_list) -> tuple:
         """Per-hop dense features, with ids deduplicated across hops

@@ -399,10 +399,20 @@ class DeviceSageFlow(DeviceGraphTables):
         max_degree: int = 512,
         roots_pool: np.ndarray | None = None,
         root_node_type: int = -1,
+        mesh=None,
+        with_hop_ids: bool = False,
         layout: str = "auto",
         page_size: int = 16,
+        *,
         device=None,
     ):
+        """The reference's parameters in its order; `mesh` and
+        `with_hop_ids` are not ported yet. On the CUDA card unless
+        device="cpu"."""
+        if mesh is not None or with_hop_ids:
+            raise NotImplementedError(
+                "DeviceSageFlow(mesh=, with_hop_ids=True) is not ported yet"
+            )
         super().__init__(
             graph, edge_types, max_degree, roots_pool, root_node_type,
             layout=layout, page_size=page_size, device=device,

@@ -23,9 +23,19 @@ class SageDataFlow(DataFlow):
         edge_types=None,
         fanouts=(10, 10),
         label_feature=None,
+        label_dim=None,
         rng=None,
+        feature_mode="dense",
+        lazy_blocks: bool = False,
+        lean: bool = False,
     ):
-        super().__init__(graph, feature_names, label_feature, rng)
+        """The reference's parameters in its order; lazy blocks and the
+        lean wire (`lazy_blocks`, `lean`) are not ported yet."""
+        if lazy_blocks or lean:
+            raise NotImplementedError(
+                "SageDataFlow(lazy_blocks=True / lean=True) is not ported yet"
+            )
+        super().__init__(graph, feature_names, label_feature, label_dim, rng, feature_mode)
         self.edge_types = edge_types
         self.fanouts = list(fanouts)
 
@@ -111,7 +121,9 @@ class FullNeighborDataFlow(DataFlow):
         num_hops=2,
         max_degree=32,
         label_feature=None,
+        label_dim=None,
         rng=None,
+        feature_mode="dense",
         gcn_norm: bool = False,
     ):
         if gcn_norm:
@@ -126,7 +138,7 @@ class FullNeighborDataFlow(DataFlow):
                 "FullNeighborDataFlow over a remote graph (the query planner) "
                 "is not ported yet"
             )
-        super().__init__(graph, feature_names, label_feature, rng)
+        super().__init__(graph, feature_names, label_feature, label_dim, rng, feature_mode)
         self.edge_types = edge_types
         self.num_hops = num_hops
         self.max_degree = max_degree

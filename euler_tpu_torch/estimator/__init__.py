@@ -7,6 +7,8 @@ from euler_tpu_torch.estimator.estimator import (  # noqa: F401
     node_batches,
     read_sample_ids,
     sample_file_batches,
+    stack_batches,
+    step_generator,
 )
 from euler_tpu_torch.estimator.feature_cache import DeviceFeatureCache  # noqa: F401
 from euler_tpu_torch.estimator.prefetch import Prefetcher  # noqa: F401

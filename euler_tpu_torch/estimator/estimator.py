@@ -13,14 +13,20 @@ returns (embedding, loss, metric_name, metric). Two lanes feed it:
   batch stream is a function of the global step, as JAX's `fold_in`
   makes it; the draws go through the flow's one `draw_inputs` method.
 
+`EstimatorConfig.steps_per_call` = K > 1 groups the steps into calls of
+K, as JAX's lax.scan does (`_train_scan`): the host lane then takes one
+K-stacked `batch_fn()` item a call (`stack_batches`). On the CUDA card a
+call replays one captured optimizer step K times (`graph_step.py`); on
+the CPU the same steps run eagerly. On the card Adam is built
+`capturable=True` for every K, so K = 1 and K > 1 share one update rule.
+
 Losses stay on the device until `train` drains them (every 4 096 steps
 and at the end). Checkpoints are the JAX package's format
 (`training/checkpoint.py`): flax-order param leaves and optax-order
 optimizer leaves, so each package restores what the other saved.
 
-Not ported yet: the lax.scan grouping of steps (`steps_per_call` > 1),
-meshes, `pipelined_batches` and the shard-failure policy of remote
-batch sources.
+Not ported yet: meshes, `pipelined_batches` and the shard-failure policy
+of remote batch sources.
 """
 
 from __future__ import annotations
@@ -36,6 +42,8 @@ import torch
 
 from euler_tpu_torch.dataflow.base import MiniBatch, hydrate_blocks, to_device
 from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.estimator.graph_step import StepGraph, signature, tree_map
+from euler_tpu_torch.ops import kernel_mode
 from euler_tpu_torch.params import (
     checkpoint_order,
     from_flax_leaf,
@@ -68,7 +76,8 @@ class EstimatorConfig:
     profile_dir: str = ""
     profile_start_step: int = 10
     profile_steps: int = 5
-    # optimizer steps per dispatch; only 1 is ported
+    # optimizer steps a call: K > 1 replays one captured step K times on
+    # the card (host lane: feed K-stacked batches, `stack_batches`)
     steps_per_call: int = 1
 
 
@@ -101,25 +110,26 @@ class OptaxAdagrad(torch.optim.Optimizer):
 
 # optax's defaults for each optimizer, written out for torch
 _OPTIMIZERS = {
-    "adam": lambda p, cfg: torch.optim.Adam(
-        p, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8
+    "adam": lambda p, cfg, capturable: torch.optim.Adam(
+        p, lr=cfg.learning_rate, betas=(0.9, 0.999), eps=1e-8, capturable=capturable
     ),
-    "adagrad": lambda p, cfg: OptaxAdagrad(p, lr=cfg.learning_rate),
-    "sgd": lambda p, cfg: torch.optim.SGD(p, lr=cfg.learning_rate),
-    "momentum": lambda p, cfg: torch.optim.SGD(
+    "adagrad": lambda p, cfg, capturable: OptaxAdagrad(p, lr=cfg.learning_rate),
+    "sgd": lambda p, cfg, capturable: torch.optim.SGD(p, lr=cfg.learning_rate),
+    "momentum": lambda p, cfg, capturable: torch.optim.SGD(
         p, lr=cfg.learning_rate, momentum=cfg.momentum, dampening=0
     ),
 }
 
 
-def make_optimizer(cfg: EstimatorConfig, params) -> torch.optim.Optimizer:
+def make_optimizer(cfg: EstimatorConfig, params, capturable: bool = False) -> torch.optim.Optimizer:
     """torch optimizers under optax's conventions: adam eps 1e-8 (bias
     correction as both libraries do it); adagrad as optax computes it
     (`OptaxAdagrad`: initial accumulator 0.1, eps 1e-7); momentum without
-    dampening."""
+    dampening. capturable: Adam's rule that a CUDA graph can capture (its
+    step count on the device); the others capture as they are."""
     if cfg.optimizer not in _OPTIMIZERS:
         raise ValueError(f"unknown optimizer {cfg.optimizer!r}")
-    return _OPTIMIZERS[cfg.optimizer](params, cfg)
+    return _OPTIMIZERS[cfg.optimizer](params, cfg, capturable)
 
 
 def step_generator(seed: int, step: int, device) -> torch.Generator:
@@ -137,8 +147,10 @@ class Estimator:
         model: torch.nn.Module,
         batch_fn: Callable[[], tuple],
         cfg: EstimatorConfig | None = None,
+        mesh=None,
         feature_cache=None,
         init_params: dict | None = None,
+        *,
         device=None,
     ):
         """batch_fn: a host batch function returning a tuple of model
@@ -150,12 +162,10 @@ class Estimator:
         infer, save or restore consumes one `batch_fn()` draw, where the
         JAX package initialises from it. Runs on the CUDA card unless
         device="cpu"; a device flow and the feature cache must live on
-        the same device."""
+        the same device. `mesh` is not ported yet."""
+        if mesh is not None:
+            raise NotImplementedError("Estimator(mesh=) is not ported yet")
         self.cfg = cfg or EstimatorConfig()
-        if int(self.cfg.steps_per_call) != 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (several optimizer steps a dispatch) is not ported yet"
-            )
         self.device = resolve_device(device)
         is_flow = getattr(batch_fn, "is_device_flow", False)
         self.flow = batch_fn if is_flow else None
@@ -170,8 +180,12 @@ class Estimator:
         else:
             model.load_state_dict(init_params)
         self.model = model.to(self.device)
-        self.optimizer = make_optimizer(self.cfg, self.model.parameters())
+        self.optimizer = make_optimizer(self.cfg, self.model.parameters(),
+                                        capturable=self.device.type == "cuda")
         self.step = 0
+        # captured steps by input signature (steps_per_call > 1 on the card)
+        self._graphs: dict = {}
+        self.captures = 0
         self._init_draw = init_params is None and not is_flow
         self._profiled = False
         self._profile_first = 0
@@ -221,12 +235,77 @@ class Estimator:
         self.optimizer.step()
         return loss.detach(), metric.detach()
 
+    # -- calls of steps_per_call steps (counterpart: estimator.py:516-542,
+    # 651-727) ---------------------------------------------------------------
+
+    def _batch_of(self, x):
+        """A call step's batch from its input: a device flow's draws go
+        through `fanout_batch`; a host batch is itself."""
+        return self.flow.fanout_batch(*x) if self.flow is not None else x
+
+    def _call_inputs(self, n: int, stacked: bool) -> Iterator:
+        """The inputs of the next n steps: each global step's draws
+        (device flows), or one `batch_fn()` item — when `stacked`, a
+        K-stacked item whose first n slices are the steps' batches, moved
+        to the card at once when it runs graphs."""
+        first = self.step
+        if self.flow is not None:
+            for i in range(n):
+                yield self.flow.draw_inputs(step_generator(self.cfg.seed, first + i, self.device))
+            return
+        item = self.batch_fn()
+        if not stacked:
+            yield item
+            return
+        if self.device.type == "cuda":
+            item = tuple(to_device(b, self.device) if isinstance(b, MiniBatch) else b
+                         for b in item)
+        for i in range(n):
+            yield tree_map(lambda v: v[i] if isinstance(v, (np.ndarray, torch.Tensor)) else v,
+                           item)
+
+    def _graph_step(self, x):
+        """One step on the card, a replay of the step captured for x's
+        signature. A signature's first step runs eagerly on a side stream
+        (a real step, which also makes the optimizer state); then the
+        step is captured."""
+        key = (signature(x), kernel_mode())
+        graph = self._graphs.get(key)
+        if graph is not None:
+            return graph.replay(x)
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            out = self._update(self._batch_of(x))
+        main.wait_stream(side)
+        self.optimizer.zero_grad(set_to_none=True)
+        self._graphs[key] = StepGraph(lambda xs: self._update(self._batch_of(xs)), x)
+        self.captures += 1
+        return out
+
+    def _call(self, n: int, k: int) -> tuple[list, torch.Tensor]:
+        """n optimizer steps as one call of a train at steps_per_call k:
+        (their device losses, the last step's metric). On the card at
+        k > 1 each step replays its captured graph; otherwise the steps
+        run eagerly."""
+        graphs = k > 1 and self.device.type == "cuda"
+        losses, metric = [], None
+        for x in self._call_inputs(n, k > 1):
+            if graphs:
+                loss, metric = self._graph_step(x)
+                loss = loss.clone()  # the next replay overwrites the static loss
+            else:
+                loss, metric = self._update(self._batch_of(x))
+            losses.append(loss)
+            self.step += 1
+        return losses, metric
+
     # -- profiling ----------------------------------------------------------
 
-    def _maybe_profile(self, prof):
+    def _maybe_profile(self, prof, span: int):
         """Start the one profiler trace at `profile_start_step`; stop and
-        write it `profile_steps` steps later. Returns the live profile or
-        None."""
+        write it `span` steps later. Returns the live profile or None."""
         cfg = self.cfg
         if prof is None and cfg.profile_dir and not self._profiled \
                 and self.step >= cfg.profile_start_step:
@@ -237,7 +316,7 @@ class Estimator:
             prof.start()
             self._profile_first = self.step
             self._profiled = True
-        elif prof is not None and self.step >= self._profile_first + cfg.profile_steps:
+        elif prof is not None and self.step >= self._profile_first + span:
             self._stop_profile(prof)
             prof = None
         return prof
@@ -256,31 +335,44 @@ class Estimator:
     def train(self, total_steps: int | None = None, log: bool = True, save: bool = True) -> list:
         """Run `total_steps` (default cfg.total_steps) optimizer steps;
         returns their losses and sets `last_losses`, also when a step
-        raises (then a checkpoint is saved best-effort)."""
+        raises (then a checkpoint is saved best-effort). The steps go in
+        calls of K = steps_per_call, as `_train_scan` groups them
+        (estimator.py:651-727): `divmod(steps, K)` calls, then the
+        remainder as one more call, which on the host lane uses the first
+        `steps % K` slices of one more stacked item. Losses drain every
+        `4096 // K` calls; a log or checkpoint falls in the call whose
+        steps cross its cadence; the profile spans at least one call."""
         self._ensure_init()
         steps = self.cfg.total_steps if total_steps is None else int(total_steps)
         self.model.train()
+        k = max(int(self.cfg.steps_per_call), 1)
         history: list = []  # device losses not yet drained
         fetched: list[float] = []
+        drain_every = max(DRAIN_EVERY // k, 1) * k
+        span = max(self.cfg.profile_steps, k)
+        calls, remainder = divmod(steps, k)
         prof = None
         t0 = time.time()
         try:
-            for _ in range(steps):
-                prof = self._maybe_profile(prof)
-                loss, metric = self._update(self._next_batch())
-                self.step += 1
-                history.append(loss)
-                if len(history) >= DRAIN_EVERY:
-                    fetched.extend(torch.stack(history).cpu().tolist())
+            for _ in range(calls):
+                prof = self._maybe_profile(prof, span)
+                losses, metric = self._call(k, k)
+                history.extend(losses)
+                if len(history) >= drain_every:
+                    fetched.extend(_drain(history))
                     history = []
-                if log and self.step % self.cfg.log_steps == 0:
+                if log and self.step % max(self.cfg.log_steps, 1) < k:
                     print(
-                        f"step {self.step}: loss={float(loss):.4f} "
+                        f"step {self.step}: loss={float(losses[-1]):.4f} "
                         f"metric={float(metric):.4f} ({self.step / (time.time() - t0):.1f} it/s)"
                     )
-                if self.cfg.checkpoint_steps and self.step % self.cfg.checkpoint_steps == 0:
+                if self.cfg.checkpoint_steps and self.step % self.cfg.checkpoint_steps < k:
                     self.save()
-            prof = self._maybe_profile(prof)
+            if prof is not None:
+                self._stop_profile(prof)
+                prof = None
+            if remainder:
+                history.extend(self._call(remainder, k)[0])
         finally:
             self._finish_train(history, fetched, prof, save)
         return list(self.last_losses)
@@ -301,7 +393,7 @@ class Estimator:
                     raise
         if history:
             try:
-                fetched.extend(torch.stack(history).cpu().tolist())
+                fetched.extend(_drain(history))
             except Exception:
                 if not exc_live:
                     raise
@@ -351,7 +443,7 @@ class Estimator:
         embed = self.embed_program()
         embs, all_ids = [], []
         for batch, chunk_ids in zip(batches, ids):
-            emb = embed(batch[0]).cpu().numpy()
+            emb = embed(batch[0]).float().cpu().numpy()
             embs.append(emb[: len(chunk_ids)])
             all_ids.append(np.asarray(chunk_ids))
         emb = np.concatenate(embs) if embs else np.zeros((0, 0))
@@ -401,6 +493,8 @@ class Estimator:
         load_optimizer_leaves(
             self.cfg.optimizer, self.optimizer, self._named_params(), opt_leaves
         )
+        # the optimizer state is new tensors: captured steps read the old
+        self._graphs.clear()
 
     def save(self) -> str:
         """Commit one retained atomic checkpoint (`ckpt_<step>/` under
@@ -421,6 +515,44 @@ class Estimator:
         self.load_leaves(ckpt["params"], ckpt["opt_state"])
         self.step = int(ckpt["step"])
         return True
+
+
+def _drain(history: list) -> list[float]:
+    """Device losses (scalars or [k] per call) → host floats, in order."""
+    return torch.cat([h.reshape(-1) for h in history]).cpu().tolist()
+
+
+def _stack_leaf(*xs):
+    """K leaves → one: numpy arrays stacked on a new leading axis;
+    anything else (ints, None) must be equal, as the static parts of a
+    JAX pytree must be."""
+    if isinstance(xs[0], np.ndarray):
+        return np.stack(xs)
+    if any(x != xs[0] for x in xs):
+        raise ValueError(f"static fields differ: {xs}")
+    return xs[0]
+
+
+def stack_batches(batch_fn: Callable[[], tuple], k: int) -> Callable[[], tuple]:
+    """Wrap a batch source to return K batches stacked on a leading axis,
+    for `EstimatorConfig.steps_per_call=K` (counterpart:
+    estimator.py:926-960). The lean-batch upgrade of a mixed window
+    belongs to the rows-mode lane, which is not ported yet: a window
+    whose batches differ in structure raises."""
+
+    def fn():
+        batches = [batch_fn() for _ in range(k)]
+        try:
+            return tree_map(_stack_leaf, *batches)
+        except ValueError as e:
+            raise ValueError(
+                "steps_per_call>1 requires every batch in a window to "
+                "have identical pytree structure; got a mix that lean "
+                "hydration could not reconcile (a batch_fn with "
+                f"varying structure?). Original error: {e}"
+            ) from e
+
+    return fn
 
 
 # ---- host batch sources (counterpart: estimator.py:1047-1163) -------------

@@ -28,9 +28,25 @@ def _is_rows(x) -> bool:
 class DeviceFeatureCache:
     """Device copy of a graph's dense feature table, +1 zero padding row."""
 
-    def __init__(self, graph, feature_names, quant: str | None = None, device=None):
-        """quant: "f32" | "bf16"; defaults to EULER_TPU_PAGE_DTYPE, as in
-        the JAX package. On the CUDA card unless device="cpu"."""
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        dtype=torch.float32,
+        sharding=None,
+        stage_chunk_rows: int | None = None,
+        quant: str | None = None,
+        *,
+        device=None,
+    ):
+        """The reference's parameters in its order. quant: "f32" | "bf16";
+        defaults to EULER_TPU_PAGE_DTYPE, as in the JAX package. A
+        non-f32 `dtype`, `sharding` and `stage_chunk_rows` are not ported
+        yet. On the CUDA card unless device="cpu"."""
+        if dtype is not torch.float32 or sharding is not None or stage_chunk_rows is not None:
+            raise NotImplementedError(
+                "DeviceFeatureCache(dtype=, sharding=, stage_chunk_rows=) is not ported yet"
+            )
         self.device = resolve_device(device)
         self.feature_names = list(feature_names)
         host = graph.dense_feature_table(self.feature_names)

@@ -24,20 +24,38 @@ from euler_tpu_torch.nn.metrics import micro_f1
 class _EncodedGNN(nn.Module):
     """The conv stack over raw features (no ShallowEncoder stage yet)."""
 
-    def __init__(self, conv: str, in_dim: int, dims: Sequence[int]):
+    def __init__(self, in_dim: int, conv: str, dims: Sequence[int],
+                 conv_kwargs: dict | None = None):
         super().__init__()
-        self.gnn = GNNNet(conv=conv, in_dim=in_dim, dims=dims)
+        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
 
     def forward(self, batch: MiniBatch) -> torch.Tensor:
         return self.gnn(batch)
 
 
 class GraphSAGESupervised(nn.Module):
+    """conv_kwargs: passed to every conv ({"dtype": torch.bfloat16} runs the
+    convs' linears in bf16; the `out` head stays f32, as flax's).
+    `encoder_dim`/`max_id` (the ShallowEncoder stage) and `remat` are not
+    ported yet."""
+
     def __init__(
-        self, in_dim: int, dims: Sequence[int], label_dim: int, conv: str = "sage"
+        self,
+        in_dim: int,
+        dims: Sequence[int],
+        label_dim: int,
+        encoder_dim: int = 0,
+        max_id: int = 0,
+        conv: str = "sage",
+        conv_kwargs: dict | None = None,
+        remat: bool = False,
     ):
         super().__init__()
-        self.net = _EncodedGNN(conv=conv, in_dim=in_dim, dims=dims)
+        if encoder_dim or max_id or remat:
+            raise NotImplementedError(
+                "GraphSAGESupervised(encoder_dim=, max_id=, remat=True) is not ported yet"
+            )
+        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
         self.out = nn.Linear(list(dims)[-1], label_dim)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
@@ -46,7 +64,7 @@ class GraphSAGESupervised(nn.Module):
     def forward(self, batch: MiniBatch):
         """(embeddings, loss, "f1", micro-F1) over batch.labels."""
         emb = self.embed(batch)
-        logits = self.out(emb)
+        logits = self.out(emb.float())  # flax promotes bf16 embeddings to f32
         labels = batch.labels.float()
         loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
         loss = loss.sum(dim=-1).mean()

@@ -21,19 +21,30 @@ from euler_tpu_torch.layers import get_conv
 class GNNNet(nn.Module):
     """Stack of shared-per-layer convs over a fanout MiniBatch.
 
-    conv: layer name from euler_tpu_torch.layers.CONVS
     in_dim: width of the input node features
+    conv: layer name from euler_tpu_torch.layers.CONVS
     dims: output width per layer; len(dims) must equal len(batch.blocks)
+    conv_kwargs: passed to every conv (e.g. {"dtype": torch.bfloat16})
+    remat (rematerialised layers) is not ported yet.
     """
 
     def __init__(
-        self, conv: str, in_dim: int, dims: Sequence[int], activation: str = "relu"
+        self,
+        in_dim: int,
+        conv: str,
+        dims: Sequence[int],
+        activation: str = "relu",
+        conv_kwargs: dict | None = None,
+        remat: bool = False,
     ):
         super().__init__()
+        if remat:
+            raise NotImplementedError("GNNNet(remat=True) is not ported yet")
         cls = get_conv(conv)
         widths = [in_dim] + list(dims)
+        kwargs = dict(conv_kwargs or {})
         self.convs = nn.ModuleList(
-            cls(widths[i], widths[i + 1]) for i in range(len(dims))
+            cls(widths[i], widths[i + 1], **kwargs) for i in range(len(dims))
         )
         self.dims = list(dims)
         self.activation = activation

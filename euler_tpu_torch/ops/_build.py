@@ -12,11 +12,15 @@ A failed build raises: no caller falls back to the plain version.
 
 `LAUNCHES` counts launches per kernel name. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
-went through the kernels.
+went through the kernels. A CUDA graph's capture calls the wrappers but
+launches nothing, and its replays launch without calling them: the
+capture runs under `uncounted_launches`, and each replay adds what it
+recorded (`add_launches`), so the counts stay launches on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import fcntl
 import hashlib
@@ -66,6 +70,26 @@ _LIBS_LOCK = threading.Lock()
 
 def count_launch(name: str) -> None:
     LAUNCHES[name] += 1
+
+
+def add_launches(counts: dict[str, int]) -> None:
+    """Count the launches of one replay of a captured CUDA graph."""
+    for name, n in counts.items():
+        LAUNCHES[name] += n
+
+
+@contextlib.contextmanager
+def uncounted_launches():
+    """Collects the wrappers' counts inside the block into the yielded
+    dict and leaves `LAUNCHES` as it was (a graph capture: the calls
+    record launches, and launch nothing)."""
+    before = dict(LAUNCHES)
+    counted: dict[str, int] = {}
+    try:
+        yield counted
+    finally:
+        counted.update({name: LAUNCHES[name] - before[name] for name in LAUNCHES})
+        LAUNCHES.update(before)
 
 
 def reset_launch_counts() -> None:

@@ -183,7 +183,9 @@ def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> N
             st = optimizer.state[p]
             st[slot] = from_flax_leaf(k, leaves[i * len(keys) + j]).to(p.device)
             if step is not None:
-                st["step"] = step.clone()
+                # a capturable Adam keeps its step count on the param's device
+                capturable = optimizer.param_groups[0].get("capturable", False)
+                st["step"] = step.clone().to(p.device if capturable else "cpu")
 
 
 @torch.no_grad()

@@ -44,8 +44,10 @@ class InferenceRuntime:
     """One model + checkpoint + dataflow, served on one device.
 
     model: a module with `embed(batch)` (its own weights are a template;
-    the engine holds a copy). params: a state_dict (e.g. from
-    `params.from_flax`) that skips the checkpoint restore.
+    the engine holds a copy). cfg: an EstimatorConfig (its model_dir
+    locates the checkpoint) or a model_dir string. params: a state_dict
+    (e.g. from `params.from_flax`) that skips the checkpoint restore.
+    `feature_cache` and `mesh` are not ported yet.
 
     Not thread-safe by design: `predict` is called from ONE dispatcher
     thread; direct callers must serialize. `swap` is safe to call from
@@ -56,11 +58,19 @@ class InferenceRuntime:
         self,
         model,
         flow,
-        model_dir: str | None = None,
+        cfg=None,
+        feature_cache=None,
         buckets=DEFAULT_BUCKETS,
+        mesh=None,
         params=None,
+        *,
         device=None,
     ):
+        if feature_cache is not None or mesh is not None:
+            raise NotImplementedError(
+                "InferenceRuntime(feature_cache=, mesh=) is not ported yet"
+            )
+        model_dir = cfg if cfg is None or isinstance(cfg, str) else cfg.model_dir
         self.model = model
         self.flow = flow
         self.device = resolve_device(device)
@@ -80,7 +90,7 @@ class InferenceRuntime:
         step = None
         if params is None:
             if model_dir is None:
-                raise ValueError("need model_dir= or params=")
+                raise ValueError("need cfg= (or a model_dir) or params=")
             ckpt = CheckpointStore(model_dir).load()
             params = from_checkpoint_leaves(ckpt["params"])
             step = ckpt["step"]
@@ -157,6 +167,6 @@ class InferenceRuntime:
         batch, n = self.flow.query_padded(ids, bucket)
         batch = to_device(batch, self.device)
         with torch.inference_mode():
-            emb = eng.model.embed(batch)[:n].cpu().numpy()
+            emb = eng.model.embed(batch)[:n].float().cpu().numpy()
         self.device_batches += 1
         return emb

@@ -296,9 +296,18 @@ class TrainingSession:
     `source` is the estimator's batch source when it has the cursor
     protocol (`ResumableSource`); device flows need none (their batch
     stream derives from the global step). `graph` (optional) feeds the
-    checkpointed graph-epoch book."""
+    checkpointed graph-epoch book. Requires `cfg.steps_per_call == 1` on
+    the estimator, as the JAX package's session does: a call of several
+    steps would put checkpoint, anomaly and preemption boundaries inside
+    one dispatch."""
 
     def __init__(self, est, source=None, graph=None, cfg: SessionConfig | None = None):
+        if int(getattr(est.cfg, "steps_per_call", 1)) > 1:
+            raise ValueError(
+                "TrainingSession drives single-step dispatches "
+                "(steps_per_call=1): checkpoint, anomaly, and preemption "
+                "boundaries must fall between optimizer steps"
+            )
         self.est = est
         self.source = source
         self.graph = graph

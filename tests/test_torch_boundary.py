@@ -96,7 +96,12 @@ def _silencing_handlers(tree, strict: bool) -> list:
     return bad
 
 
-def test_import_loads_no_jax():
+@pytest.fixture(scope="module", autouse=True)
+def import_child():
+    """A fresh interpreter that imports every module of the port and
+    reports what it loaded, started with the module's first test so that
+    its start-up overlaps the source scans; `test_import_loads_no_jax`
+    waits for it."""
     code = (
         "import importlib, json, pkgutil, sys\n"
         "import euler_tpu_torch\n"
@@ -106,15 +111,14 @@ def test_import_loads_no_jax():
         "print(json.dumps({'mods': mods, 'loaded': sorted(sys.modules)}))\n"
     )
     env = dict(os.environ, OMP_NUM_THREADS="1")
-    out = subprocess.run(
+    proc = subprocess.Popen(
         [sys.executable, "-c", code], cwd=ROOT, env=env,
-        capture_output=True, text=True, timeout=120,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
     )
-    assert out.returncode == 0, out.stderr[-2000:]
-    res = json.loads(out.stdout.strip().splitlines()[-1])
-    assert set(PORTED) <= set(res["mods"])
-    leaked = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
-    assert not leaked, leaked
+    yield proc
+    if proc.poll() is None:
+        proc.kill()
+        proc.communicate()
 
 
 @pytest.mark.parametrize(
@@ -143,3 +147,12 @@ def test_scanner_flags_what_it_should():
     assert _forbidden_imports(tree) == ["jax.numpy", "euler_tpu.ops", "bench"]
     assert _silencing_handlers(tree, strict=False) == [6]
     assert _silencing_handlers(tree, strict=True) == [6, 14]
+
+
+def test_import_loads_no_jax(import_child):
+    stdout, stderr = import_child.communicate(timeout=120)
+    assert import_child.returncode == 0, stderr[-2000:]
+    res = json.loads(stdout.strip().splitlines()[-1])
+    assert set(PORTED) <= set(res["mods"])
+    leaked = [m for m in res["loaded"] if m.split(".")[0] in FORBIDDEN]
+    assert not leaked, leaked

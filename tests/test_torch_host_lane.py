@@ -1,8 +1,9 @@
 """euler_tpu_torch host-batch training lane against the JAX package: the
 products-like quality graph and FullNeighborDataFlow (bitwise), the host
 batch functions, the Estimator's host lane (losses, evaluate, infer and
-the init draw), optax's adagrad, the Prefetcher, and infer against the
-serving runtime.
+the init draw), steps_per_call > 1 over `stack_batches` against K = 1
+and JAX's `_train_scan`, optax's adagrad, the Prefetcher, and infer
+against the serving runtime.
 """
 
 import os
@@ -24,6 +25,7 @@ from euler_tpu.estimator import id_batches as jax_id_batches
 from euler_tpu.estimator import node_batches as jax_node_batches
 from euler_tpu.estimator import read_sample_ids as jax_read_sample_ids
 from euler_tpu.estimator import sample_file_batches as jax_sample_file_batches
+from euler_tpu.estimator.estimator import stack_batches as jax_stack_batches
 from euler_tpu.graph import Graph as JaxGraph
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGE
 from euler_tpu.training import ResumableSource as JaxResumableSource
@@ -39,12 +41,13 @@ from euler_tpu_torch.estimator import (
     node_batches,
     read_sample_ids,
     sample_file_batches,
+    stack_batches,
 )
 from euler_tpu_torch.graph import DEFAULT_ID, Graph, write_arrays
 from euler_tpu_torch.models import GraphSAGESupervised
 from euler_tpu_torch.params import from_flax
 from euler_tpu_torch.serving import InferenceRuntime
-from euler_tpu_torch.training import CheckpointStore, ResumableSource
+from euler_tpu_torch.training import CheckpointStore, ResumableSource, TrainingSession
 
 torch.set_num_threads(1)
 
@@ -353,7 +356,7 @@ def test_infer_matches_inference_runtime(graphs, sgd_pair):
     ids = np.arange(1, 41, dtype=np.uint64)
     _, emb = pest.infer(*id_batches(flow, ids, 16))
     rt = InferenceRuntime(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM), flow,
-                          model_dir=pest.cfg.model_dir, buckets=(16,), device="cpu")
+                          cfg=pest.cfg, buckets=(16,), device="cpu")
     np.testing.assert_array_equal(rt.predict(ids), emb)
 
 
@@ -387,6 +390,109 @@ def test_profile_writes_one_trace(graphs, tmp_path):
     est.train(2, log=False, save=False)
     est.train(3, log=False, save=False)
     assert os.listdir(tmp_path / "prof") == ["trace_step1.json"]
-    with pytest.raises(NotImplementedError, match="steps_per_call"):
-        Estimator(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM), src,
-                  EstimatorConfig(steps_per_call=2), device="cpu")
+    # grouped steps train (the tests below); a TrainingSession still
+    # refuses them, as the JAX package's does
+    grouped = Estimator(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM), src,
+                        EstimatorConfig(steps_per_call=2), device="cpu")
+    with pytest.raises(ValueError, match="steps_per_call=1"):
+        TrainingSession(grouped, source=src)
+
+
+def test_stack_batches_matches_jax(graphs):
+    """K host batches stacked on a leading axis, bitwise as JAX's
+    `stack_batches` stacks them (hop_ids too); a window whose batches
+    differ in structure raises JAX's ValueError in both packages."""
+    jg, pg = graphs
+    kw = dict(fanouts=FANOUTS, label_feature="label")
+
+    def sources(fanouts):
+        jflow = JaxSageFlow(jg, ["feat"], rng=np.random.default_rng(1), **{**kw, "fanouts": fanouts})
+        pflow = SageDataFlow(pg, ["feat"], rng=np.random.default_rng(1), **{**kw, "fanouts": fanouts})
+        return (jax_node_batches(jg, jflow, BATCH, rng=np.random.default_rng(2)),
+                node_batches(pg, pflow, BATCH, rng=np.random.default_rng(2)))
+
+    jfn, pfn = sources(FANOUTS)
+    (jb,), (pb,) = jax_stack_batches(jfn, 3)(), stack_batches(pfn, 3)()
+    assert pb.feats[2].shape == (3, BATCH * 12, FEAT) and pb.blocks[1].n_src == BATCH * 12
+    _assert_batches_equal(jb, pb)
+    (j1, p1), (j2, p2) = sources(FANOUTS), sources(FANOUTS[:1])
+    mixed = {"jax": iter([j1(), j2(), j1()]), "port": iter([p1(), p2(), p1()])}
+    for name, stack in (("jax", jax_stack_batches), ("port", stack_batches)):
+        with pytest.raises(ValueError, match="identical pytree structure"):
+            stack(lambda it=mixed[name]: next(it), 3)()
+
+
+# steps_per_call: 27 steps at K = 8 are 3 calls and a remainder of 3,
+# which takes the first 3 slices of one more stacked item
+GROUP_K, GROUP_STEPS = 8, 27
+GROUP_TOL = {"sgd": 1e-5, "adam": 1e-3}  # as the K = 1 trajectories above
+
+
+@pytest.fixture(scope="module", params=["sgd", "adam"])
+def grouped_host(request, graphs, tmp_path_factory):
+    """27 steps of the port at K = 1 and K = 8 and of JAX's `_train_scan`
+    at K = 8, from the same init over a ResumableSource each (stacked by
+    `stack_batches` at K = 8), with a checkpoint every 10 steps on the
+    port; the port's conv in mode 'ref', JAX's in pallas mode 'off'."""
+    jg, pg = graphs
+    optimizer, tmp = request.param, str(tmp_path_factory.mktemp(request.param))
+    tree = _flax_tree(seed=2)
+    kw = dict(num_hops=2, max_degree=3, label_feature="label")
+    out = {"optimizer": optimizer, "tmp": tmp}
+    ops.set_kernel_mode("ref")
+    try:
+        for k in (1, GROUP_K):
+            flow = FullNeighborDataFlow(pg, ["feat"], **kw)
+            src = ResumableSource(lambda r, flow=flow: (flow.query(pg.sample_node(8, rng=r)),),
+                                  seed=1)
+            est = Estimator(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM),
+                            src if k == 1 else stack_batches(src, k),
+                            EstimatorConfig(model_dir=f"{tmp}/port{k}", optimizer=optimizer,
+                                            steps_per_call=k, checkpoint_steps=10, **CFG),
+                            init_params=from_flax(tree), device="cpu")
+            out[k] = {"losses": est.train(GROUP_STEPS, log=False), "est": est,
+                      "cursor": src.cursor()}
+    finally:
+        ops.set_kernel_mode("auto")
+    jflow = JaxFullFlow(jg, ["feat"], **kw)
+    jsrc = JaxResumableSource(lambda r: (jflow.query(jg.sample_node(8, rng=r)),), seed=1)
+    jest = JaxEstimator(JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM), jax_stack_batches(jsrc, GROUP_K),
+                        JaxConfig(model_dir=f"{tmp}/jax", optimizer=optimizer,
+                                  steps_per_call=GROUP_K, **CFG),
+                        init_params=jax.tree_util.tree_map(jnp.asarray, tree))
+    prev = jax_ops.pallas_mode()
+    jax_ops.set_pallas("off")
+    try:
+        out["jax"] = {"losses": jest.train(GROUP_STEPS, log=False, save=False),
+                      "cursor": jsrc.cursor()}
+    finally:
+        jax_ops.set_pallas(prev)
+    return out
+
+
+def test_grouped_host_steps_equal_single_steps(grouped_host):
+    """K = 8 against K = 1 over the same host batches: losses and final
+    params bitwise. The source cursor shows the remainder rule: K = 8
+    takes four stacked items (32 draws) for 27 steps; checkpoints fall in
+    the calls that cross the cadence (16, 24) and at the end."""
+    one, grouped = grouped_host[1], grouped_host[GROUP_K]
+    assert len(grouped["losses"]) == GROUP_STEPS and np.isfinite(grouped["losses"]).all()
+    assert grouped["losses"] == one["losses"]
+    assert grouped["est"].last_losses == grouped["losses"]
+    assert grouped["est"].step == one["est"].step == GROUP_STEPS
+    for (name, a), b in zip(one["est"].model.state_dict().items(),
+                            grouped["est"].model.state_dict().values()):
+        assert torch.equal(a, b), name
+    assert (one["cursor"], grouped["cursor"]) == (GROUP_STEPS, 4 * GROUP_K)
+    store = CheckpointStore(grouped["est"].cfg.model_dir, keep=5)
+    assert store.steps() == [16, 24, GROUP_STEPS]
+
+
+def test_grouped_host_steps_match_jax_train_scan(grouped_host):
+    """The port at K = 8 against JAX's `_train_scan` at K = 8: the losses
+    within the K = 1 tolerances, and the same number of batch_fn draws."""
+    tol = GROUP_TOL[grouped_host["optimizer"]]
+    got, want = grouped_host[GROUP_K], grouped_host["jax"]
+    assert len(want["losses"]) == GROUP_STEPS
+    np.testing.assert_allclose(got["losses"], want["losses"], rtol=tol, atol=tol)
+    assert got["cursor"] == want["cursor"] == 4 * GROUP_K

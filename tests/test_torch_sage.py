@@ -3,9 +3,12 @@ JAX package, with the flax params carried across by `params.from_flax`.
 
 Port kernel mode 'off' (scatter path) is held against JAX
 set_pallas("off"); port 'ref' (the fused grid path through the plain
-gather_weighted_sum) against JAX set_pallas("interpret").
+gather_weighted_sum) against JAX set_pallas("interpret"). bf16 convs
+(conv_kwargs={"dtype": bfloat16}) are held against flax's Dense(dtype=
+bfloat16) on the fused grid path.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,7 +17,6 @@ import torch
 import euler_tpu.ops as jax_ops
 from euler_tpu.dataflow import SageDataFlow as JaxSageDataFlow
 from euler_tpu.datasets.synthetic import random_graph as jax_random_graph
-from euler_tpu.layers import SAGEConv as JaxSAGEConv
 from euler_tpu.layers import degrees as jax_degrees
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGE
 from euler_tpu_torch import ops
@@ -86,14 +88,43 @@ def _run_port(mode, fn):
         ops.set_kernel_mode(prev)
 
 
-@pytest.mark.parametrize("port_mode,jax_mode", MODES)
-def test_sage_conv_matches(port_mode, jax_mode):
+@pytest.fixture(scope="module")
+def jax_sage():
+    """One JAX GraphSAGESupervised apply per pallas mode, shared by the
+    conv test and the GNN test (each interpreted Pallas kernel costs
+    seconds to lower; the apply is jitted, so it is traced and lowered
+    once, not op by op): the batch pair, the params, and per mode the
+    embeddings, the logits and the first conv's output on hop 0, which
+    flax's capture_intermediates records from inside the same apply."""
     jb, pb = _batches()
-    tree = _flax_tree()
+    tree = _flax_tree(seed=1)
+    model = JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM)
+    applied = {}
+
+    def get(jax_mode):
+        if jax_mode not in applied:
+            def fn(tree, jb):
+                (emb, logits), state = model.apply(
+                    tree, jb, method=lambda m, b: (e := m.embed(b), m.out(e)),
+                    capture_intermediates=True)
+                conv0 = state["intermediates"]["net"]["gnn"]["convs_0"]["__call__"][0]
+                return jnp.concatenate([emb, logits, conv0], axis=1)
+
+            out = _run_jax(jax_mode, lambda: jax.jit(fn)(tree, jb))
+            cut = [DIMS[-1], DIMS[-1] + LABEL_DIM]
+            applied[jax_mode] = np.split(out, cut, axis=1)
+        return applied[jax_mode]
+
+    return jb, pb, tree, get
+
+
+@pytest.mark.parametrize("port_mode,jax_mode", MODES)
+def test_sage_conv_matches(port_mode, jax_mode, jax_sage):
+    """The port's SAGEConv against JAX's first conv of the model on hop 0
+    (its output as the JAX GraphSAGESupervised apply computed it)."""
+    _, pb, tree, get = jax_sage
+    want = get(jax_mode)[2]
     sub = {"params": tree["params"]["net"]["gnn"]["convs_0"]}
-    want = _run_jax(jax_mode, lambda: JaxSAGEConv(out_dim=DIMS[0]).apply(
-        sub, jnp.asarray(jb.feats[0]), jnp.asarray(jb.feats[1]), jb.blocks[0]
-    ))
     conv = SAGEConv(FEAT, DIMS[0])
     conv.load_state_dict(from_flax(sub))
     got = _run_port(port_mode, lambda: conv(pb.feats[0], pb.feats[1], pb.blocks[0]))
@@ -101,19 +132,14 @@ def test_sage_conv_matches(port_mode, jax_mode):
 
 
 @pytest.mark.parametrize("port_mode,jax_mode", MODES)
-def test_gnn_net_and_graphsage_match(port_mode, jax_mode):
+def test_gnn_net_and_graphsage_match(port_mode, jax_mode, jax_sage):
     """One JAX GraphSAGESupervised apply gives the embeddings (its
     GNNNet's output) and the logits; the port's GNNNet and
     GraphSAGESupervised are each held against them."""
-    jb, pb = _batches()
-    tree = _flax_tree(seed=1)
-    model = JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM)
-    want = _run_jax(jax_mode, lambda: jnp.concatenate(model.apply(
-        tree, jb, method=lambda m, b: (e := m.embed(b), m.out(e))
-    ), axis=1))
-    want_emb, want_logits = want[:, : DIMS[-1]], want[:, DIMS[-1]:]
+    _, pb, tree, get = jax_sage
+    want_emb, want_logits, _ = get(jax_mode)
 
-    net = GNNNet("sage", FEAT, DIMS)
+    net = GNNNet(FEAT, "sage", DIMS)
     net.load_state_dict(from_flax({"params": tree["params"]["net"]["gnn"]}))
     sage = GraphSAGESupervised(FEAT, DIMS, LABEL_DIM)
     sage.load_state_dict(from_flax(tree))
@@ -121,6 +147,42 @@ def test_gnn_net_and_graphsage_match(port_mode, jax_mode):
     emb, logits = _run_port(port_mode, lambda: (e := sage.embed(pb), sage.out(e)))
     for got, ref in ((emb_net, want_emb), (emb, want_emb), (logits, want_logits)):
         np.testing.assert_allclose(got.numpy(), ref, rtol=TOL, atol=TOL)
+
+
+# bf16 keeps 8 significant bits: unit roundoff 2^-8. Both packages round at
+# the same points (inputs, kernel, product, bias add); they differ only
+# where an f32 accumulation order moves a rounding by one unit, which the
+# second layer and the head can carry a few times over
+BF16_TOL = 4 * 2.0**-8
+
+
+def test_bf16_graphsage_matches_flax():
+    """GraphSAGESupervised with bf16 convs against flax's
+    conv_kwargs={"dtype": bfloat16} on the same params: bf16 embeddings,
+    and the loss and logits (the f32 head over them), within BF16_TOL
+    relative (absolute against the largest embedding)."""
+    jb, pb = _batches()
+    labels = np.eye(LABEL_DIM, dtype=np.float32)[[0, 1, 1, 0, 1]]
+    jb = jb.replace(labels=labels)
+    pb.labels = torch.from_numpy(labels)
+    tree = _flax_tree(seed=2)
+    model = JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM, conv_kwargs={"dtype": jnp.bfloat16})
+    prev = jax_ops.pallas_mode()
+    jax_ops.set_pallas("auto")  # the fused grid path; XLA's form on the CPU
+    try:
+        jemb, jloss = jax.jit(lambda t, b: model.apply(t, b)[:2])(tree, jb)
+    finally:
+        jax_ops.set_pallas(prev)
+    assert jemb.dtype == jnp.bfloat16
+    sage = GraphSAGESupervised(FEAT, DIMS, LABEL_DIM, conv_kwargs={"dtype": torch.bfloat16})
+    sage.load_state_dict(from_flax(tree))
+    assert all(p.dtype == torch.float32 for p in sage.parameters())
+    emb, loss, name, _ = _run_port("ref", lambda: sage(pb))
+    assert emb.dtype == torch.bfloat16 and name == "f1"
+    want = np.asarray(jemb, np.float32)
+    np.testing.assert_allclose(emb.float().numpy(), want, rtol=BF16_TOL,
+                               atol=BF16_TOL * np.abs(want).max())
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=BF16_TOL)
 
 
 def test_from_flax_layout():

@@ -10,7 +10,9 @@ import shutil
 import signal
 import subprocess
 import sys
+import threading
 import time
+import types
 
 import jax
 import jax.numpy as jnp
@@ -288,46 +290,16 @@ def _child(args):
                             stderr=subprocess.STDOUT, text=True)
 
 
-def test_cli_resume_in_a_fresh_process_is_bit_exact(data, tmp_path):
-    assert train_main(_cli(data, tmp_path / "ref", 8, tmp_path / "ref.jsonl")) == 0
-    assert train_main(_cli(data, tmp_path / "m", 4, tmp_path / "m.jsonl")) == 0
-    proc = _child(_cli(data, tmp_path / "m", 8, tmp_path / "m.jsonl", "--resume"))
-    out, _ = proc.communicate(timeout=WAIT_S)
-    assert proc.returncode == 0, out[-1500:]
-    tail = json.loads(out.strip().splitlines()[-1])
-    assert tail["done"] and tail["step"] == 8 and tail["resumed"]["step"] == 4
-    want = _losses_by_step(tmp_path / "ref.jsonl")
-    assert sorted(want) == list(range(1, 9))
-    assert _losses_by_step(tmp_path / "m.jsonl") == want
-    _assert_same_checkpoint(CheckpointStore(str(tmp_path / "m")).load(),
-                            CheckpointStore(str(tmp_path / "ref")).load())
-
-
-def test_cli_sigterm_drains_and_flushes_a_final_checkpoint(data, tmp_path):
-    """SIGTERM after the first committed checkpoint: exit 3, the final
-    JSON line says preempted, a checkpoint at the preempted step, and a
-    loss for every step. The signal goes only after a checkpoint is
-    committed, every wait is bounded, and the run's 3 000 steps end on
-    their own if the signal were missed."""
-    losses = tmp_path / "losses.jsonl"
-    proc = _child(_cli(data, tmp_path / "m", 3000, losses))
-    store = CheckpointStore(str(tmp_path / "m"))
-    try:
-        deadline = time.monotonic() + WAIT_S
-        while time.monotonic() < deadline and not store.steps() and proc.poll() is None:
-            time.sleep(0.01)
-        assert store.steps(), "the trainer never committed a checkpoint"
-        proc.send_signal(signal.SIGTERM)
-        out, _ = proc.communicate(timeout=WAIT_S)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.communicate()
-    assert proc.returncode == 3, out[-1500:]
-    tail = json.loads(out.strip().splitlines()[-1])
-    assert tail["preempted"] is True and tail["done"] is False
-    assert store.latest_step() == tail["step"] < 3000
-    assert sorted(_losses_by_step(losses)) == list(range(1, tail["step"] + 1))
+def test_session_refuses_grouped_steps_as_jax_does():
+    """steps_per_call > 1 puts several optimizer steps in one call, so a
+    session's checkpoint, anomaly and preemption boundaries could fall
+    inside it: both packages refuse it, with the same message."""
+    est = types.SimpleNamespace(cfg=types.SimpleNamespace(steps_per_call=2))
+    with pytest.raises(ValueError) as want:
+        JaxSession(est)
+    with pytest.raises(ValueError) as got:
+        TrainingSession(est)
+    assert str(got.value) == str(want.value) and "steps_per_call=1" in str(got.value)
 
 
 def test_cli_refuses_what_is_not_ported(data, tmp_path, capsys):
@@ -340,3 +312,95 @@ def test_cli_refuses_what_is_not_ported(data, tmp_path, capsys):
     if not torch.cuda.is_available():  # the default device is the card
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_main(["--data", data, "--model-dir", str(tmp_path)])
+
+
+@pytest.fixture(scope="module", autouse=True)
+def cli_runs(data, tmp_path_factory):
+    """The two trainer-CLI child processes, started with the module's
+    first test so that their start-up (mostly torch's import) overlaps the
+    module's other tests; the two CLI tests, last in the module, wait for
+    them by calling the fixture. A 3 000-step run gets SIGTERM once its
+    first checkpoint is committed (a thread polls for it from the child's
+    start; every wait bounded; its steps end on their own if the signal
+    were missed), and a --resume child continues an in-process run of 4
+    steps to 8, beside an in-process straight run of 8."""
+    d = tmp_path_factory.mktemp("cli")
+    runs = {"sig": {"dir": d / "sig", "losses": d / "sig.jsonl"},
+            "resume": {"ref": d / "ref", "m": d / "m"}}
+    procs, errors = {}, []
+
+    def watch_sig():
+        try:
+            sig, store = procs["sig"], CheckpointStore(str(d / "sig"))
+            deadline = time.monotonic() + WAIT_S
+            while time.monotonic() < deadline and not store.steps() and sig.poll() is None:
+                time.sleep(0.01)
+            runs["sig"]["checkpointed"] = bool(store.steps())
+            if store.steps():
+                sig.send_signal(signal.SIGTERM)
+            runs["sig"]["out"] = sig.communicate(timeout=WAIT_S)[0]
+            runs["sig"]["rc"] = sig.returncode
+        except BaseException as e:  # re-raised by the tests through finish()
+            errors.append(e)
+
+    watcher = threading.Thread(target=watch_sig, daemon=True)
+
+    def stop():
+        # the watcher reaps the SIGTERM child; the resume child is reaped here
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+        if watcher.is_alive():
+            watcher.join(WAIT_S)
+        if "resume" in procs and "rc" not in runs["resume"]:
+            procs["resume"].communicate()
+
+    try:
+        procs["sig"] = _child(_cli(data, d / "sig", 3000, d / "sig.jsonl"))
+        watcher.start()
+        assert train_main(_cli(data, d / "m", 4, d / "m.jsonl")) == 0
+        procs["resume"] = _child(_cli(data, d / "m", 8, d / "m.jsonl", "--resume"))
+        assert train_main(_cli(data, d / "ref", 8, d / "ref.jsonl")) == 0
+    except BaseException:
+        stop()
+        raise
+
+    def finish():
+        if "rc" not in runs["resume"]:
+            watcher.join(2 * WAIT_S + 10)
+            if errors:
+                raise errors[0]
+            assert not watcher.is_alive(), "the SIGTERM child's watcher did not finish"
+            resume = procs["resume"]
+            runs["resume"]["out"] = resume.communicate(timeout=WAIT_S)[0]
+            runs["resume"]["rc"] = resume.returncode
+        return runs
+
+    yield finish
+    stop()
+
+
+def test_cli_resume_in_a_fresh_process_is_bit_exact(cli_runs):
+    run = cli_runs()["resume"]
+    assert run["rc"] == 0, run["out"][-1500:]
+    tail = json.loads(run["out"].strip().splitlines()[-1])
+    assert tail["done"] and tail["step"] == 8 and tail["resumed"]["step"] == 4
+    want = _losses_by_step(str(run["ref"]) + ".jsonl")
+    assert sorted(want) == list(range(1, 9))
+    assert _losses_by_step(str(run["m"]) + ".jsonl") == want
+    _assert_same_checkpoint(CheckpointStore(str(run["m"])).load(),
+                            CheckpointStore(str(run["ref"])).load())
+
+
+def test_cli_sigterm_drains_and_flushes_a_final_checkpoint(cli_runs):
+    """SIGTERM after the first committed checkpoint: exit 3, the final
+    JSON line says preempted, a checkpoint at the preempted step, and a
+    loss for every step."""
+    run = cli_runs()["sig"]
+    assert run["checkpointed"], "the trainer never committed a checkpoint"
+    assert run["rc"] == 3, run["out"][-1500:]
+    tail = json.loads(run["out"].strip().splitlines()[-1])
+    assert tail["preempted"] is True and tail["done"] is False
+    store = CheckpointStore(str(run["dir"]))
+    assert store.latest_step() == tail["step"] < 3000
+    assert sorted(_losses_by_step(run["losses"])) == list(range(1, tail["step"] + 1))

@@ -2,8 +2,9 @@
 graph, batch hydration and the feature cache (bitwise), the
 gather_weighted_sum gradients, GraphSAGESupervised's loss, metric and
 grads, the optimizers' updates and state leaves, the Estimator's loss
-trajectory from the same init and the same draws, and checkpoints the
-two packages read from each other.
+trajectory from the same init and the same draws (steps_per_call 1 and 8
+against JAX's step and `_train_scan`), and checkpoints the two packages
+read from each other.
 """
 
 import os
@@ -215,12 +216,14 @@ def test_optimizer_updates_and_state_match_optax(name):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-6)
 
 
-def _trajectories(setup, optimizer, steps, model_dir):
-    """JAX Estimator and port Estimator from the same flax init; the port
-    is handed JAX's per-step draws (fold_in of the flow key per step)."""
+def _trajectories(setup, optimizer, steps, model_dir, k=1):
+    """JAX Estimator and port Estimator from the same flax init, both at
+    steps_per_call k; the port is handed JAX's per-step draws (fold_in of
+    the flow key per global step, whatever the grouping)."""
     tree = _flax_tree(seed=2)
+    cfg = dict(optimizer=optimizer, steps_per_call=k, **CFG)
     jest = JaxEstimator(JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM), setup["jflow"],
-                        JaxConfig(model_dir=model_dir + "_jax", optimizer=optimizer, **CFG),
+                        JaxConfig(model_dir=model_dir + "_jax", **cfg),
                         feature_cache=setup["jcache"],
                         init_params=jax.tree_util.tree_map(jnp.asarray, tree))
     jlosses = jest.train(steps, log=False, save=False)
@@ -230,7 +233,7 @@ def _trajectories(setup, optimizer, steps, model_dir):
     pflow.draw_inputs = lambda gen: _draws(setup["jflow"], next(keys))
     try:
         pest = Estimator(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM), pflow,
-                         EstimatorConfig(model_dir=model_dir, optimizer=optimizer, **CFG),
+                         EstimatorConfig(model_dir=model_dir, **cfg),
                          feature_cache=setup["pcache"], init_params=from_flax(tree), device="cpu")
         plosses = pest.train(steps, log=False, save=False)
     finally:
@@ -242,6 +245,21 @@ def test_sgd_trajectory_matches_jax(setup, tmp_path):
     _, _, jl, pl = _trajectories(setup, "sgd", 5, str(tmp_path / "m"))
     assert len(pl) == 5 and np.isfinite(pl).all()
     np.testing.assert_allclose(pl, jl, rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_steps_match_single_steps_and_jax_train_scan(setup, tmp_path):
+    """27 sgd steps at K = 8 (3 calls and a remainder of 3) from JAX's
+    draws: within 1e-4 relative of the port at K = 1 (the rule of
+    tests/test_device_flow.py:258-261; on the CPU they are the same
+    steps), and within 1e-5 of JAX's `_train_scan` at K = 8."""
+    _, one, _, pl1 = _trajectories(setup, "sgd", 27, str(tmp_path / "k1"))
+    _, grouped, jl, pl = _trajectories(setup, "sgd", 27, str(tmp_path / "k8"), k=8)
+    assert len(pl) == len(jl) == 27 and np.isfinite(pl).all() and grouped.step == 27
+    np.testing.assert_allclose(pl, pl1, rtol=1e-4)
+    np.testing.assert_allclose(pl, jl, rtol=1e-5, atol=1e-5)
+    for (name, a), b in zip(one.model.state_dict().items(),
+                            grouped.model.state_dict().values()):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), rtol=1e-4, atol=1e-6, err_msg=name)
 
 
 @pytest.fixture(scope="module")
@@ -298,7 +316,7 @@ def test_port_checkpoint_served_by_port(adam_run, setup):
     pest.save()
     flow = SageDataFlow(setup["pg"], ["feat"], fanouts=FANOUTS, rng=np.random.default_rng(0))
     rt = InferenceRuntime(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM), flow,
-                          model_dir=pest.cfg.model_dir, buckets=(8,), device="cpu")
+                          cfg=pest.cfg, buckets=(8,), device="cpu")
     for k, v in pest.model.state_dict().items():
         assert torch.equal(rt.params[k], v), k
     emb = rt.predict(np.arange(1, 12, dtype=np.uint64))
