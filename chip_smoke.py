@@ -112,13 +112,20 @@ Phases, each of which raises (exit code != 0) when it fails:
      with one of 2 and of 1 workers; then 32 steps at steps_per_call 16
      over `stack_batches` against 32 at K = 1 from the same init and
      batches, bitwise, and calls of 16 steps timed at both K;
+     7b. the same config with the graph written to a dir and loaded with
+     `Graph.load(native=True)`, so each batch's fanout is one call of the
+     C++ engine: 500 steps (3 + 1 launches a step), f1 in the band, then
+     the median step and its sampling part without a Prefetcher and with
+     Prefetcher(workers=2, device_put=True), beside phase 7's numpy ones;
   8. the trainer CLI (`python -m euler_tpu_torch.tools.train`, the
      products graph written to a dir, dims 128,128, batch 128, max degree
      10, a checkpoint every 10 steps) as subprocesses: 40 steps straight
      against 20 then a fresh --resume process up to 40, per-step losses and
      the final checkpoint bitwise equal; a SIGTERM after the first
      committed checkpoint gives exit 3 and a checkpoint at the preempted
-     step; then the same trainer in process, 3 + 1 launches a step;
+     step; the split against the straight run again with --native (the
+     engine's draws), bitwise; then the same trainer in process, 3 + 1
+     launches a step;
   9. on the CLI's checkpoint, `Estimator.infer` in chunks of 128 against
      `InferenceRuntime.predict` at bucket 128, both over
      FullNeighborDataFlow, 1 000 test ids: bitwise equal, 3 launches a
@@ -135,7 +142,30 @@ Phases, each of which raises (exit code != 0) when it fails:
      graphsage_sampled_edges_per_sec_per_chip (bench.py:350-355's 112 640
      edges a step over the calls' host-clock time), the median step,
      device time, idle share and kernels on the card a step (kernel 1 on
-     bf16 features once a step under bf16 convs).
+     bf16 features once a step under bf16 convs);
+ 11. bench.py's host training leg (bench.py:1806-1870 with the device
+     flow off) — the same graph written to a dir and loaded with
+     `Graph.load(native=True)`, DeviceFeatureCache,
+     SageDataFlow(fanouts 10,10, feature_mode rows, lean) shipping int32
+     rows, 1 024 roots a batch, Prefetcher(stack_batches(batch_fn, 16),
+     depth 4, workers 4, device_put), bf16 convs, steps_per_call 16 — 32
+     warm-up steps then 30 calls of 16 steps with exactly 3
+     gather_weighted_sum and 1 dx launches a step:
+     graphsage_sampled_edges_per_sec_per_chip, the median call, idle share,
+     H2D time, kernels on the card a step, the engine's calls and ms a
+     step, one batch_fn and the stacking of one window alone; then again
+     with one worker;
+ 12. self-checks of the rows-mode lean lane on that graph: a lean batch
+     moved and hydrated on the card is bitwise its host upgrade and the
+     non-lean rows batch of the same roots and seed; every valid fused
+     draw is an edge of the graph and every row resolves to its id; two
+     flows of one seed draw the same batches, which the port trains (sgd)
+     on the card and on the CPU to the same first 3 losses (1e-4 relative);
+     16 lean steps at K = 16 through a one-worker Prefetcher are bitwise
+     the same steps at K = 1.
+The native engine's draws depend on the host's core count (it splits a
+call over its threads and seeds each chunk from its start), so they are
+compared within one machine only; `os.cpu_count()` is printed beside them.
 Then kernel 1 and its dx at the host lane's shapes, each held first
 against its plain version.
 In phase 3, paged_topk_score is also held bitwise to its plain version
@@ -157,6 +187,7 @@ The line before the last is the `kernels` JSON line; the last line is
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import os
@@ -248,6 +279,17 @@ GROUP_K, GROUP_CALLS = 16, 10
 HEAD_NODES, HEAD_DEGREE, HEAD_FEAT, HEAD_SEED = 200_000, 15, 64, 0
 HEAD_BATCH, HEAD_FANOUTS, HEAD_DIMS, HEAD_K = 1024, [10, 10], [128, 128], 64
 HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 30
+# the host headline cell, bench.py's host training leg (bench.py:1806-1870
+# with the device flow off, :293-364): the headline's graph written to a
+# graph dir and served by the native engine, SageDataFlow(fanouts 10,10,
+# feature_mode rows, lean) into DeviceFeatureCache, 1 024 roots a batch
+# from default_rng(SeedSequence([17, n])), Prefetcher(stack_batches(
+# batch_fn, 16), depth 4, workers 4, device_put), bf16 convs, adam lr 0.01,
+# 2K warm-up steps then 30 calls of K = 16; again with workers 1
+HH_K, HH_DEPTH, HH_WORKERS, HH_ROOT_SEED = 16, 4, (4, 1), 17
+HH_WARMUP, HH_CALLS, HH_TIMED = 2 * HH_K, 30, 20
+# the rows-lane self-checks: steps of lean batches at K = 16 against K = 1
+LANE_STEPS = 16
 # the port's kernels as the profiler names them (kernel 1's forward carries
 # its x type: `gws_kernel<__nv_bfloat16, ...>` on bf16 features)
 CARD_KERNELS = {"gather_weighted_sum": "::gws_kernel<", "gather_weighted_sum_dx": "::gws_dx_kernel<",
@@ -1298,7 +1340,9 @@ def _call_window(torch, est, k: int, calls: int, card: str, what: str, want: dic
                              f"more in any")
     on_card = {name: n / k for name, n in _on_card(counts).items()}
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
+    h2d_us = sum(us for name, us in dev.items() if name.startswith("Memcpy HtoD"))
     return {"what": what, "card": card, "steps_per_call": k, "calls": calls,
+            "h2d_ms_per_step": h2d_us / 1e3 / k,
             "median_step_ms": statistics.median(times), "min_step_ms": min(times),
             "max_step_ms": max(times), "wall_ms_per_step": wall_ms / k,
             "device_ms_per_step": busy_ms / k, "device_idle_share": 1.0 - busy_ms / wall_ms,
@@ -2147,6 +2191,17 @@ def _host_window(torch, est, batch_fn, card: str, what: str) -> dict:
             "top_device_us_per_step": {k[:60]: v / NS_PROFILED for k, v in top}}
 
 
+def _ns_estimator(tmp: str, seed: int, batch_fn, device: str, name: str):
+    """The north-star Estimator: dims 128,128, adam lr 0.01."""
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
+                          log_steps=10**9, seed=seed)
+    return Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), batch_fn, cfg,
+                     device=device)
+
+
 def train_host(torch, tmp: str, seed: int, card: str) -> dict:
     """Phase 7: the north-star quality config through the host lane."""
     from euler_tpu_torch import ops
@@ -2162,10 +2217,7 @@ def train_host(torch, tmp: str, seed: int, card: str) -> dict:
     te_ids = (np.nonzero(types == 2)[0][:NS_EVAL] + 1).astype(np.uint64)
 
     def estimator(batch_fn, device: str, name: str):
-        cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
-                              log_steps=10**9, seed=seed)
-        return Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), batch_fn, cfg,
-                         device=device)
+        return _ns_estimator(tmp, seed, batch_fn, device, name)
 
     # (a) the main path: 500 steps in kernel mode auto, the first draws
     # kept (the init draw, then REF_STEPS steps)
@@ -2302,8 +2354,9 @@ def train_host(torch, tmp: str, seed: int, card: str) -> dict:
     _emit({"phase": "train_host_timing", "card": card, "unprefetched": timing,
            "prefetched": timing_pre[2], "prefetched_one_worker": timing_pre[1],
            "grouped": timing_grouped})
-    return {"graph": g, "te_ids": te_ids, "launches": launches,
-            "grouped_launches": launches_k, "eval_launches": eval_launches, "result": res}
+    return {"graph": g, "tr_ids": tr_ids, "te_ids": te_ids, "launches": launches,
+            "grouped_launches": launches_k, "eval_launches": eval_launches, "result": res,
+            "timing": {"unprefetched": timing, "prefetched": timing_pre[2]}}
 
 
 def write_products(g, directory: str) -> None:
@@ -2312,6 +2365,78 @@ def write_products(g, directory: str) -> None:
     for p, shard in enumerate(g.shards):
         write_arrays(os.path.join(directory, f"part_{p}"), shard.arrays)
     g.meta.save(directory)
+
+
+def _engine_stats(graph, steps: int) -> dict:
+    """The native engine's calls and ms a step, by op, since its counters
+    were reset (ops it did not run left out)."""
+    return {op: {"calls_per_step": v["calls"] / steps, "ms_per_step": v["ms"] / steps}
+            for op, v in graph.shards[0].op_stats().items() if v["calls"]}
+
+
+def train_host_native(torch, data: str, host: dict, tmp: str, seed: int, card: str) -> dict:
+    """Phase 7b: the north star again through the native engine
+    (`Graph.load(data, native=True)`; SageDataFlow's fused fanout is one
+    engine call a batch): 500 steps, 3 + 1 launches a step, evaluate with
+    f1 in the band (the engine's draws differ from numpy's, so this shows
+    the port still learns); then the median step and its sampling part
+    without a Prefetcher and with Prefetcher(workers=2, device_put=True),
+    beside the numpy lane's from phase 7."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.estimator import Prefetcher
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph.native import NativeGraphStore
+
+    t0 = time.perf_counter()
+    g = Graph.load(data, native=True)
+    load_s = time.perf_counter() - t0
+    if not isinstance(g.shards[0], NativeGraphStore):
+        raise AssertionError(f"Graph.load(native=True) gave {type(g.shards[0]).__name__}")
+    tr_ids, te_ids = host["tr_ids"], host["te_ids"]
+    flow, batch_fn = _products_source(g, tr_ids)
+    est = _ns_estimator(tmp, seed, batch_fn, "cuda", "ns_native")
+    g.shards[0].reset_op_stats()
+    ops.reset_launch_counts()
+    t = time.perf_counter()
+    losses = est.train(NS_STEPS, log=False, save=False)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = ops.launch_counts()
+    engine = _engine_stats(g, NS_STEPS)
+    _expect_launches(launches, {"gather_weighted_sum": 3 * NS_STEPS,
+                                "gather_weighted_sum_dx": NS_STEPS}, "the native host lane")
+    if not np.isfinite(losses).all() or not np.mean(losses[-50:]) < np.mean(losses[:50]):
+        raise AssertionError(f"native host-lane losses not finite and falling: {losses[:5]} ... "
+                             f"{losses[-5:]}")
+    evals = [(flow.query(te_ids[i : i + NS_EVAL_BATCH]),)
+             for i in range(0, NS_EVAL, NS_EVAL_BATCH)]
+    metrics = est.evaluate(evals)
+    lo, hi = NS_F1_BAND
+    if not lo < metrics["f1"] < hi:
+        raise AssertionError(f"native north-star f1 {metrics['f1']:.4f} outside ({lo}, {hi})")
+    _, fn = _products_source(g, tr_ids)
+    timing = _host_window(torch, _ns_estimator(tmp, seed, fn, "cuda", "native_time"), fn, card,
+                          "native, unprefetched")
+    _, fn = _products_source(g, tr_ids)
+    pre = Prefetcher(fn, depth=4, workers=2, device_put=True, device="cuda")
+    try:
+        timing_pre = _host_window(torch, _ns_estimator(tmp, seed, pre, "cuda", "native_pre2"),
+                                  None, card, "native, Prefetcher(workers=2, device_put=True)")
+    finally:
+        pre.close()
+    keys = ("median_step_ms", "median_query_ms", "device_ms_per_step", "h2d_ms_per_step",
+            "device_idle_share", "kernel_launches_per_step")
+    res = {"phase": "train_host_native", "card": card, "cpu_count": os.cpu_count(),
+           "store": type(g.shards[0]).__name__, "load_s": load_s, "steps": NS_STEPS,
+           "train_s": train_s, "losses_head": losses[:10], "losses_tail": losses[-10:],
+           "launches": launches, "eval": metrics, "f1_band": NS_F1_BAND,
+           "engine_per_step": engine,
+           "timing": {"native": {"unprefetched": {k: timing[k] for k in keys},
+                                 "prefetched_2": {k: timing_pre[k] for k in keys}},
+                      "numpy": {name: {k: host["timing"][name][k] for k in keys}
+                                for name in ("unprefetched", "prefetched")}}}
+    _emit(res)
+    return {"launches": launches, "result": res}
 
 
 def _cli_args(data: str, model_dir: str, total: int, losses_out: str | None, *extra) -> list:
@@ -2352,17 +2477,42 @@ def _losses_by_step(path: str) -> dict:
     return out
 
 
-def train_cli(torch, g, tmp: str) -> dict:
-    """Phase 8: the trainer CLI on the card, as subprocesses: 40 steps
-    straight against 20 then a fresh --resume process up to 40 (bitwise),
-    and a SIGTERM run; then the CLI's trainer in process, its launches
-    counted."""
+def _split_equals_straight(straight: str, split: str, rep_resumed: dict, what: str) -> dict:
+    """A CLI run of CLI_STEPS against one of half that resumed in a fresh
+    process: per-step losses and the final checkpoint bitwise; returns
+    the losses by step."""
+    from euler_tpu_torch.training import CheckpointStore
+
+    want, got = _losses_by_step(straight + ".jsonl"), _losses_by_step(split + ".jsonl")
+    if sorted(want) != list(range(1, CLI_STEPS + 1)) or got != want:
+        raise AssertionError(f"{what}: split + resume losses differ from the straight run:\n"
+                             f"{got}\n{want}")
+    if not np.isfinite(list(want.values())).all():
+        raise AssertionError(f"{what}: non-finite CLI losses {want}")
+    a, b = CheckpointStore(straight).load(), CheckpointStore(split).load()
+    if a["step"] != CLI_STEPS or b["step"] != CLI_STEPS or not all(
+            x.dtype == y.dtype and np.array_equal(x, y)
+            for x, y in zip(a["params"] + a["opt_state"], b["params"] + b["opt_state"],
+                            strict=True)):
+        raise AssertionError(f"{what}: the resumed run's final checkpoint differs from the "
+                             f"straight run's")
+    resumed = rep_resumed["resumed"]
+    if resumed["step"] != CLI_STEPS // 2 or resumed["epoch_match"] is not True:
+        raise AssertionError(f"{what}: bad resume report {resumed}")
+    return want
+
+
+def train_cli(torch, data: str, tmp: str) -> dict:
+    """Phase 8: the trainer CLI on the card over the graph dir `data`, as
+    subprocesses: 40 steps straight against 20 then a fresh --resume
+    process up to 40 (bitwise), and a SIGTERM run; the same split against
+    straight again with --native (the straight run and the first half at
+    once, then the resumed half); then the CLI's trainer in process, its
+    launches counted."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.tools.train import build_parser, build_trainer
     from euler_tpu_torch.training import CheckpointStore
 
-    data = os.path.join(tmp, "products")
-    write_products(g, data)
     straight, split, term = (os.path.join(tmp, n) for n in ("cli_a", "cli_b", "cli_c"))
     t0 = time.perf_counter()
     rep_a = _finish(_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl")), 0,
@@ -2372,19 +2522,7 @@ def train_cli(torch, g, tmp: str) -> dict:
     rep_b2 = _finish(_trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume")),
                      0, "resumed half")
     runs_s = time.perf_counter() - t0
-    want, got = _losses_by_step(straight + ".jsonl"), _losses_by_step(split + ".jsonl")
-    if sorted(want) != list(range(1, CLI_STEPS + 1)) or got != want:
-        raise AssertionError(f"split + resume losses differ from the straight run:\n{got}\n{want}")
-    if not np.isfinite(list(want.values())).all():
-        raise AssertionError(f"non-finite CLI losses {want}")
-    a, b = CheckpointStore(straight).load(), CheckpointStore(split).load()
-    if a["step"] != CLI_STEPS or b["step"] != CLI_STEPS or not all(
-            x.dtype == y.dtype and np.array_equal(x, y)
-            for x, y in zip(a["params"] + a["opt_state"], b["params"] + b["opt_state"],
-                            strict=True)):
-        raise AssertionError("the resumed run's final checkpoint differs from the straight run's")
-    if rep_b2["resumed"]["step"] != CLI_STEPS // 2 or rep_b2["resumed"]["epoch_match"] is not True:
-        raise AssertionError(f"bad resume report {rep_b2['resumed']}")
+    want = _split_equals_straight(straight, split, rep_b2, "the trainer CLI")
 
     # SIGTERM once the first checkpoint is committed: exit 3, a final
     # checkpoint at the preempted step
@@ -2407,6 +2545,30 @@ def train_cli(torch, g, tmp: str) -> dict:
     if sorted(_losses_by_step(term + ".jsonl")) != list(range(1, rep_c["step"] + 1)):
         raise AssertionError("SIGTERM run lost losses")
 
+    # --native: the straight run and the first half at once, then the
+    # resumed half
+    n_straight, n_split = (os.path.join(tmp, n) for n in ("cli_na", "cli_nb"))
+    t0 = time.perf_counter()
+    procs = (_trainer(_cli_args(data, n_straight, CLI_STEPS, n_straight + ".jsonl", "--native")),
+             _trainer(_cli_args(data, n_split, CLI_STEPS // 2, n_split + ".jsonl", "--native")))
+    try:
+        rep_na = _finish(procs[0], 0, "native straight run")
+        _finish(procs[1], 0, "native first half")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rep_nb2 = _finish(_trainer(_cli_args(data, n_split, CLI_STEPS, n_split + ".jsonl", "--resume",
+                                         "--native")), 0, "native resumed half")
+    native_losses = _split_equals_straight(n_straight, n_split, rep_nb2, "the trainer CLI --native")
+    native = {"split_resume_bitwise": True, "final_checkpoint_bitwise": True,
+              "losses": [native_losses[s] for s in sorted(native_losses)],
+              "straight_and_first_half_s": pair_s, "resumed_half_s": time.perf_counter() - t0,
+              "telemetry": rep_na["telemetry"]}
+
     # the same trainer in process: its launches a step
     args = build_parser().parse_args(_cli_args(data, os.path.join(tmp, "cli_n"), CLI_COUNTED,
                                                None, "--device", "cuda"))
@@ -2422,7 +2584,8 @@ def train_cli(torch, g, tmp: str) -> dict:
            "resumed": rep_b2["resumed"], "sigterm": {"step": rep_c["step"], "exit": 3,
                                                       "latest_checkpoint": store.latest_step()},
            "telemetry": rep_a["telemetry"], "first_half": rep_b1["step"],
-           "runs_s": runs_s, "launches_in_process": launches, "steps_in_process": CLI_COUNTED}
+           "runs_s": runs_s, "native": native, "launches_in_process": launches,
+           "steps_in_process": CLI_COUNTED}
     _emit(res)
     return {"data": data, "model_dir": straight, "launches": launches, "result": res}
 
@@ -2440,7 +2603,7 @@ def infer_parity(torch, data: str, model_dir: str, ids) -> dict:
     from euler_tpu_torch.serving import InferenceRuntime
     from euler_tpu_torch.training import CheckpointStore
 
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     flow = FullNeighborDataFlow(g, ["feature"], num_hops=len(NS_DIMS), max_degree=CLI_MAX_DEGREE)
     ckpt = CheckpointStore(model_dir).load()
     est = Estimator(GraphSAGESupervised(NS_FEAT, NS_DIMS, NS_CLASSES), None,
@@ -2560,6 +2723,260 @@ def headline(torch, tmp: str, seed: int, card: str) -> dict:
             "result": res}
 
 
+def _hh_batches(graph, flow):
+    """bench.py's host-leg batch function (bench.py:1852-1864): 1 024
+    roots a call from a fresh default_rng(SeedSequence([17, n])), n from
+    a counter the Prefetcher's workers share."""
+    seq = itertools.count()
+
+    def batch_fn():
+        rng = np.random.default_rng(np.random.SeedSequence([HH_ROOT_SEED, next(seq)]))
+        return (flow.query(graph.sample_node(HEAD_BATCH, rng=rng)),)
+
+    return batch_fn
+
+
+def _hh_flow(graph, seed: int, lean: bool = True):
+    from euler_tpu_torch.dataflow import SageDataFlow
+
+    return SageDataFlow(graph, ["feat"], fanouts=HEAD_FANOUTS, label_feature="label",
+                        rng=np.random.default_rng(seed), feature_mode="rows", lean=lean)
+
+
+def _hh_estimator(torch, graph_cache, batch_fn, k: int, name: str, tmp: str, seed: int,
+                  bf16: bool = True, device: str = "cuda", init=None, optimizer: str = "adam"):
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
+                          log_steps=10**9, seed=seed, steps_per_call=k, optimizer=optimizer)
+    kwargs = {"dtype": torch.bfloat16} if bf16 else None
+    return Estimator(GraphSAGESupervised(HEAD_FEAT, HEAD_DIMS, 2, conv_kwargs=kwargs), batch_fn,
+                     cfg, feature_cache=graph_cache, init_params=init, device=device)
+
+
+def host_headline(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 11: bench.py's host training leg on the port (the cell above
+    HH_*): the headline's graph through `Graph.load(native=True)`, lean
+    rows batches into DeviceFeatureCache, a 4-worker Prefetcher of
+    K-stacked windows, bf16 convs, K = 16; then again with one worker.
+    Each run: HH_WARMUP warm-up steps, then HH_CALLS calls of K steps with
+    the counts reset just before (3 gather_weighted_sum and 1 dx a step,
+    exactly) and graphsage_sampled_edges_per_sec_per_chip over their
+    host-clock time; then one profiled call (`_call_window`: kernels on
+    the card a step, 1 of kernel 1's on bf16 x, idle share, H2D), the
+    engine's counters, and batch_fn and stacking alone."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.datasets import random_graph
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Prefetcher, stack_batches
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.graph.native import NativeGraphStore
+
+    t0 = time.perf_counter()
+    data = os.path.join(tmp, "head_graph")
+    write_products(random_graph(num_nodes=HEAD_NODES, out_degree=HEAD_DEGREE,
+                                feat_dim=HEAD_FEAT, seed=HEAD_SEED), data)
+    graph = Graph.load(data, native=True)
+    if not isinstance(graph.shards[0], NativeGraphStore):
+        raise AssertionError(f"Graph.load(native=True) gave {type(graph.shards[0]).__name__}")
+    cache = DeviceFeatureCache(graph, ["feat"])
+    setup_s = time.perf_counter() - t0
+    edges_per_step, width = 0, HEAD_BATCH
+    for k in HEAD_FANOUTS:
+        edges_per_step += width * k
+        width *= k
+    per_step = {"gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
+    steps = HH_CALLS * HH_K
+    runs = []
+    for workers in HH_WORKERS:
+        flow = _hh_flow(graph, 0)
+        pre = Prefetcher(stack_batches(_hh_batches(graph, flow), HH_K), depth=HH_DEPTH,
+                         workers=workers, device_put=True)
+        try:
+            est = _hh_estimator(torch, cache, pre, HH_K, f"hh_{workers}", tmp, seed)
+            losses = est.train(HH_WARMUP, log=False, save=False)
+            if not np.isfinite(losses).all():
+                raise AssertionError(f"host headline, {workers} workers: losses not finite")
+            graph.shards[0].reset_op_stats()
+            ops.reset_launch_counts()
+            calls = []
+            for _ in range(HH_CALLS):
+                t = time.perf_counter()
+                est.train(HH_K, log=False, save=False)
+                calls.append(time.perf_counter() - t)
+            launches = ops.launch_counts()
+            engine = _engine_stats(graph, steps)
+            _expect_launches(launches, {n: c * steps for n, c in per_step.items()},
+                             f"the host headline, {workers} workers")
+            window = _call_window(torch, est, HH_K, 1, card,
+                                  f"host headline, {workers} workers",
+                                  {**per_step, "gather_weighted_sum_bf16_x": 1})
+        finally:
+            pre.close()
+        if flow._lean_off:
+            raise AssertionError("the host headline's lean flow downgraded")
+        runs.append({
+            "workers": workers, "warmup_loss_first_last": [losses[0], losses[-1]],
+            "graphsage_sampled_edges_per_sec_per_chip": steps * edges_per_step / sum(calls),
+            "steps": steps, "seconds": sum(calls),
+            "median_call_ms": statistics.median(calls) * 1e3,
+            "median_step_ms": statistics.median(calls) * 1e3 / HH_K,
+            "launches": launches, "captures": est.captures, "engine_per_step": engine,
+            **{key: window[key] for key in (
+                "device_ms_per_step", "device_idle_share", "wall_ms_per_step", "h2d_ms_per_step",
+                "kernel_launches_per_step", "copies_per_step", "port_kernels_on_card_per_step",
+                "top_device_us_per_step")}})
+        del est
+    # the host's parts alone: one batch_fn() (sampling, rows) and the
+    # stacking of a window
+    flow = _hh_flow(graph, 1)
+    batch_fn = _hh_batches(graph, flow)
+    query, window_batches = [], []
+    for _ in range(HH_TIMED):
+        t = time.perf_counter()
+        window_batches.append(batch_fn())
+        query.append((time.perf_counter() - t) * 1e3)
+    stack = []
+    for i in range(HH_TIMED - HH_K + 1):
+        it = iter(window_batches[i : i + HH_K])
+        t = time.perf_counter()
+        stack_batches(lambda it=it: next(it), HH_K)()
+        stack.append((time.perf_counter() - t) * 1e3)
+    res = {"phase": "host_headline", "card": card, "cpu_count": os.cpu_count(),
+           "store": type(graph.shards[0]).__name__, "nodes": HEAD_NODES,
+           "out_degree": HEAD_DEGREE, "feat_dim": HEAD_FEAT, "batch": HEAD_BATCH,
+           "fanouts": HEAD_FANOUTS, "dims": HEAD_DIMS, "steps_per_call": HH_K,
+           "depth": HH_DEPTH, "convs": "bf16", "edges_per_step": edges_per_step,
+           "setup_s": setup_s, "median_batch_fn_ms": statistics.median(query),
+           "median_stack_ms_per_call": statistics.median(stack),
+           "graphsage_sampled_edges_per_sec_per_chip": {
+               f"workers_{r['workers']}": r["graphsage_sampled_edges_per_sec_per_chip"]
+               for r in runs},
+           "runs": runs}
+    _emit(res)
+    return {"graph": graph, "cache": cache,
+            "launches": {name: sum(r["launches"][name] for r in runs) for name in per_step},
+            "result": res}
+
+
+def _same_tensors(torch, a: dict, b: dict, what: str) -> None:
+    for key, x in a.items():
+        y = b[key]
+        if (x is None) != (y is None) or (x is not None and (
+                x.dtype != y.dtype or x.shape != y.shape or not torch.equal(x, y))):
+            raise AssertionError(f"{what}: {key} differs")
+
+
+def _hydrated(torch, batch, cache, device: str) -> dict:
+    """A host batch moved to `device`, hydrated and its rows gathered:
+    {leaf name: tensor}."""
+    from euler_tpu_torch.dataflow import hydrate_blocks, to_device
+
+    b = cache.hydrate(hydrate_blocks(to_device(batch, device)))
+    out = {f"feats[{i}]": f for i, f in enumerate(b.feats)}
+    out.update({f"masks[{i}]": m for i, m in enumerate(b.masks)})
+    out.update(root_idx=b.root_idx, labels=b.labels)
+    for i, blk in enumerate(b.blocks):
+        for name in ("edge_src", "edge_dst", "edge_w", "mask"):
+            out[f"blocks[{i}].{name}"] = getattr(blk, name)
+    return out
+
+
+def rows_lane(torch, graph, cache, tmp: str, seed: int) -> dict:
+    """Phase 12: self-checks of the rows-mode lean lane on the card (no
+    JAX there), on the host headline's native graph and cache: for one
+    root set and seed, the lean batch moved and hydrated is bitwise its
+    `upgrade_lean_host` moved and hydrated, and the non-lean rows batch
+    moved and hydrated; every valid fused draw (src, dst) is an edge of
+    the graph and every row resolves back to its id; two flows of one
+    seed draw the same batches, and the port trains them (sgd) on the
+    card and on the CPU to the same first 3 losses within 1e-4 relative; and
+    LANE_STEPS lean steps at K = 16 (a Prefetcher of one worker staging
+    the stacked windows) are bitwise the same steps at K = 1."""
+    from euler_tpu_torch.dataflow import upgrade_lean_host
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Prefetcher, stack_batches
+    from euler_tpu_torch.params import init_like_flax
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    roots = graph.sample_node(HEAD_BATCH, rng=np.random.default_rng(seed + 7))
+    lean, full = _hh_flow(graph, seed + 8).query(roots), _hh_flow(graph, seed + 8, False).query(
+        roots)
+    if lean.masks is not None or full.masks is None:
+        raise AssertionError("the lean flow shipped masks, or the full flow did not")
+    got = _hydrated(torch, lean, cache, "cuda")
+    _same_tensors(torch, got, _hydrated(torch, upgrade_lean_host(lean), cache, "cuda"),
+                  "lean against its host upgrade")
+    _same_tensors(torch, got, _hydrated(torch, full, cache, "cuda"), "lean against non-lean")
+
+    shard = graph.shards[0]
+    hop_ids, _, _, hop_mask, hop_rows = graph.fanout_with_rows(
+        roots, None, HEAD_FANOUTS, rng=np.random.default_rng(seed + 9))
+    indptr, dst = np.asarray(shard.adj[0].indptr), np.asarray(shard.adj[0].dst)
+    edge_keys = np.sort((np.repeat(np.arange(shard.num_nodes, dtype=np.uint64), np.diff(indptr))
+                         << np.uint64(32)) | dst)
+    draws = 0
+    for h, k in enumerate(HEAD_FANOUTS):
+        m = hop_mask[h + 1]
+        src_rows = np.repeat(hop_rows[h], k)[m]
+        keys = (src_rows.astype(np.uint64) << np.uint64(32)) | hop_ids[h + 1][m]
+        pos = np.minimum(np.searchsorted(edge_keys, keys), len(edge_keys) - 1)
+        if (src_rows < 0).any() or not (edge_keys[pos] == keys).all():
+            raise AssertionError(f"hop {h + 1}: a draw that is not an edge of the graph")
+        draws += int(m.sum())
+    for h, (ids, rows, m) in enumerate(zip(hop_ids, hop_rows, hop_mask)):
+        if not (np.array_equal(graph.lookup_rows(ids[m]), rows[m])
+                and np.array_equal(shard.node_ids[rows[m]], ids[m])):
+            raise AssertionError(f"hop {h}: rows that do not resolve to their ids")
+
+    # two flows of one seed: the same draws; trained on the card and on
+    # the CPU (f32 convs) from one init, by sgd: adam's first steps take
+    # this graph's loss to ~1e-6 by the third, where a relative tolerance
+    # would compare rounding
+    a_fn, b_fn = (_hh_batches(graph, _hh_flow(graph, seed + 10)) for _ in range(2))
+    a_batches = [a_fn() for _ in range(REF_STEPS)]
+    b_batches = [b_fn() for _ in range(REF_STEPS)]
+    for i, ((a,), (b,)) in enumerate(zip(a_batches, b_batches)):
+        _same_tensors(torch, _hydrated(torch, a, cache, "cuda"),
+                      _hydrated(torch, b, cache, "cuda"), f"batch {i} of two flows")
+    init = init_like_flax(GraphSAGESupervised(HEAD_FEAT, HEAD_DIMS, 2),
+                          torch.Generator().manual_seed(seed))
+    cpu_cache = DeviceFeatureCache(graph, ["feat"], device="cpu")
+    on_card = _hh_estimator(torch, cache, iter(a_batches).__next__, 1, "lane_card", tmp, seed,
+                            bf16=False, init=init, optimizer="sgd").train(
+                                REF_STEPS, log=False, save=False)
+    on_cpu = _hh_estimator(torch, cpu_cache, iter(b_batches).__next__, 1, "lane_cpu", tmp, seed,
+                           bf16=False, device="cpu", init=init, optimizer="sgd").train(
+                               REF_STEPS, log=False, save=False)
+    err_cpu = _assert_close(on_cpu, on_card, "lean rows lane, card vs CPU")
+
+    # LANE_STEPS steps at K = 16 through a one-worker Prefetcher against
+    # K = 1, from the same lean batches
+    kept = [b_fn() for _ in range(LANE_STEPS)]
+    one = _hh_estimator(torch, cache, iter(kept).__next__, 1, "lane_k1", tmp, seed,
+                        bf16=False, init=init).train(LANE_STEPS, log=False, save=False)
+    # (the worker draws on after the kept batches: a source must not end)
+    source = itertools.chain(kept, iter(b_fn, None)).__next__
+    pre = Prefetcher(stack_batches(source, HH_K), depth=2, workers=1, device_put=True)
+    try:
+        est = _hh_estimator(torch, cache, pre, HH_K, "lane_k16", tmp, seed, bf16=False,
+                            init=init)
+        grouped = est.train(LANE_STEPS, log=False, save=False)
+    finally:
+        pre.close()
+    if grouped != one:
+        raise AssertionError(f"lean K = {HH_K} losses differ from K = 1: {grouped} against {one}")
+    res = {"phase": "rows_lane", "cpu_count": os.cpu_count(), "roots": HEAD_BATCH,
+           "lean_vs_upgrade_bitwise": True, "lean_vs_full_bitwise": True,
+           "draws_checked": draws, "draws_are_edges": True, "rows_resolve": True,
+           "two_flows_bitwise": True, "card_vs_cpu": {"losses_card": on_card,
+                                                      "losses_cpu": on_cpu,
+                                                      "max_rel_err": err_cpu},
+           "grouped": {"steps_per_call": HH_K, "steps": LANE_STEPS, "bitwise_k1": True,
+                       "captures": est.captures}}
+    _emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -2634,15 +3051,26 @@ def main(argv=None) -> int:
         del retrieved["engine"]
         torch.cuda.empty_cache()
 
-        # 7-9. the host-batch training lane, the trainer CLI, infer parity
+        # 7-9. the host-batch training lane (numpy, then the native
+        # engine), the trainer CLI, infer parity
         host = train_host(torch, tmp, args.seed, card)
-        cli = train_cli(torch, host["graph"], tmp)
+        products = os.path.join(tmp, "products")
+        write_products(host["graph"], products)
+        host_native = train_host_native(torch, products, host, tmp, args.seed, card)
+        cli = train_cli(torch, products, tmp)
         parity = infer_parity(torch, cli["data"], cli["model_dir"], host["te_ids"][:INFER_IDS])
         del host["graph"]
         torch.cuda.empty_cache()
 
         # 10. the headline training leg, at K = 1 and K = 64, f32 and bf16
         head = headline(torch, tmp, args.seed, card)
+        torch.cuda.empty_cache()
+
+        # 11-12. bench.py's host training leg through the native engine and
+        # the rows-mode lean lane, then the lane's self-checks
+        host_head = host_headline(torch, tmp, args.seed, card)
+        rows_lane(torch, host_head["graph"], host_head["cache"], tmp, args.seed)
+        del host_head["graph"], host_head["cache"]
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -2679,12 +3107,16 @@ def main(argv=None) -> int:
         "evaluate": host["eval_launches"]["gather_weighted_sum"],
         "train_cli": cli["launches"]["gather_weighted_sum"],
         "infer": parity["launches"]["infer"], "predict": parity["launches"]["predict"],
-        "headline": head["launches"]["gather_weighted_sum"]}
+        "headline": head["launches"]["gather_weighted_sum"],
+        "train_host_native": host_native["launches"]["gather_weighted_sum"],
+        "host_headline": host_head["launches"]["gather_weighted_sum"]}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
                         "train_cli": cli["launches"]["gather_weighted_sum_dx"],
-                        "headline": head["launches"]["gather_weighted_sum_dx"]}
+                        "headline": head["launches"]["gather_weighted_sum_dx"],
+                        "train_host_native": host_native["launches"]["gather_weighted_sum_dx"],
+                        "host_headline": host_head["launches"]["gather_weighted_sum_dx"]}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{

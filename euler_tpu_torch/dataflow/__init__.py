@@ -6,6 +6,7 @@ from euler_tpu_torch.dataflow.base import (  # noqa: F401
     gather_unique,
     hydrate_blocks,
     to_device,
+    upgrade_lean_host,
 )
 from euler_tpu_torch.dataflow.sage import FullNeighborDataFlow, SageDataFlow  # noqa: F401
 from euler_tpu_torch.dataflow.device import DeviceGraphTables, DeviceSageFlow  # noqa: F401

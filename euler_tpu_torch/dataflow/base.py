@@ -8,7 +8,11 @@ sampled neighbors) and hop i ("dst").
 
 Dataflows build batches of numpy arrays on the host; `to_device` moves a
 batch onto a torch device. uint64 node ids stay in numpy: only the int32
-rows and indices, the masks and the f32 arrays become tensors.
+rows and indices, the masks and the f32 arrays become tensors. In
+feature_mode "rows" a batch carries int32 feature rows (row + 1, 0 =
+padding) for a `DeviceFeatureCache`; a lean batch leaves out what
+`hydrate_blocks` rebuilds on the device (masks, edge ids, unit weights)
+and may carry its edge weights as a CPU bfloat16 tensor.
 """
 
 from __future__ import annotations
@@ -57,8 +61,12 @@ class MiniBatch:
     hop_ids: tuple | None = None
 
 
-def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor:
+def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor | None:
+    if a is None:  # a leaf a lean batch leaves out
+        return None
     if isinstance(a, torch.Tensor):
+        if pinned and a.device.type == "cpu":
+            return a.pin_memory().to(device, non_blocking=True)
         return a.to(device)
     t = torch.from_numpy(np.ascontiguousarray(a))
     if pinned:
@@ -75,7 +83,8 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     stay on the host: no model of the port reads them on the device.
     pinned=True stages each host array in page-locked memory and copies
     it without blocking: the caller must order its use after the current
-    stream's copies (the Prefetcher records an event)."""
+    stream's copies (the Prefetcher records an event). A lean batch's
+    missing leaves stay None, and its bf16 edge weights stay bf16."""
     device = torch.device(device)
 
     def put(a):
@@ -86,20 +95,48 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
             b,
             edge_src=put(b.edge_src),
             edge_dst=put(b.edge_dst),
-            edge_w=put(b.edge_w if isinstance(b.edge_w, torch.Tensor)
-                       else np.asarray(b.edge_w, np.float32)),
+            edge_w=put(b.edge_w),
             mask=put(b.mask),
         )
         for b in batch.blocks
     )
     return MiniBatch(
         feats=tuple(put(f) for f in batch.feats),
-        masks=tuple(put(m) for m in batch.masks),
+        masks=None if batch.masks is None else tuple(put(m) for m in batch.masks),
         blocks=blocks,
         root_idx=put(batch.root_idx),
         labels=None if batch.labels is None else put(batch.labels),
         hop_ids=batch.hop_ids,
     )
+
+
+def upgrade_lean_host(batch):
+    """Host-side (numpy) rebuild of a lean batch's masks and edge
+    weights, giving it the structure of a downgraded batch of the same
+    lean flow (counterpart: euler_tpu/dataflow/base.py:221-248). Exact
+    for every batch a lean flow shipped lean; lets a steps_per_call window
+    that mixes lean and downgraded batches stack."""
+    if not isinstance(batch, MiniBatch) or batch.masks is not None:
+        return batch
+    masks = tuple(
+        (np.asarray(f) > 0)
+        if np.issubdtype(np.asarray(f).dtype, np.integer)
+        else np.ones(np.asarray(f).shape[0], bool)
+        for f in batch.feats
+    )
+    masks = (np.asarray(batch.root_idx) != -1,) + masks[1:]
+    blocks = []
+    for h, b in enumerate(batch.blocks):
+        if b.mask is None:
+            b = dataclasses.replace(b, mask=masks[h + 1].reshape(-1))
+        if b.edge_w is None:
+            b = dataclasses.replace(b, edge_w=np.asarray(b.mask, np.float32))
+        elif isinstance(b.edge_w, torch.Tensor):  # the weighted-lean wire's bf16
+            b = dataclasses.replace(b, edge_w=b.edge_w.float().numpy())
+        elif b.edge_w.dtype != np.float32:
+            b = dataclasses.replace(b, edge_w=np.asarray(b.edge_w, np.float32))
+        blocks.append(b)
+    return dataclasses.replace(batch, masks=masks, blocks=tuple(blocks))
 
 
 def hydrate_blocks(batch):
@@ -169,14 +206,10 @@ class DataFlow:
         rng: np.random.Generator | None = None,
         feature_mode: str = "dense",
     ):
-        """The reference's parameters in its order; feature_mode "rows"
-        (int32 feature rows for a DeviceFeatureCache) is not ported yet."""
+        """feature_mode "dense" ships f32 features; "rows" ships int32
+        feature rows (row + 1, 0 = padding) into a DeviceFeatureCache."""
         if feature_mode not in ("dense", "rows"):
             raise ValueError(f"unknown feature_mode {feature_mode!r}")
-        if feature_mode != "dense":
-            raise NotImplementedError(
-                f"feature_mode={feature_mode!r} (the rows-mode host lane) is not ported yet"
-            )
         self.graph = graph
         self.feature_names = list(feature_names)
         self.label_feature = label_feature
@@ -184,19 +217,31 @@ class DataFlow:
         self.rng = rng if rng is not None else np.random.default_rng()
         self.feature_mode = feature_mode
 
-    def node_feats_hops(self, ids_list) -> tuple:
-        """Per-hop dense features, with ids deduplicated across hops
-        before the fetch."""
+    def _rows(self, ids) -> np.ndarray:
+        """int32 feature rows of ids: global row + 1, 0 for a missing id."""
+        rows = np.asarray(self.graph.lookup_rows(ids))
+        return np.where(rows >= 0, rows + 1, 0).astype(np.int32)
+
+    def node_feats(self, ids: np.ndarray) -> np.ndarray:
+        if self.feature_mode == "rows":
+            return self._rows(ids)
         if not self.feature_names:
+            return np.zeros((len(ids), 0), dtype=np.float32)
+        return self.graph.get_dense_feature(ids, self.feature_names)
+
+    def node_feats_hops(self, ids_list) -> tuple:
+        """Per-hop `node_feats`, with ids deduplicated across hops before
+        the fetch."""
+        if self.feature_mode == "rows":
+            fetch = self._rows
+        elif not self.feature_names:
             return tuple(
                 np.zeros((len(np.asarray(i)), 0), np.float32) for i in ids_list
             )
-        return tuple(
-            gather_unique(
-                ids_list,
-                lambda u: self.graph.get_dense_feature(u, self.feature_names),
-            )
-        )
+        else:
+            def fetch(u):
+                return self.graph.get_dense_feature(u, self.feature_names)
+        return tuple(gather_unique(ids_list, fetch))
 
     def labels_of(self, ids: np.ndarray) -> np.ndarray | None:
         if self.label_feature is None:
@@ -226,14 +271,37 @@ class DataFlow:
         return self.query(roots), n
 
 
-def fanout_block(batch: int, fanout: int, w: np.ndarray, mask: np.ndarray) -> Block:
-    """Block for sampled fanout: src j feeds dst j // fanout."""
+def fanout_block(
+    batch: int,
+    fanout: int,
+    w: np.ndarray,
+    mask: np.ndarray,
+    lazy: bool = False,
+    ship_w: bool = True,
+    ship_mask: bool = True,
+    w_dtype=np.float32,
+) -> Block:
+    """Block for sampled fanout: src j feeds dst j // fanout.
+
+    lazy=True leaves edge_src/edge_dst out (a function of batch and
+    fanout that `hydrate_blocks` rebuilds on the device); ship_mask=False
+    and ship_w=False leave out the edge mask (rebuilt from the src hop's
+    rows-mode validity) and the weights (rebuilt as 1.0 where valid): only
+    for rows-mode batches of unit-weight graphs. w_dtype=torch.bfloat16
+    ships the weights as a CPU bfloat16 tensor (round to nearest even),
+    the weighted-lean wire; hydrate_blocks widens them on the device."""
     e = batch * fanout
+    if not ship_w:
+        edge_w = None
+    elif w_dtype is torch.bfloat16:
+        edge_w = torch.from_numpy(np.asarray(w, np.float32).reshape(-1)).to(torch.bfloat16)
+    else:
+        edge_w = w.reshape(-1).astype(w_dtype)
     return Block(
-        edge_src=np.arange(e, dtype=np.int32),
-        edge_dst=np.repeat(np.arange(batch, dtype=np.int32), fanout),
-        edge_w=w.reshape(-1).astype(np.float32),
-        mask=mask.reshape(-1),
+        edge_src=None if lazy else np.arange(e, dtype=np.int32),
+        edge_dst=None if lazy else np.repeat(np.arange(batch, dtype=np.int32), fanout),
+        edge_w=edge_w,
+        mask=mask.reshape(-1) if ship_mask else None,
         n_src=e,
         n_dst=batch,
         grid=fanout,

@@ -40,7 +40,7 @@ from typing import Callable, Iterable, Iterator
 import numpy as np
 import torch
 
-from euler_tpu_torch.dataflow.base import MiniBatch, hydrate_blocks, to_device
+from euler_tpu_torch.dataflow.base import MiniBatch, hydrate_blocks, to_device, upgrade_lean_host
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.estimator.graph_step import StepGraph, signature, tree_map
 from euler_tpu_torch.ops import kernel_mode
@@ -523,34 +523,46 @@ def _drain(history: list) -> list[float]:
 
 
 def _stack_leaf(*xs):
-    """K leaves → one: numpy arrays stacked on a new leading axis;
-    anything else (ints, None) must be equal, as the static parts of a
-    JAX pytree must be."""
-    if isinstance(xs[0], np.ndarray):
+    """K leaves → one: numpy arrays (or tensors: a lean batch's bf16
+    weights) stacked on a new leading axis; anything else (ints, None)
+    must be equal, as the static parts of a JAX pytree must be."""
+    arrays = [isinstance(x, (np.ndarray, torch.Tensor)) for x in xs]
+    if all(arrays):
+        if all(isinstance(x, torch.Tensor) for x in xs):
+            return torch.stack(xs)
         return np.stack(xs)
-    if any(x != xs[0] for x in xs):
-        raise ValueError(f"static fields differ: {xs}")
+    if any(arrays) or any(x != xs[0] for x in xs):
+        raise ValueError(f"leaves differ: {[type(x).__name__ for x in xs]}")
     return xs[0]
 
 
 def stack_batches(batch_fn: Callable[[], tuple], k: int) -> Callable[[], tuple]:
     """Wrap a batch source to return K batches stacked on a leading axis,
     for `EstimatorConfig.steps_per_call=K` (counterpart:
-    estimator.py:926-960). The lean-batch upgrade of a mixed window
-    belongs to the rows-mode lane, which is not ported yet: a window
-    whose batches differ in structure raises."""
+    estimator.py:926-960). A window that does not stack (a lean flow that
+    downgraded mid-window: some batches carry masks and weights, others
+    None) is stacked again after `upgrade_lean_host` on every batch,
+    which is exact for the lean ones; a window that still differs in
+    structure raises."""
+
+    def stack(batches):
+        return tree_map(_stack_leaf, *batches)
 
     def fn():
         batches = [batch_fn() for _ in range(k)]
         try:
-            return tree_map(_stack_leaf, *batches)
-        except ValueError as e:
-            raise ValueError(
-                "steps_per_call>1 requires every batch in a window to "
-                "have identical pytree structure; got a mix that lean "
-                "hydration could not reconcile (a batch_fn with "
-                f"varying structure?). Original error: {e}"
-            ) from e
+            return stack(batches)
+        except ValueError:
+            batches = [tuple(upgrade_lean_host(x) for x in bt) for bt in batches]
+            try:
+                return stack(batches)
+            except ValueError as e:
+                raise ValueError(
+                    "steps_per_call>1 requires every batch in a window to "
+                    "have identical pytree structure; got a mix that lean "
+                    "hydration could not reconcile (a batch_fn with "
+                    f"varying structure?). Original error: {e}"
+                ) from e
 
     return fn
 

@@ -9,7 +9,8 @@ and an event recorded after the copies travels with the batch. The
 consumer's stream waits for that event before the batch is handed over,
 and every staged tensor is marked as used on the consumer's stream
 (`record_stream`), so no batch is read before its copy has landed and
-no staged buffer is reused while the step still reads it.
+no staged buffer is reused while the step still reads it. The leaves a
+lean batch leaves out stay None.
 """
 
 from __future__ import annotations
@@ -23,20 +24,7 @@ import torch
 
 from euler_tpu_torch.dataflow.base import MiniBatch, to_device
 from euler_tpu_torch.device import resolve_device
-
-
-def _tensors(item):
-    """Every tensor of a staged batch tuple."""
-    for b in item:
-        if not isinstance(b, MiniBatch):
-            continue
-        yield from b.feats
-        yield from b.masks
-        yield b.root_idx
-        if b.labels is not None:
-            yield b.labels
-        for blk in b.blocks:
-            yield from (blk.edge_src, blk.edge_dst, blk.edge_w, blk.mask)
+from euler_tpu_torch.estimator.graph_step import tensor_leaves
 
 
 class Prefetcher:
@@ -117,8 +105,9 @@ class Prefetcher:
             if done is not None:
                 current = torch.cuda.current_stream(self.device)
                 current.wait_event(done)
-                for t in _tensors(item):
-                    t.record_stream(current)
+                for b in item:
+                    for t in tensor_leaves(b) if isinstance(b, MiniBatch) else ():
+                        t.record_stream(current)
             return item
 
     def close(self, timeout_s: float = 5.0):

@@ -6,7 +6,8 @@ training paths run: id lookup, weighted root and neighbor sampling, the
 fused multi-hop fanout with feature rows, dense feature reads, and the
 full adjacency and degrees the device flows stage. The numpy draw order
 is the JAX package's exactly, so a seed gives the same sample in both
-packages (held by tests/test_torch_graph_flow.py).
+packages (held by tests/test_torch_graph_flow.py). `Graph.load(native=)`
+serves the hot paths from the C++ engine instead (`graph/native.py`).
 """
 
 from __future__ import annotations
@@ -19,6 +20,38 @@ from euler_tpu_torch.graph import format as tformat
 from euler_tpu_torch.graph.meta import DENSE, GraphMeta
 
 DEFAULT_ID = np.uint64(0xFFFFFFFFFFFFFFFF)  # padding sentinel for node ids
+
+
+def split_hops(n_roots: int, counts, *arrays):
+    """Split flat per-kind arrays (concatenated over hops) into per-hop
+    lists: hop i holds n_roots * prod(counts[:i]) entries (the fused
+    fanout's layout)."""
+    widths = [int(n_roots)]
+    for c in counts:
+        widths.append(widths[-1] * int(c))
+    offs = np.r_[0, np.cumsum(widths)]
+    return [[a[offs[i] : offs[i + 1]] for i in range(len(widths))] for a in arrays]
+
+
+def lean_wire_ok(roots, hop_w, hop_mask, hop_rows, require_unit_w=True) -> bool:
+    """True when a fused-fanout batch keeps the lean wire's invariants:
+    unit edge weights (hop_w=None: already proven graph-wide), no valid
+    root id truncating to int32 -1, and no valid neighbor resolving to a
+    dangling (-1) feature row. Lean hydration rebuilds edge_w as 1.0 and
+    validity from feature row > 0 / int32 root_idx, so a batch breaking
+    one would train on wrong values. require_unit_w=False checks only the
+    id and row invariants (the weighted-lean wire ships bf16 weights)."""
+    roots = np.asarray(roots, dtype=np.uint64)
+    unit_w = not require_unit_w or hop_w is None or all(
+        np.all(w.reshape(-1)[m.reshape(-1)] == 1.0) for w, m in zip(hop_w[1:], hop_mask[1:])
+    )
+    root32 = roots.astype(np.int64).astype(np.int32)
+    alias = bool(((root32 == -1) & (roots != DEFAULT_ID)).any())
+    dangling = any(
+        bool(((r.reshape(-1) < 0) & m.reshape(-1)).any())
+        for r, m in zip(hop_rows[1:], hop_mask[1:])
+    )
+    return unit_w and not alias and not dangling
 
 
 def _rng(rng) -> np.random.Generator:
@@ -109,6 +142,27 @@ class GraphStore:
             for t in range(meta.num_edge_types)
         ]
         self._samplers_n: dict[int, _WeightedSampler] = {}
+        self._unit_w: dict[int, bool] = {}  # per type: every weight == 1.0
+
+    def unit_edge_weights(self, edge_types=None) -> bool:
+        """True when every out-edge weight of the (selected) types is
+        exactly 1.0: the lean wire then ships no weights. A chunked scan
+        that stops at the first other weight, cached per type."""
+        types = range(self.meta.num_edge_types) if edge_types is None else edge_types
+        for t in types:
+            key = int(t)
+            if key not in self._unit_w:
+                ok = True
+                if key < len(self.adj):
+                    w = self.adj[key].w
+                    for lo in range(0, len(w), 1 << 22):
+                        if not np.all(w[lo : lo + (1 << 22)] == 1.0):
+                            ok = False
+                            break
+                self._unit_w.setdefault(key, ok)
+            if not self._unit_w[key]:
+                return False
+        return True
 
     def lookup(self, ids: np.ndarray) -> np.ndarray:
         """External u64 ids → local rows; -1 for missing (vectorized)."""
@@ -278,17 +332,26 @@ class Graph:
         self._node_shard_w = np.asarray(meta.node_weight_sums, dtype=np.float64)
 
     @classmethod
-    def load(cls, directory: str, mmap: bool = True) -> "Graph":
-        """A graph dir (`euler.meta.json` + `part_<p>/` tensor dirs)."""
+    def load(cls, directory: str, mmap: bool = True, native: bool | None = None) -> "Graph":
+        """A graph dir (`euler.meta.json` + `part_<p>/` tensor dirs).
+        native: True → the C++ engine's hot paths (`NativeGraphStore`);
+        None → the engine when the host has a C++ compiler to build it;
+        False → the numpy store. A failed engine build raises."""
         meta = GraphMeta.load(directory)
-        shards = [
-            GraphStore(
-                meta,
-                tformat.read_arrays(os.path.join(directory, f"part_{p}"), mmap),
-                part=p,
-            )
-            for p in range(meta.num_partitions)
-        ]
+        if native is None:
+            from euler_tpu_torch.graph.native import engine_available
+
+            native = engine_available()
+        shards = []
+        for p in range(meta.num_partitions):
+            part_dir = os.path.join(directory, f"part_{p}")
+            arrays = tformat.read_arrays(part_dir, mmap)
+            if native:
+                from euler_tpu_torch.graph.native import NativeGraphStore
+
+                shards.append(NativeGraphStore(meta, arrays, p, part_dir))
+            else:
+                shards.append(GraphStore(meta, arrays, part=p))
         return cls(meta, shards)
 
     def _scatter_gather(self, ids, fn):
@@ -360,11 +423,15 @@ class Graph:
         )
 
     def fanout_with_rows(self, ids, edge_types, counts, rng=None):
-        """Fused multi-hop fanout incl. global feature rows: one
+        """Fused multi-hop fanout incl. global feature rows. Returns
+        (hop_ids, hop_w, hop_tt, hop_mask, hop_rows) lists over hops
+        0..len(counts). A single shard with a fused call of its own (the
+        native engine) answers in that one call; otherwise one
         owner-scattered sampling round per hop, then one batched
-        row-resolve round over every hop's ids. Returns (hop_ids, hop_w,
-        hop_tt, hop_mask, hop_rows) lists over hops 0..len(counts)."""
+        row-resolve round over every hop's ids."""
         rng = _rng(rng)
+        if self.num_shards == 1 and hasattr(self.shards[0], "fanout_with_rows"):
+            return self.shards[0].fanout_with_rows(ids, edge_types, counts, rng)
         ids = np.asarray(ids, dtype=np.uint64)
         hop_ids = [ids]
         hop_w = [np.ones(len(ids), np.float32)]
@@ -388,6 +455,9 @@ class Graph:
             all_rows[offs[i] : offs[i + 1]] for i in range(len(hop_ids))
         ]
         return hop_ids, hop_w, hop_tt, hop_mask, hop_rows
+
+    def unit_edge_weights(self, edge_types=None) -> bool:
+        return all(s.unit_edge_weights(edge_types) for s in self.shards)
 
     def get_dense_by_rows(self, rows, names) -> np.ndarray:
         """Dense features by pre-resolved global rows (-1 → zeros); rows

@@ -10,6 +10,10 @@ new toolkit builds anew. A file lock serialises concurrent builds of one library
 
 A failed build raises: no caller falls back to the plain version.
 
+`build_host` builds a C++ source with the host compiler the same way
+(hashed directory, file lock, temporary file renamed into place): the
+native graph engine (`graph/native.py`) is built so.
+
 `LAUNCHES` counts launches per kernel name. Each wrapper adds one where
 it launches its kernel and nowhere else, so a run can show that its path
 went through the kernels. A CUDA graph's capture calls the wrappers but
@@ -55,6 +59,9 @@ KERNELS = {
     "paged_topk_score": "topk_score",
     "paged_topk_select": "topk_score",
 }
+
+# the host compiler's flags for a C++ library with a plain C interface
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -120,19 +127,81 @@ def nvcc_path() -> str:
     )
 
 
-def _paths(name: str, nvcc: str) -> tuple[str, str, str]:
-    """(source, build dir, library file) for one library."""
-    src = os.path.join(CSRC, SOURCES[name])
+def _build_dir(name: str, src: str, compiler: str, flags) -> str:
+    """`BUILD_ROOT/<name>-<hash>`: the hash covers the source, the
+    compiler's `--version` and the flags, so an edit or a new toolchain
+    builds anew."""
     version = subprocess.run(
-        [nvcc, "--version"], capture_output=True, text=True, check=True
+        [compiler, "--version"], capture_output=True, text=True, check=True
     ).stdout
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
     h.update(version.encode())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    bdir = os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_ROOT, f"{name}-{h.hexdigest()[:16]}")
+
+
+def _paths(name: str, nvcc: str) -> tuple[str, str, str]:
+    """(source, build dir, library file) for one library."""
+    src = os.path.join(CSRC, SOURCES[name])
+    bdir = _build_dir(name, src, nvcc, NVCC_FLAGS)
     return src, bdir, os.path.join(bdir, f"lib{name}.so")
+
+
+def _lock(bdir: str):
+    """The build directory's lock file, held exclusively."""
+    os.makedirs(bdir, exist_ok=True)
+    lock = open(os.path.join(bdir, "lock"), "w")
+    fcntl.flock(lock, fcntl.LOCK_EX)
+    return lock
+
+
+def _unlock(lock) -> None:
+    fcntl.flock(lock, fcntl.LOCK_UN)
+    lock.close()
+
+
+def _install(returncode: int, log: str, tmp: str, lib: str, bdir: str) -> bool:
+    """Keep a compiler's log beside its library and, when it succeeded,
+    rename its output into place (atomically: a reader sees no library or
+    a whole one). Returns whether it succeeded."""
+    with open(os.path.join(bdir, "build.log"), "w") as f:
+        f.write(log)
+    if returncode == 0:
+        os.replace(tmp, lib)
+    return returncode == 0
+
+
+def cxx_path() -> str:
+    """The host C++ compiler: $CXX, else g++ on $PATH."""
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if not found:
+        raise RuntimeError(f"no host C++ compiler: {cxx!r} is not on $PATH")
+    return found
+
+
+def build_host(name: str, src: str, cxx: str | None = None) -> str:
+    """Build the C++ source `src` with the host compiler (`cxx`, default
+    `cxx_path()`) and CXX_FLAGS into `BUILD_ROOT/<name>-<hash>/lib<name>.so`
+    unless it is built already; returns the library's path. Raises
+    RuntimeError when the compiler fails."""
+    cxx = cxx or cxx_path()
+    bdir = _build_dir(name, src, cxx, CXX_FLAGS)
+    lib = os.path.join(bdir, f"lib{name}.so")
+    lock = _lock(bdir)
+    try:
+        if not os.path.exists(lib):
+            tmp = f"{lib}.tmp-{os.getpid()}-{threading.get_ident()}"
+            proc = subprocess.run([cxx, *CXX_FLAGS, src, "-o", tmp],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if not _install(proc.returncode, proc.stdout, tmp, lib, bdir):
+                raise RuntimeError(f"C++ build failed: {src} ({cxx} exit {proc.returncode}):\n"
+                                   f"{proc.stdout}")
+    finally:
+        _unlock(lock)
+    return lib
 
 
 def library_path(name: str) -> str:
@@ -150,12 +219,9 @@ def build_all(names=None) -> dict[str, dict]:
     try:
         for name in names:
             src, bdir, lib = _paths(name, nvcc)
-            os.makedirs(bdir, exist_ok=True)
-            lock = open(os.path.join(bdir, "lock"), "w")
-            fcntl.flock(lock, fcntl.LOCK_EX)
+            lock = _lock(bdir)
             if os.path.exists(lib):
-                fcntl.flock(lock, fcntl.LOCK_UN)
-                lock.close()
+                _unlock(lock)
                 out[name] = {"seconds": 0.0, "built": False,
                              "log": _read(os.path.join(bdir, "build.log"))}
                 continue
@@ -169,11 +235,7 @@ def build_all(names=None) -> dict[str, dict]:
         for name, (proc, lock, tmp, lib, bdir, t0) in jobs.items():
             log, _ = proc.communicate()
             seconds = time.perf_counter() - t0
-            with open(os.path.join(bdir, "build.log"), "w") as f:
-                f.write(log)
-            if proc.returncode == 0:
-                os.replace(tmp, lib)
-            else:
+            if not _install(proc.returncode, log, tmp, lib, bdir):
                 failed.append(f"{SOURCES[name]} (nvcc exit {proc.returncode}):\n{log}")
             out[name] = {"seconds": seconds, "built": True, "log": log}
         if failed:
@@ -183,8 +245,7 @@ def build_all(names=None) -> dict[str, dict]:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-            fcntl.flock(lock, fcntl.LOCK_UN)
-            lock.close()
+            _unlock(lock)
     return out
 
 

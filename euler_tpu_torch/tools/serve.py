@@ -6,7 +6,9 @@ supervised GraphSAGE model, on the CUDA card unless device="cpu". The
 flags keep the JAX CLI's names:
 
     --data DIR --model-dir CKPT --features feat --dims 128,128
-    --label-dim 2 --fanouts 10,10 --buckets 8,32,128 --seed 0
+    --label-dim 2 --fanouts 10,10 --buckets 8,32,128 --seed 0 [--native]
+
+`--native` samples through the C++ graph engine (`Graph.load(native=None)`).
 
 The TCP front end (ModelServer, batcher, client) is not ported yet.
 """
@@ -30,6 +32,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--buckets", default="8,32,128",
                     help="padded batch-size buckets, comma-separated")
     ap.add_argument("--seed", type=int, default=0, help="sampling seed of the flow")
+    ap.add_argument("--native", action="store_true",
+                    help="sample through the C++ graph engine")
     return ap
 
 
@@ -43,7 +47,7 @@ def build_runtime(args, graph=None, device=None, params=None):
     from euler_tpu_torch.serving import InferenceRuntime
 
     if graph is None:
-        graph = Graph.load(args.data)
+        graph = Graph.load(args.data, native=None if args.native else False)
     features = args.features.split(",") if args.features else []
     dims = [int(x) for x in args.dims.split(",")]
     flow = SageDataFlow(

@@ -13,11 +13,11 @@ optimizer state, step and the batch-source cursor — so a respawn after
 reached, 3 = preempted (SIGTERM drain flushed a final checkpoint first),
 anything else = crash. The last line of stdout is a JSON report.
 `--losses-out FILE` appends one JSON line of per-step losses per run
-segment.
+segment. `--native` serves the graph's hot paths from the C++ engine
+(`Graph.load(native=None)`: used when a host compiler builds it).
 
-Not ported yet: `--cluster` / `--registry` (the distributed client),
-`--native` (the C++ engine) and `--mutate-spec` (`graph/delta.py`); each
-exits with an error.
+Not ported yet: `--cluster` / `--registry` (the distributed client) and
+`--mutate-spec` (`graph/delta.py`); each exits with an error.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def build_trainer(args, graph=None):
     )
 
     if graph is None:
-        graph = Graph.load(args.data)
+        graph = Graph.load(args.data, native=None if args.native else False)
     dims = [int(x) for x in args.dims.split(",")]
     features = args.features.split(",") if args.features else []
     # full-neighbor flow: deterministic per root set, so the batch stream
@@ -120,7 +120,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--mutate-spec", default=None, help="not ported yet")
     ap.add_argument("--losses-out", default=None,
                     help="append one JSON line of per-step losses per segment")
-    ap.add_argument("--native", action="store_true", help="not ported yet")
+    ap.add_argument("--native", action="store_true",
+                    help="sample through the C++ graph engine")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card (an error without one)")
     return ap
@@ -130,7 +131,7 @@ def main(argv=None) -> int:
     ap = build_parser()
     args = ap.parse_args(argv)
     for flag, value in (("--cluster", args.cluster), ("--registry", args.registry),
-                        ("--native", args.native), ("--mutate-spec", args.mutate_spec)):
+                        ("--mutate-spec", args.mutate_spec)):
         if value:
             ap.error(f"{flag} is not ported yet")
     if not args.data:

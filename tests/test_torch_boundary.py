@@ -1,7 +1,7 @@
 """The PyTorch port stands alone: importing euler_tpu_torch and every one
 of its modules loads nothing of JAX, of the JAX package or of bench.py,
 no source of the port (or its scripts at the root) imports them, and no `except`
-silences a kernel build or launch."""
+silences a kernel build or launch, or the native graph engine's build."""
 
 import ast
 import json
@@ -23,6 +23,8 @@ KERNEL_CALLS = {
     "_build.load",
     # a training step, which launches the step's kernels
     "_update", "_step", "_watched_step",
+    # the native graph engine's build and load
+    "build_host", "build_engine", "_load_lib",
 }
 # the port's scripts at the root of the repo
 SCRIPTS = ("chip_smoke.py", "select_short_list.py", "gws_variants.py", "train_step_ab.py")
@@ -39,6 +41,7 @@ PORTED = [
     "euler_tpu_torch.tools.knn", "euler_tpu_torch.training.session",
     "euler_tpu_torch.tools.train", "euler_tpu_torch.estimator.prefetch",
     "euler_tpu_torch.datasets.quality", "euler_tpu_torch.dataflow.sage",
+    "euler_tpu_torch.graph.native",
 ]
 
 

@@ -35,7 +35,7 @@ def graphs(request, tmp_path):
         num_partitions=request.param, seed=4,
     )
     _write(g, str(tmp_path))
-    return JaxGraph.load(str(tmp_path), native=False), Graph.load(str(tmp_path))
+    return JaxGraph.load(str(tmp_path), native=False), Graph.load(str(tmp_path), native=False)
 
 
 def _assert_same(a, b):

@@ -66,7 +66,7 @@ def graphs(tmp_path_factory):
     """One 240-node graph dir written by the port, loaded by both."""
     d = str(tmp_path_factory.mktemp("graph"))
     _write(random_graph(num_nodes=240, out_degree=5, feat_dim=FEAT, seed=6), d)
-    return JaxGraph.load(d, native=False), Graph.load(d)
+    return JaxGraph.load(d, native=False), Graph.load(d, native=False)
 
 
 def _flax_tree(seed=0):
@@ -124,7 +124,7 @@ def test_full_neighbor_query_matches_jax(tmp_path):
     # degree 0, degrees past max_degree (4) and in between
     deg = [0, 3, 12, 1, 0, 7, 4, 5, 2, 9, 0, 6]
     _write(graph_with_degrees(deg, seed=2), str(tmp_path))
-    jg, pg = JaxGraph.load(str(tmp_path), native=False), Graph.load(str(tmp_path))
+    jg, pg = JaxGraph.load(str(tmp_path), native=False), Graph.load(str(tmp_path), native=False)
     kw = dict(num_hops=2, max_degree=4, label_feature="label")
     jflow, pflow = JaxFullFlow(jg, ["feat"], **kw), FullNeighborDataFlow(pg, ["feat"], **kw)
     roots = np.array([1, 3, 5, 11, 2, 12, 10], np.uint64)

@@ -87,7 +87,7 @@ def _assert_same_checkpoint(a, b):
 
 
 def test_resume_bit_exact_in_process(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     straight, _, _ = _session(g, tmp_path / "straight")
     want = straight.run(10)
     first, _, _ = _session(g, tmp_path / "split")
@@ -135,7 +135,7 @@ def across(data, tmp_path_factory):
     port's step-8 checkpoint and both continue 2 more (adam, one flax
     init)."""
     tmp = tmp_path_factory.mktemp("across")
-    jg, pg = JaxGraph.load(data, native=False), Graph.load(data)
+    jg, pg = JaxGraph.load(data, native=False), Graph.load(data, native=False)
     tree = _flax_tree(seed=4)
     jsess, jsrc = _jax_session(jg, tmp / "jax", tree)
     jsess.run(4)
@@ -198,7 +198,7 @@ def _poison_session(tmp_path, graph, poison_at, sub="p", transient=False, **cfg_
 
 
 def test_anomaly_skip_leaves_the_state_bitwise(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     ref, _, _ = _poison_session(tmp_path, g, (), sub="clean")
     rep_ref = ref.run(5)
     s, est, src = _poison_session(tmp_path, g, {6}, sub="poison")  # draw 6 = step 6
@@ -218,7 +218,7 @@ def test_anomaly_skip_leaves_the_state_bitwise(data, tmp_path):
 
 
 def test_anomaly_strike_cap_raises_typed(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     s, est, _ = _poison_session(tmp_path, g, set(range(5, 100)), sub="cap", max_strikes=3)
     with pytest.raises(AnomalyError, match="strike"):
         s.run(12)
@@ -229,7 +229,7 @@ def test_anomaly_strike_cap_raises_typed(data, tmp_path):
 
 
 def test_anomaly_rollback_retries_a_transient_fault(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     s, _, _ = _poison_session(tmp_path, g, {6}, sub="rb", transient=True,
                               anomaly_policy="rollback")
     rep = s.run(12)
@@ -239,7 +239,7 @@ def test_anomaly_rollback_retries_a_transient_fault(data, tmp_path):
 
 
 def test_anomaly_abort_raises_immediately(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     s, _, _ = _poison_session(tmp_path, g, {2}, sub="abort", anomaly_policy="abort")
     with pytest.raises(AnomalyError, match="policy=abort"):
         s.run(6)
@@ -247,7 +247,7 @@ def test_anomaly_abort_raises_immediately(data, tmp_path):
 
 
 def test_hung_step_watchdog_dumps_and_aborts(data, tmp_path):
-    g = Graph.load(data)
+    g = Graph.load(data, native=False)
     flow = _flow(g)
     calls = [0]
 
@@ -303,8 +303,7 @@ def test_session_refuses_grouped_steps_as_jax_does():
 
 
 def test_cli_refuses_what_is_not_ported(data, tmp_path, capsys):
-    for flag in (["--cluster", "{}"], ["--registry", "r"], ["--native"],
-                 ["--mutate-spec", "s.json"]):
+    for flag in (["--cluster", "{}"], ["--registry", "r"], ["--mutate-spec", "s.json"]):
         with pytest.raises(SystemExit) as e:
             train_main(["--data", data, "--model-dir", str(tmp_path), *flag])
         assert e.value.code == 2

@@ -1,4 +1,4 @@
-"""euler_tpu_torch constructors take the JAX package's parameters in its
+"""euler_tpu_torch constructors (and `Graph.load`) take the JAX package's parameters in its
 order and under its names, so a caller's positional arguments mean the
 same thing in both packages. Port-only parameters (`device`) are
 keyword-only. The one deliberate difference: the torch modules take their
@@ -16,6 +16,8 @@ from euler_tpu.dataflow import SageDataFlow as JaxSageDataFlow
 from euler_tpu.dataflow.base import DataFlow as JaxDataFlow
 from euler_tpu.estimator import DeviceFeatureCache as JaxDeviceFeatureCache
 from euler_tpu.estimator import Estimator as JaxEstimator
+from euler_tpu.graph import Graph as JaxGraph
+from euler_tpu.graph.native import NativeGraphStore as JaxNativeGraphStore
 from euler_tpu.layers import SAGEConv as JaxSAGEConv
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGESupervised
 from euler_tpu.nn import GNNNet as JaxGNNNet
@@ -23,6 +25,8 @@ from euler_tpu.serving import InferenceRuntime as JaxInferenceRuntime
 from euler_tpu_torch.dataflow import DeviceSageFlow, FullNeighborDataFlow, SageDataFlow
 from euler_tpu_torch.dataflow.base import DataFlow
 from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator
+from euler_tpu_torch.graph import Graph
+from euler_tpu_torch.graph.native import NativeGraphStore
 from euler_tpu_torch.layers import SAGEConv
 from euler_tpu_torch.models import GraphSAGESupervised
 from euler_tpu_torch.nn import GNNNet
@@ -41,6 +45,8 @@ PAIRS = [
     (SAGEConv, JaxSAGEConv),
     (GNNNet, JaxGNNNet),
     (GraphSAGESupervised, JaxGraphSAGESupervised),
+    (Graph.load, JaxGraph.load),
+    (NativeGraphStore, JaxNativeGraphStore),
 ]
 # the torch modules' input width, which flax infers at init
 IN_DIM_FIRST = (SAGEConv, GNNNet, GraphSAGESupervised)
@@ -54,7 +60,7 @@ def _positional(cls, skip=()) -> list:
             if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD) and p.name not in skip]
 
 
-@pytest.mark.parametrize("port,ref", PAIRS, ids=[p.__name__ for p, _ in PAIRS])
+@pytest.mark.parametrize("port,ref", PAIRS, ids=[p.__qualname__ for p, _ in PAIRS])
 def test_positional_parameters_follow_the_reference(port, ref):
     got = _positional(port)
     if port in IN_DIM_FIRST:
