@@ -162,7 +162,42 @@ Phases, each of which raises (exit code != 0) when it fails:
      flows of one seed draw the same batches, which the port trains (sgd)
      on the card and on the CPU to the same first 3 losses (1e-4 relative);
      16 lean steps at K = 16 through a one-worker Prefetcher are bitwise
-     the same steps at K = 1.
+     the same steps at K = 1;
+ 13. `serve_tcp`, bench.py's serving lane at its accelerator sizes
+     (bench.py:1993-2100, :2019-2022) over TCP — phase 4's graph,
+     SageDataFlow(fanouts 10,10, label "label", default_rng(5)), dims
+     128,128, a 1-step checkpoint from `Estimator.train` (roots from
+     default_rng(7)), one bucket of 128, `ModelServer(max_wait_us=2000)`,
+     one warm probe through the wire (its first and second request timed),
+     then 16 client threads, each with its own `ServingClient`, sending 50
+     requests of 16 ids from default_rng(100 + k): requests/s, p50 and p99,
+     batches_per_100_requests, then 10 requests a client under
+     torch.profiler (device time a request, idle share); kernel-1
+     launches exactly 3 a device batch (counts reset just before), no dx,
+     no rejection;
+ 14. `serve_parity`, the same graph and checkpoint over
+     FullNeighborDataFlow(2 hops, max degree 10) at bucket 128: the rows
+     of 16 concurrent clients (4 requests each) bitwise the runtime's
+     direct predict, with fewer device batches than requests;
+     `predict(ids, deadline_ms=0.001)` raises a typed DeadlineExceededError
+     over the wire; a server with max_queue 1 under 8 clients of 20
+     full-bucket requests answers some and rejects some with a typed
+     OverloadError (as many as the server counts), none hanging; an
+     unknown op gets an error frame and the connection keeps serving;
+ 15. `serve_fleet`, bench.py's fleet lane (bench.py:2214-2420) — 4
+     ModelServers on the card over random_graph(8 000, out-degree 8,
+     32-wide, seed 11), FullNeighborDataFlow(2 hops, max degree 6), dims
+     32,32, bucket 32, a 1-step checkpoint: routed rows under
+     consistent_hash and least_loaded bitwise `Estimator.infer`; 12
+     clients x 30 requests of 32 ids through 1 replica and through 4
+     (fleet_scaling_4x), then 10 requests a client under torch.profiler
+     (the card's device time and idle share), every routed row held bitwise to `Estimator.infer`; a chaos `server
+     delay` of 0.25 s on replica 3's predicts, 12 clients x 16 requests
+     unhedged and hedged at a pinned 62.5 ms (the router's default pool of
+     attempt threads, then 64), hedges within the RetryBudget; kernel-1
+     launches exactly 3 a device batch summed over the replicas; a reload
+     of the same checkpoint on one replica with canary parity; the host's
+     core count.
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
@@ -290,6 +325,21 @@ HH_K, HH_DEPTH, HH_WORKERS, HH_ROOT_SEED = 16, 4, (4, 1), 17
 HH_WARMUP, HH_CALLS, HH_TIMED = 2 * HH_K, 30, 20
 # the rows-lane self-checks: steps of lean batches at K = 16 against K = 1
 LANE_STEPS = 16
+# the serving front end: bench.py's serving lane at its accelerator sizes
+# (bench.py:1993-2100, :2019-2022) on phase 4's graph, a 1-step checkpoint,
+# one bucket of 128, 16 clients x 50 requests of 16 ids; the parity server
+# over FullNeighborDataFlow; the fleet lane (bench.py:2214-2420): 4
+# replicas on one card over random_graph(8 000, 8, 32-wide, seed 11)
+TCP_FANOUTS, TCP_BUCKET, TCP_WAIT_US, TCP_IDS = [10, 10], 128, 2000, 16
+TCP_CLIENTS, TCP_REQS, TCP_FLOW_SEED, TCP_TRAIN_SEED = 16, 50, 5, 7
+PARITY_MAX_DEGREE, PARITY_REQS, OVERLOAD_CLIENTS, OVERLOAD_REQS = 10, 4, 8, 20
+FLEET_NODES, FLEET_DEGREE, FLEET_FEAT, FLEET_SEED = 8000, 8, 32, 11
+FLEET_DIMS, FLEET_MAX_DEGREE, FLEET_BUCKET, FLEET_IDS = [32, 32], 6, 32, 32
+FLEET_REPLICAS, FLEET_CLIENTS, FLEET_REQS, FLEET_TRAIN_SEED = 4, 12, 30, 13
+STRAGGLER_REQS, STRAGGLER_S, HEDGE_MS = 16, 0.25, 0.25 * 1e3 * 0.25
+ROUTER_WIDE_WORKERS = 64  # > the attempts 12 clients can leave stalled
+PROFILED_REQS = 10  # a client's requests in a profiled window
+SERVE_WAIT_S = 120  # bound on every wait for a client thread
 # the port's kernels as the profiler names them (kernel 1's forward carries
 # its x type: `gws_kernel<__nv_bfloat16, ...>` on bf16 features)
 CARD_KERNELS = {"gather_weighted_sum": "::gws_kernel<", "gather_weighted_sum_dx": "::gws_dx_kernel<",
@@ -559,7 +609,7 @@ def serve(torch, data_dir: str, model_dir: str | None, seed: int) -> dict:
            "load_s": load_s, "warmup_s": warmup_s,
            "params": "--model-dir" if model_dir else f"init_like_flax(seed={seed})"}
     _emit(res)
-    return {"runtime": rt, "launches": launches["gather_weighted_sum"],
+    return {"runtime": rt, "graph": rt.flow.graph, "launches": launches["gather_weighted_sum"],
             "launches_dx": launches["gather_weighted_sum_dx"], "req_rng": req_rng}
 
 
@@ -2977,6 +3027,440 @@ def rows_lane(torch, graph, cache, tmp: str, seed: int) -> dict:
     return res
 
 
+def _percentiles(lat_ms) -> dict:
+    lat = np.asarray(lat_ms)
+    return {"p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))}
+
+
+def _hammer(clients: list, n_reqs: int, rng_of, ids_of, check=None) -> tuple:
+    """One closed-loop thread per entry of `clients` (entries may share a
+    client), each sending n_reqs requests of `ids_of(rng_of(k))`:
+    (requests/s, latencies ms). A worker's error surfaces here; `check`
+    holds every answer."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def worker(k):
+        rng = rng_of(k)
+        lats = []
+        for _ in range(n_reqs):
+            ids = ids_of(rng)
+            t0 = time.perf_counter()
+            rows = clients[k].predict(ids)
+            lats.append((time.perf_counter() - t0) * 1e3)
+            if check is not None:
+                check(ids, rows)
+        return lats
+
+    with ThreadPoolExecutor(max_workers=len(clients)) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(worker, k) for k in range(len(clients))]
+        lats = [x for f in futs for x in f.result(timeout=SERVE_WAIT_S)]
+        elapsed = time.perf_counter() - t0
+    return len(lats) / elapsed, lats
+
+
+def _device_share(torch, hammer) -> dict:
+    """The card's part of one closed-loop window of requests (`hammer()`
+    returns its latencies): the device time of every thread's kernels and
+    copies (torch.profiler), a request and as a share of the window."""
+    requests = []
+
+    def body():
+        requests.append(len(hammer()))
+        torch.cuda.synchronize()
+
+    dev, wall_ms = _profile_window(torch, body, windows=1)
+    busy_ms = sum(dev.values()) / 1e3
+    return {"requests": requests[-1], "wall_ms": wall_ms,
+            "device_ms_per_request": busy_ms / requests[-1],
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "top_device_us": sorted(((k[:60], v) for k, v in dev.items()),
+                                    key=lambda kv: -kv[1])[:6]}
+
+
+def _quiesce(servers) -> None:
+    """Wait until no request is queued or running on any server (a hedge's
+    losing attempt runs on after its client moved on)."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    while any(s.server._inflight or s.batcher.stats()["inflight"] for s in servers):
+        if time.monotonic() > deadline:
+            raise AssertionError("servers still busy after the clients finished")
+        time.sleep(0.01)
+
+
+def _outcome(pool, fn, *args, expected=()):
+    """fn(*args) on `pool`: its result, or the exception it raised when
+    that is one of `expected`; any other exception is raised."""
+    fut = pool.submit(fn, *args)
+    exc = fut.exception(timeout=SERVE_WAIT_S)
+    if exc is None:
+        return fut.result()
+    if isinstance(exc, expected):
+        return exc
+    raise exc
+
+
+def _served_launches(runtimes, before: list, what: str) -> dict:
+    """Kernel 1's launches since the counts' reset against 3 a device
+    batch of `runtimes` since `before`; no dx."""
+    from euler_tpu_torch import ops
+
+    batches = sum(rt.device_batches - b for rt, b in zip(runtimes, before))
+    launches = ops.launch_counts()
+    _expect_launches(launches, {"gather_weighted_sum": 3 * batches}, what)
+    return {"device_batches": batches, "gather_weighted_sum": launches["gather_weighted_sum"],
+            "gather_weighted_sum_dx": launches["gather_weighted_sum_dx"]}
+
+
+def _request_ids(rng) -> np.ndarray:
+    return rng.integers(1, NUM_NODES + 1, size=TCP_IDS).astype(np.uint64)
+
+
+def serve_tcp(torch, graph, tmp: str, card: str) -> dict:
+    """Phase 13: bench.py's serving lane on the card — a 1-step
+    checkpoint, one ModelServer (bucket 128, max_wait 2 ms) and 16
+    clients of 50 requests over TCP, after one warm probe through the
+    wire; kernel-1 launches 3 a device batch."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import SageDataFlow
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, node_batches
+    from euler_tpu_torch.models import GraphSAGESupervised
+    from euler_tpu_torch.serving import InferenceRuntime, ModelServer, ServingClient
+
+    ops.set_kernel_mode("auto")
+    dims = [int(x) for x in DIMS.split(",")]
+    flow = SageDataFlow(graph, ["feat"], fanouts=TCP_FANOUTS, label_feature="label",
+                        rng=np.random.default_rng(TCP_FLOW_SEED))
+    model = GraphSAGESupervised(FEAT_DIM, dims, LABEL_DIM)
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, "serve_tcp"), log_steps=10**9)
+    est = Estimator(model, node_batches(graph, flow, TCP_BUCKET,
+                                        rng=np.random.default_rng(TCP_TRAIN_SEED)),
+                    cfg, device="cuda")
+    est.train(total_steps=1, log=False)  # a real (if brief) checkpoint
+    rt = InferenceRuntime(model, flow, cfg, buckets=(TCP_BUCKET,), device="cuda")
+    rt.warmup()
+    server = ModelServer(rt, max_wait_us=TCP_WAIT_US).start()
+    addr = (server.host, server.port)
+    probe = ServingClient(addr)
+    try:
+        # the dispatcher thread's first request, then a warm one
+        first = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            probe.predict(np.arange(1, TCP_IDS + 1, dtype=np.uint64))
+            first.append((time.perf_counter() - t0) * 1e3)
+        before = [rt.device_batches]
+        ops.reset_launch_counts()
+
+        def check(ids, rows):
+            if rows.shape != (len(ids), dims[-1]) or not np.isfinite(rows).all():
+                raise AssertionError(f"bad served rows {rows.shape}")
+
+        clients = [ServingClient(addr) for _ in range(TCP_CLIENTS)]
+        try:
+            rps, lat = _hammer(clients, TCP_REQS, lambda k: np.random.default_rng(100 + k),
+                               _request_ids, check)
+            device = _device_share(torch, lambda: _hammer(
+                clients, PROFILED_REQS, lambda k: np.random.default_rng(150 + k),
+                _request_ids, check)[1])
+        finally:
+            for c in clients:
+                c.close()
+        launches = _served_launches([rt], before, "serve_tcp")
+        stats = probe.stats()
+    finally:
+        probe.close()
+        server.stop()
+    if stats["rejected_overload"] or stats["rejected_deadline"] or stats["errors"]:
+        raise AssertionError(f"serve_tcp rejected or failed requests: {stats}")
+    res = {"phase": "serve_tcp", "card": card, "cores": os.cpu_count(),
+           "gnn_serving_requests_per_sec": rps, **_percentiles(lat),
+           "batches_per_100_requests": 100.0 * stats["batches"] / max(stats["requests"], 1),
+           "requests": len(lat), "clients": TCP_CLIENTS, "ids_per_request": TCP_IDS,
+           "bucket": TCP_BUCKET, "max_wait_us": stats["max_wait_us"],
+           "first_request_ms": first[0], "second_request_ms": first[1],
+           "ewma_batch_ms": stats["ewma_batch_ms"], "device": device, **launches,
+           "rejected_overload": stats["rejected_overload"],
+           "rejected_deadline": stats["rejected_deadline"]}
+    _emit(res)
+    return {"result": res, "cfg": cfg, "model": model}
+
+
+def serve_parity(torch, graph, tcp: dict, card: str) -> dict:
+    """Phase 14: the same graph and checkpoint over FullNeighborDataFlow
+    at bucket 128: 16 concurrent clients' rows bitwise the runtime's
+    direct predict; a typed DeadlineExceededError over the wire; a typed
+    OverloadError from a server with max_queue 1 under 8 clients, none
+    hanging; an unknown op answered by an error frame."""
+    import socket
+    from concurrent.futures import ThreadPoolExecutor
+
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import FullNeighborDataFlow
+    from euler_tpu_torch.distributed import wire
+    from euler_tpu_torch.serving import (
+        DeadlineExceededError,
+        InferenceRuntime,
+        ModelServer,
+        OverloadError,
+        ServingClient,
+    )
+
+    def runtime():
+        flow = FullNeighborDataFlow(graph, ["feat"], num_hops=2, max_degree=PARITY_MAX_DEGREE)
+        rt = InferenceRuntime(tcp["model"], flow, tcp["cfg"], buckets=(TCP_BUCKET,),
+                              device="cuda")
+        rt.warmup()
+        return rt
+
+    ops.set_kernel_mode("auto")
+    rt = runtime()
+    server = ModelServer(rt, max_wait_us=TCP_WAIT_US).start()
+    addr = (server.host, server.port)
+    served = []
+    probe = ServingClient(addr)
+    try:
+        probe.predict(np.arange(1, TCP_IDS + 1, dtype=np.uint64))  # warm the wire
+        before = [rt.device_batches]
+        ops.reset_launch_counts()
+        clients = [ServingClient(addr) for _ in range(TCP_CLIENTS)]
+        try:
+            rps, lat = _hammer(clients, PARITY_REQS, lambda k: np.random.default_rng(200 + k),
+                               _request_ids, lambda ids, rows: served.append((ids, rows)))
+        finally:
+            for c in clients:
+                c.close()
+        launches = _served_launches([rt], before, "serve_parity")
+        stats = probe.stats()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            late = _outcome(pool, probe.predict, np.arange(1, 9, dtype=np.uint64), 0.001,
+                            expected=(DeadlineExceededError,))
+        if not isinstance(late, DeadlineExceededError):
+            raise AssertionError("predict(deadline_ms=0.001) answered instead of raising")
+        with socket.create_connection(addr, timeout=SERVE_WAIT_S) as sock:
+            wire.send_frame(sock, wire.encode("no_such_verb", []))
+            status, vals = wire.decode(wire.read_frame(sock))
+            wire.send_frame(sock, wire.encode("ping", []))
+            pong = wire.decode(wire.read_frame(sock))
+        if status != "err" or "unknown op" not in vals[0] or pong != ("ok", [0]):
+            raise AssertionError(f"unknown op answered {status} {vals}, then {pong}")
+    finally:
+        probe.close()
+        server.stop()
+    if stats["batches"] >= stats["requests"]:
+        raise AssertionError(f"no coalescing: {stats}")
+    with rt.lock:  # the server is down: this thread is the only caller
+        mismatched = sum(not np.array_equal(rows, rt.predict(ids)) for ids, rows in served)
+    if mismatched:
+        raise AssertionError(f"{mismatched} of {len(served)} served requests differ "
+                             f"from the runtime's direct predict")
+
+    # admission control: max_queue 1, one request of a full bucket a batch
+    busy_rt = runtime()
+    busy = ModelServer(busy_rt, max_batch=TCP_BUCKET, max_wait_us=0, max_queue=1).start()
+    busy_addr = (busy.host, busy.port)
+
+    def flood(k):
+        client = ServingClient(busy_addr)
+        rng = np.random.default_rng(300 + k)
+        out = {"ok": 0, "overload": 0}
+        try:
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                for _ in range(OVERLOAD_REQS):
+                    ids = rng.integers(1, NUM_NODES + 1, size=TCP_BUCKET).astype(np.uint64)
+                    got = _outcome(pool, client.predict, ids, expected=(OverloadError,))
+                    out["overload" if isinstance(got, OverloadError) else "ok"] += 1
+        finally:
+            client.close()
+        return out
+
+    try:
+        with ThreadPoolExecutor(max_workers=OVERLOAD_CLIENTS) as pool:
+            outs = [f.result(timeout=SERVE_WAIT_S)
+                    for f in [pool.submit(flood, k) for k in range(OVERLOAD_CLIENTS)]]
+        counter = ServingClient(busy_addr)
+        busy_stats = counter.stats()
+        counter.close()
+    finally:
+        busy.stop()
+    overloads = sum(o["overload"] for o in outs)
+    if not overloads or not sum(o["ok"] for o in outs):
+        raise AssertionError(f"max_queue 1 under {OVERLOAD_CLIENTS} clients: {outs}")
+    if busy_stats["rejected_overload"] != overloads:
+        raise AssertionError(f"{overloads} OverloadErrors, server counted {busy_stats}")
+    res = {"phase": "serve_parity", "card": card, "flow": "FullNeighborDataFlow",
+           "max_degree": PARITY_MAX_DEGREE, "bucket": TCP_BUCKET,
+           "served_requests": len(served), "bitwise": True,
+           "batches_per_100_requests": 100.0 * stats["batches"] / max(stats["requests"], 1),
+           "requests_per_sec": rps, **_percentiles(lat), **launches,
+           "deadline": type(late).__name__, "unknown_op": vals[0],
+           "overload": {"clients": OVERLOAD_CLIENTS, "requests": OVERLOAD_CLIENTS * OVERLOAD_REQS,
+                        "rejected": overloads,
+                        "served": sum(o["ok"] for o in outs)}}
+    _emit(res)
+    return res
+
+
+def _hedge_report(router, lat) -> dict:
+    """A hedged run's p50/p99 and hedge counts, held to its budget: every
+    hedge spends a token of a bucket of `cap` that each successful
+    attempt refills by `refill`, so hedges <= cap + refill x attempts."""
+    st = router.stats()
+    budget = router._hedge_budget
+    bound = budget.cap + budget.refill * st["rpc_count"]
+    if st["hedges"] > bound:
+        raise AssertionError(f"{st['hedges']} hedges past the budget's {bound}: {st}")
+    return {**_percentiles(lat), "workers": len(router._ex._threads),
+            "requests": st["requests"], "attempts": st["rpc_count"],
+            "hedges_issued": st["hedges"], "hedges_won": st["hedges_won"],
+            "hedges_denied": st["hedges_denied"], "hedge_budget_cap": budget.cap,
+            "hedge_budget_bound": bound, "hedged_within_budget": True}
+
+
+def serve_fleet(torch, tmp: str, card: str) -> dict:
+    """Phase 15: bench.py's fleet lane on one card — 4 ModelServers over
+    one graph, routed rows bitwise Estimator.infer under both policies,
+    1 against 4 replicas (fleet_scaling_4x), the card's share of 4
+    replicas' time, a seeded 0.25 s straggler on replica 3
+    unhedged and hedged at 62.5 ms within the hedge budget (with the
+    router's default attempt pool, then a wide one), and a reload of the
+    same checkpoint with canary parity."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import FullNeighborDataFlow
+    from euler_tpu_torch.datasets import random_graph
+    from euler_tpu_torch.distributed import chaos
+    from euler_tpu_torch.distributed.chaos import Fault, FaultPlan
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig, id_batches, node_batches
+    from euler_tpu_torch.models import GraphSAGESupervised
+    from euler_tpu_torch.serving import (
+        InferenceRuntime,
+        ModelServer,
+        ServingClient,
+        ServingRouter,
+    )
+
+    ops.set_kernel_mode("auto")
+    graph = random_graph(num_nodes=FLEET_NODES, out_degree=FLEET_DEGREE,
+                         feat_dim=FLEET_FEAT, seed=FLEET_SEED)
+
+    def mkflow():
+        # deterministic per root: the precondition of bit-parity
+        return FullNeighborDataFlow(graph, ["feat"], num_hops=2,
+                                    max_degree=FLEET_MAX_DEGREE, label_feature="label")
+
+    flow = mkflow()
+    model = GraphSAGESupervised(FLEET_FEAT, FLEET_DIMS, LABEL_DIM)
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, "fleet"), log_steps=10**9)
+    est = Estimator(model, node_batches(graph, flow, FLEET_BUCKET,
+                                        rng=np.random.default_rng(FLEET_TRAIN_SEED)),
+                    cfg, device="cuda")
+    est.train(total_steps=1, log=False)
+    all_ids = np.arange(1, FLEET_NODES + 1, dtype=np.uint64)
+    _, direct = est.infer(*id_batches(flow, all_ids, FLEET_BUCKET))
+
+    def check(ids, rows):
+        if not np.array_equal(rows, direct[ids.astype(np.int64) - 1]):
+            raise AssertionError("a routed row differs from Estimator.infer")
+
+    runtimes, servers = [], []
+    try:
+        for i in range(FLEET_REPLICAS):
+            rt = InferenceRuntime(model, mkflow(), cfg, buckets=(FLEET_BUCKET,), device="cuda")
+            rt.warmup()
+            runtimes.append(rt)
+            servers.append(ModelServer(rt, max_wait_us=TCP_WAIT_US, shard=i).start())
+        addrs = [(s.host, s.port) for s in servers]
+        first = []  # each dispatcher thread's first request
+        for addr in addrs:
+            w = ServingClient(addr)
+            t0 = time.perf_counter()
+            w.predict(all_ids[:FLEET_IDS])
+            first.append((time.perf_counter() - t0) * 1e3)
+            w.close()
+        probe_ids = all_ids[:64]
+        parity = {}
+        for policy in ("consistent_hash", "least_loaded"):
+            client = ServingClient(addrs, routing=policy)
+            try:
+                parity[policy] = bool(np.array_equal(client.predict(probe_ids),
+                                                     direct[:64]))
+            finally:
+                client.close()
+        if not all(parity.values()):
+            raise AssertionError(f"routed rows differ from Estimator.infer: {parity}")
+
+        def hammer(router, n_reqs, seed0):
+            client = ServingClient(addrs, routing=router)
+            try:
+                return _hammer(
+                    [client] * FLEET_CLIENTS, n_reqs,
+                    lambda k: np.random.default_rng(np.random.SeedSequence([17, seed0, k])),
+                    lambda rng: rng.integers(1, FLEET_NODES + 1,
+                                             size=FLEET_IDS).astype(np.uint64),
+                    check)
+            finally:
+                client.close()
+
+        before = [rt.device_batches for rt in runtimes]
+        ops.reset_launch_counts()
+        # 1 replica vs 4, hedging off: the ratio measures routing spread
+        solo_rps, solo_lat = hammer(ServingRouter([addrs[0]], hedge=False), FLEET_REQS, 1)
+        fleet_rps, fleet_lat = hammer(
+            ServingRouter(addrs, policy="consistent_hash", hedge=False), FLEET_REQS, 2)
+        # the card's share of the 4 replicas' time
+        fleet_device = _device_share(torch, lambda: hammer(
+            ServingRouter(addrs, policy="consistent_hash", hedge=False), PROFILED_REQS, 5)[1])
+        # one seeded straggler: a chaos server delay on replica 3's predicts
+        chaos.install(FaultPlan([Fault(site="server", kind="delay", op="predict",
+                                       shard=FLEET_REPLICAS - 1,
+                                       delay_s=STRAGGLER_S)], seed=23))
+        try:
+            _, unhedged_lat = hammer(
+                ServingRouter(addrs, policy="consistent_hash", hedge=False), STRAGGLER_REQS, 3)
+            # hedged as bench.py runs it (the router's default pool of 16
+            # attempt threads), then with a pool that holds every stalled
+            # attempt: a hedge's losing attempt keeps its thread for the stall
+            hedged = {}
+            for pool, workers in (("default", None), ("wide", ROUTER_WIDE_WORKERS)):
+                router = ServingRouter(addrs, policy="consistent_hash", hedge=True,
+                                       hedge_ms=HEDGE_MS, workers=workers)
+                _, lat = hammer(router, STRAGGLER_REQS, 4)
+                _quiesce(servers)
+                hedged[pool] = _hedge_report(router, lat)
+        finally:
+            chaos.uninstall()
+        launches = _served_launches(runtimes, before, "serve_fleet")
+        # zero-downtime reload of the same checkpoint on one replica
+        reload_client = ServingClient(addrs[0])
+        reports = reload_client.reload(canary_ids=probe_ids[:FLEET_BUCKET])
+        reload_client.close()
+        if not all(r.get("canary_parity") is True for r in reports.values()):
+            raise AssertionError(f"reload lost canary parity: {reports}")
+    finally:
+        for s in servers:
+            s.stop()
+    unhedged_p99 = float(np.percentile(unhedged_lat, 99))
+    res = {"phase": "serve_fleet", "card": card, "cores": os.cpu_count(),
+           "replicas": FLEET_REPLICAS, "routing": "consistent_hash",
+           "gnn_fleet_requests_per_sec": fleet_rps, "solo_req_per_sec": solo_rps,
+           "fleet_scaling_4x": fleet_rps / solo_rps,
+           "fleet_device": fleet_device,
+           "fleet_p50_ms": float(np.percentile(fleet_lat, 50)),
+           "fleet_p99_ms": float(np.percentile(fleet_lat, 99)),
+           "solo_p99_ms": float(np.percentile(solo_lat, 99)),
+           "first_request_ms": first,
+           "straggler_delay_ms": STRAGGLER_S * 1e3, "hedge_ms": HEDGE_MS,
+           "unhedged_p99_ms": unhedged_p99,
+           "hedged_p99_ms": hedged["default"]["p99_ms"],
+           "hedge_p99_cut": unhedged_p99 / hedged["default"]["p99_ms"],
+           "hedged": hedged, "reload_parity": True,
+           "fleet_bit_parity": parity, "rows_checked": "every routed row vs Estimator.infer",
+           **launches, "clients": FLEET_CLIENTS, "ids_per_request": FLEET_IDS,
+           "bucket": FLEET_BUCKET}
+    _emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -3071,6 +3555,15 @@ def main(argv=None) -> int:
         host_head = host_headline(torch, tmp, args.seed, card)
         rows_lane(torch, host_head["graph"], host_head["cache"], tmp, args.seed)
         del host_head["graph"], host_head["cache"]
+        torch.cuda.empty_cache()
+
+        # 13-15. the serving front end over TCP: bench.py's serving lane on
+        # phase 4's graph, its parity and admission checks, the fleet lane
+        tcp = serve_tcp(torch, served["graph"], tmp, card)
+        tcp_parity = serve_parity(torch, served.pop("graph"), tcp, card)
+        fleet = serve_fleet(torch, tmp, card)
+        served_paths = {"serve_tcp": tcp["result"], "serve_parity": tcp_parity,
+                        "serve_fleet": fleet}
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -3109,14 +3602,16 @@ def main(argv=None) -> int:
         "infer": parity["launches"]["infer"], "predict": parity["launches"]["predict"],
         "headline": head["launches"]["gather_weighted_sum"],
         "train_host_native": host_native["launches"]["gather_weighted_sum"],
-        "host_headline": host_head["launches"]["gather_weighted_sum"]}
+        "host_headline": host_head["launches"]["gather_weighted_sum"],
+        **{path: r["gather_weighted_sum"] for path, r in served_paths.items()}}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
                         "train_cli": cli["launches"]["gather_weighted_sum_dx"],
                         "headline": head["launches"]["gather_weighted_sum_dx"],
                         "train_host_native": host_native["launches"]["gather_weighted_sum_dx"],
-                        "host_headline": host_head["launches"]["gather_weighted_sum_dx"]}
+                        "host_headline": host_head["launches"]["gather_weighted_sum_dx"],
+                        **{path: r["gather_weighted_sum_dx"] for path, r in served_paths.items()}}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{

@@ -76,8 +76,9 @@ class StepGraph:
         self.graph = torch.cuda.CUDAGraph()
         self.replays = 0
         # thread_local: a Prefetcher's workers may stage batches meanwhile
-        with _build.uncounted_launches() as self.launches:
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+        capture = torch.cuda.graph(self.graph, capture_error_mode="thread_local")
+        with _build.uncounted_launches(capture.capture_stream) as self.launches:
+            with capture:
                 self.loss, self.metric = step(with_leaves(inputs, iter(self.static)))
 
     def replay(self, inputs):

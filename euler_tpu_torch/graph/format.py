@@ -27,6 +27,15 @@ _DTYPE_CODES = {
     np.dtype(np.float64): 6,
     np.dtype(np.uint32): 7,
 }
+try:  # bfloat16 rides the wire for weighted lean minibatches; the C++
+    # engine never stores it, so the code is wire-only
+    import ml_dtypes
+
+    _DTYPE_CODES[np.dtype(ml_dtypes.bfloat16)] = 8
+except ImportError:  # the port itself never builds a numpy bf16 array
+    pass
+# the inverse table the wire decoder reads
+_CODE_DTYPES = {v: k for k, v in _DTYPE_CODES.items()}
 
 
 def _align(n: int) -> int:

@@ -70,42 +70,85 @@ NVCC_FLAGS = (
 )
 
 LAUNCHES: dict[str, int] = {name: 0 for name in KERNELS}
+# every read and write of LAUNCHES holds this lock: wrappers launch from
+# several threads at once (a fleet's dispatchers, a Prefetcher's workers)
+_LAUNCHES_LOCK = threading.Lock()
+# per thread: the collectors of the captures open on that thread
+_CAPTURES = threading.local()
+# capture stream handle -> its capture's collector: the autograd engine
+# runs a captured backward's kernels on a thread of its own, on the
+# stream of their forward
+_STREAM_CAPTURES: dict[int, dict] = {}
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LIBS_LOCK = threading.Lock()
 
 
+def _collector() -> dict | None:
+    """The innermost capture open on this thread; else, on a thread whose
+    current stream is being captured, that stream's capture; else None."""
+    stack = getattr(_CAPTURES, "stack", None)
+    if stack:
+        return stack[-1]
+    if _STREAM_CAPTURES:
+        import torch
+
+        if torch.cuda.is_current_stream_capturing():
+            return _STREAM_CAPTURES.get(torch.cuda.current_stream().cuda_stream)
+    return None
+
+
 def count_launch(name: str) -> None:
-    LAUNCHES[name] += 1
+    add_launches({name: 1})
 
 
 def add_launches(counts: dict[str, int]) -> None:
-    """Count the launches of one replay of a captured CUDA graph."""
-    for name, n in counts.items():
-        LAUNCHES[name] += n
+    """Count launches: one replay of a captured CUDA graph, or (through
+    `count_launch`) one wrapper's launch. Inside a capture (`_collector`)
+    they go to the capture's collector instead."""
+    into = _collector()
+    with _LAUNCHES_LOCK:
+        target = LAUNCHES if into is None else into
+        for name, n in counts.items():
+            target[name] = target.get(name, 0) + n
 
 
 @contextlib.contextmanager
-def uncounted_launches():
-    """Collects the wrappers' counts inside the block into the yielded
-    dict and leaves `LAUNCHES` as it was (a graph capture: the calls
-    record launches, and launch nothing)."""
-    before = dict(LAUNCHES)
-    counted: dict[str, int] = {}
+def uncounted_launches(stream=None):
+    """Collects into the yielded dict the counts added inside the block by
+    this thread and, when the capture's CUDA `stream` is given, by any
+    thread launching on that stream while it is captured (autograd's
+    backward thread); `LAUNCHES` is left to other work (a graph capture:
+    the calls record launches, and launch nothing). Launches counted
+    meanwhile by other threads stay in `LAUNCHES`, and none of them enter
+    the dict."""
+    counted: dict[str, int] = {name: 0 for name in LAUNCHES}
+    stack = getattr(_CAPTURES, "stack", None)
+    if stack is None:
+        stack = _CAPTURES.stack = []
+    key = None if stream is None else stream.cuda_stream
+    stack.append(counted)
+    if key is not None:
+        with _LAUNCHES_LOCK:
+            _STREAM_CAPTURES[key] = counted
     try:
         yield counted
     finally:
-        counted.update({name: LAUNCHES[name] - before[name] for name in LAUNCHES})
-        LAUNCHES.update(before)
+        stack.pop()
+        if key is not None:
+            with _LAUNCHES_LOCK:
+                del _STREAM_CAPTURES[key]
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _LAUNCHES_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _LAUNCHES_LOCK:
+        return dict(LAUNCHES)
 
 
 def nvcc_path() -> str:

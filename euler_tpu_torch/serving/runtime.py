@@ -50,8 +50,9 @@ class InferenceRuntime:
     `feature_cache` and `mesh` are not ported yet.
 
     Not thread-safe by design: `predict` is called from ONE dispatcher
-    thread; direct callers must serialize. `swap` is safe to call from
-    any other thread while the dispatcher runs.
+    thread (the MicroBatcher's); direct callers must serialize (`lock`).
+    `swap` is safe to call from any other thread while the dispatcher
+    runs.
     """
 
     def __init__(
@@ -70,7 +71,6 @@ class InferenceRuntime:
             raise NotImplementedError(
                 "InferenceRuntime(feature_cache=, mesh=) is not ported yet"
             )
-        model_dir = cfg if cfg is None or isinstance(cfg, str) else cfg.model_dir
         self.model = model
         self.flow = flow
         self.device = resolve_device(device)
@@ -81,10 +81,14 @@ class InferenceRuntime:
         # publishes; the predict path never takes it
         self._swap_lock = threading.Lock()
         with self._swap_lock:
-            self._model_dir = model_dir
-            self._engine = self._build_engine(model_dir, params)
+            self._model_dir = _model_dir(cfg)
+            self._engine = self._build_engine(self._model_dir, params)
+        # telemetry for the micro-batching proof: executed device batches
+        # must undercut request count under concurrency
         self.device_batches = 0
+        self._batches_lock = threading.Lock()
         self.reloads = 0
+        self.lock = threading.Lock()  # guards direct multi-caller use
 
     def _build_engine(self, model_dir, params) -> _Engine:
         step = None
@@ -122,13 +126,17 @@ class InferenceRuntime:
         their store references at publish and need no poll: always False."""
         return False
 
-    def swap(self, model_dir: str | None = None, params=None, warm: bool = True) -> dict:
-        """Zero-downtime checkpoint hot reload from `model_dir` (default:
-        re-read the current one, picking up a newer complete checkpoint)
-        or from a `params` state_dict. The new engine is built and warmed
-        before the one-assignment publish."""
+    def swap(self, cfg=None, params=None, warm: bool = True) -> dict:
+        """Zero-downtime checkpoint hot reload from `cfg` (an
+        EstimatorConfig or a model_dir string; default: re-read the
+        current model_dir, picking up a newer complete checkpoint) or
+        from a `params` state_dict. Only complete checkpoints are
+        candidates (a torn `ckpt_<step>/` is never loaded). The new
+        engine is built, its weights copied and every bucket warmed
+        before the one-assignment publish; requests in flight finish on
+        the engine they started on."""
         with self._swap_lock:
-            new_dir = model_dir if model_dir is not None else self._model_dir
+            new_dir = _model_dir(cfg) if cfg is not None else self._model_dir
             eng = self._build_engine(new_dir, params)
             warmed = []
             if warm:
@@ -168,5 +176,11 @@ class InferenceRuntime:
         batch = to_device(batch, self.device)
         with torch.inference_mode():
             emb = eng.model.embed(batch)[:n].float().cpu().numpy()
-        self.device_batches += 1
+        with self._batches_lock:
+            self.device_batches += 1
         return emb
+
+
+def _model_dir(cfg) -> str | None:
+    """The model_dir of an EstimatorConfig, a model_dir string or None."""
+    return cfg if cfg is None or isinstance(cfg, str) else cfg.model_dir

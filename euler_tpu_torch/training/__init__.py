@@ -2,6 +2,7 @@ from euler_tpu_torch.training.checkpoint import (  # noqa: F401
     CheckpointStore,
     is_complete,
     step_of,
+    watch_signature,
 )
 from euler_tpu_torch.training.session import (  # noqa: F401
     AnomalyError,

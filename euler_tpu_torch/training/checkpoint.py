@@ -1,5 +1,6 @@
 """Atomic retained checkpoints
-(counterpart: euler_tpu/training/checkpoint.py:53-256).
+(counterpart: euler_tpu/training/checkpoint.py:53-256, and
+`watch_signature` at :266).
 
 A checkpoint is a step-numbered directory under model_dir,
 `ckpt_<step:012d>/`, holding a tensor dir of the params and optimizer
@@ -189,3 +190,23 @@ class CheckpointStore:
                 shutil.rmtree(path, ignore_errors=True)
                 removed.append(path)
         return removed
+
+
+def watch_signature(model_dir: str) -> tuple:
+    """Change-detection token for the serving hot-reload watcher.
+
+    Moves ONLY when a new COMPLETE checkpoint commits: (newest complete
+    step, its COMMIT mtime). A half-written `ckpt_*.tmp-*` dir — or a
+    torn dir left by a killed trainer — never changes the signature, so
+    a watcher poll landing mid-write cannot trigger a swap onto a torn
+    checkpoint. Without a complete checkpoint it is ("none", 0, 0.0):
+    the JAX package's legacy single-path Orbax dirs, which it also
+    watches, are not read by the port."""
+    store = CheckpointStore(os.path.abspath(model_dir))
+    step = store.latest_step()
+    if step is None:
+        return ("none", 0, 0.0)
+    try:
+        return ("retained", step, os.path.getmtime(os.path.join(store._path(step), MARKER)))
+    except OSError:
+        return ("retained", step, 0.0)

@@ -42,6 +42,13 @@ PORTED = [
     "euler_tpu_torch.tools.train", "euler_tpu_torch.estimator.prefetch",
     "euler_tpu_torch.datasets.quality", "euler_tpu_torch.dataflow.sage",
     "euler_tpu_torch.graph.native",
+    "euler_tpu_torch.distributed.errors", "euler_tpu_torch.distributed.wire",
+    "euler_tpu_torch.distributed.retry", "euler_tpu_torch.distributed.chaos",
+    "euler_tpu_torch.distributed.registry", "euler_tpu_torch.distributed.rendezvous",
+    "euler_tpu_torch.distributed.service", "euler_tpu_torch.distributed.client",
+    "euler_tpu_torch.serving.batcher", "euler_tpu_torch.serving.server",
+    "euler_tpu_torch.serving.router", "euler_tpu_torch.serving.client",
+    "euler_tpu_torch.tools.serve",
 ]
 
 

@@ -5,6 +5,7 @@ trip through static buffers (the CUDA graph itself runs only on a card;
 """
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
@@ -31,6 +32,41 @@ def test_capture_counts_no_launch_and_replays_add_the_captured_ones():
     after = ops.launch_counts()
     assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
         "gather_weighted_sum": 15, "gather_weighted_sum_dx": 5}
+
+
+def test_capture_takes_launches_recorded_on_its_stream_by_another_thread(monkeypatch):
+    """A captured backward runs on autograd's own thread, on the capture's
+    stream: its launches go to the capture, not to the counts; a thread
+    launching on another stream meanwhile is counted as usual. (The CPU
+    build has no streams: the two torch.cuda calls the accounting reads
+    are stood in for.)"""
+
+    class Stream:
+        def __init__(self, handle):
+            self.cuda_stream = handle
+
+    local = threading.local()
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing",
+                        lambda: getattr(local, "stream", 0) == 7)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: Stream(getattr(local, "stream", 0)))
+
+    def launch(stream, n):
+        local.stream = stream
+        for _ in range(n):
+            _build.count_launch("gather_weighted_sum_dx")
+
+    before = ops.launch_counts()
+    with _build.uncounted_launches(Stream(7)) as captured:
+        for stream, n in ((7, 3), (0, 5)):
+            t = threading.Thread(target=launch, args=(stream, n))
+            t.start()
+            t.join(timeout=10)
+            assert not t.is_alive()
+    after = ops.launch_counts()
+    assert captured["gather_weighted_sum_dx"] == 3
+    assert after["gather_weighted_sum_dx"] - before["gather_weighted_sum_dx"] == 5
+    assert not _build._STREAM_CAPTURES  # the capture's stream is released
 
 
 def test_step_inputs_round_trip_through_static_buffers():

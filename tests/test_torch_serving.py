@@ -1,35 +1,45 @@
 """euler_tpu_torch InferenceRuntime against the JAX package's: the port
 restores a checkpoint written by the JAX CheckpointStore, the JAX runtime
-serves the same flax params, and both answer the same requests."""
+serves the same flax params, and both answer the same requests — in
+process, and over TCP through each package's ModelServer."""
 
 import os
+import threading
+import time
 
 import jax
 import numpy as np
 import pytest
 import torch
 
+from euler_tpu.dataflow import FullNeighborDataFlow as JaxFullNeighborDataFlow
 from euler_tpu.dataflow import SageDataFlow as JaxSageDataFlow
 from euler_tpu.estimator import EstimatorConfig
 from euler_tpu.graph import Graph as JaxGraph
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGE
+from euler_tpu.serving import ModelServer as JaxModelServer
+from euler_tpu.serving import ServingClient as JaxServingClient
 from euler_tpu.serving.runtime import InferenceRuntime as JaxInferenceRuntime
 from euler_tpu.training.checkpoint import CheckpointStore as JaxCheckpointStore
 from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.distributed.registry import Registry
 from euler_tpu_torch.graph import write_arrays
 from euler_tpu_torch.params import from_checkpoint_leaves, from_flax
-from euler_tpu_torch.serving import InferenceRuntime
-from euler_tpu_torch.tools.serve import build_parser, build_runtime
+from euler_tpu_torch.serving import InferenceRuntime, ModelServer, ServingClient
+from euler_tpu_torch.tools.serve import build_parser, build_runtime, serve_fleet
 from euler_tpu_torch.training import CheckpointStore, is_complete, step_of
 
 torch.set_num_threads(1)
 
 FEAT, DIMS, FANOUTS, BUCKETS, SEED = 12, [16, 16], [3, 2], (8, 32), 5
 TOL = 1e-4
+# the TCP tests: the deterministic flow, one bucket, bounded waits
+MAX_DEGREE, TCP_BUCKET, JOIN_S, DEADLINE_MS = 5, 16, 30.0, 20_000.0
 
 
-def _setup(tmp_path):
-    """Graph dir + a JAX-written checkpoint of flax-init params."""
+def _setup(tmp_path, extra=()):
+    """Graph dir + a JAX-written checkpoint of flax-init params; `extra`
+    flags go to the port's serve parser."""
     data, model_dir = str(tmp_path / "data"), str(tmp_path / "model")
     g = random_graph(num_nodes=300, out_degree=5, feat_dim=FEAT, seed=2)
     for p, shard in enumerate(g.shards):
@@ -50,6 +60,7 @@ def _setup(tmp_path):
         "--dims", ",".join(map(str, DIMS)), "--label-dim", "2",
         "--fanouts", ",".join(map(str, FANOUTS)),
         "--buckets", ",".join(map(str, BUCKETS)), "--seed", str(SEED),
+        "--device", "cpu", *extra,
     ])
     return jgraph, model, params, leaves, args
 
@@ -133,3 +144,102 @@ def test_runtime_swap_buckets_and_errors(tmp_path):
         InferenceRuntime(rt.model, rt.flow, buckets=(), params=rt.params, device="cpu")
     with pytest.raises(FileNotFoundError):
         InferenceRuntime(rt.model, rt.flow, str(tmp_path / "none"), device="cpu")
+
+
+def _tcp_flags():
+    return ("--full-neighbor", "--max-degree", str(MAX_DEGREE),
+            "--buckets", str(TCP_BUCKET))
+
+
+def _hammer(clients: dict, ids_sets) -> dict:
+    """Every (name, client) sends every id set from its own thread; returns
+    {name: [rows per id set]}."""
+    out = {name: [None] * len(ids_sets) for name in clients}
+
+    def run(name, k):
+        out[name][k] = clients[name][k].predict(ids_sets[k])
+
+    threads = [threading.Thread(target=run, args=(name, k))
+               for name in clients for k in range(len(ids_sets))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=JOIN_S)
+    assert not any(t.is_alive() for t in threads), "a client thread hung"
+    return out
+
+
+def test_served_over_tcp_matches_jax_server(tmp_path):
+    """The slice end to end: the JAX ModelServer over the JAX runtime and
+    the port's over the port's (CPU, the same flax params), both over
+    FullNeighborDataFlow with one bucket. Concurrent clients' rows agree
+    within TOL, and each server's rows are its own runtime's direct
+    predict, bitwise (a row does not depend on its batch)."""
+    jgraph, model, params, _, args = _setup(tmp_path, _tcp_flags())
+    jflow = JaxFullNeighborDataFlow(jgraph, ["feat"], num_hops=len(DIMS),
+                                    max_degree=MAX_DEGREE)
+    jrt = JaxInferenceRuntime(model, jflow, EstimatorConfig(model_dir=args.model_dir),
+                              buckets=(TCP_BUCKET,), params=params)
+    prt = build_runtime(args, params=from_flax(params))
+    jrt.warmup()
+    prt.warmup()
+    jserver = JaxModelServer(jrt, max_wait_us=50_000).start()
+    pserver = ModelServer(prt, max_wait_us=50_000).start()
+    req = np.random.default_rng(2)
+    ids_sets = [req.integers(1, 301, size=n).astype(np.uint64)
+                for n in (1, 3, 5, 6, 8, 2, 7, 4)]
+    clients = {
+        "jax": [JaxServingClient((jserver.host, jserver.port), deadline_ms=DEADLINE_MS)
+                for _ in ids_sets],
+        "port": [ServingClient((pserver.host, pserver.port), deadline_ms=DEADLINE_MS)
+                 for _ in ids_sets],
+    }
+    try:
+        served = _hammer(clients, ids_sets)
+        stats = {"jax": clients["jax"][0].stats(), "port": clients["port"][0].stats()}
+    finally:
+        for c in clients["jax"] + clients["port"]:
+            c.close()
+        jserver.stop()
+        pserver.stop()
+    for name in ("jax", "port"):
+        assert stats[name]["requests"] == len(ids_sets)
+        assert stats[name]["batches"] < len(ids_sets), stats[name]
+    for ids, got, want in zip(ids_sets, served["port"], served["jax"]):
+        assert got.shape == want.shape == (len(ids), DIMS[-1]) and got.dtype == np.float32
+        np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+    for rt, name in ((jrt, "jax"), (prt, "port")):
+        for ids, rows in zip(ids_sets, served[name]):
+            np.testing.assert_array_equal(rows, np.asarray(rt.predict(ids)))
+
+
+def test_serve_fleet_registers_routes_and_reloads(tmp_path):
+    """`serve_fleet` as the CLI boots it: two replicas over one graph,
+    heartbeating into a shared-dir registry; routed rows equal a replica's
+    direct predict bitwise, and a rolling reload keeps canary parity."""
+    reg = str(tmp_path / "reg")
+    *_, args = _setup(tmp_path, _tcp_flags() + (
+        "--replicas", "2", "--replica", "3", "--registry", reg))
+    servers = serve_fleet(args)
+    client = None
+    try:
+        addrs = [(s.host, s.port) for s in servers]
+        deadline = time.monotonic() + JOIN_S
+        while time.monotonic() < deadline:
+            table = Registry(reg).lookup(5)
+            if table[3] and table[4]:
+                break
+            time.sleep(0.02)
+        assert table == {0: [], 1: [], 2: [], 3: [addrs[0]], 4: [addrs[1]]}
+        assert [s.runtime._engine.step for s in servers] == [7, 7]
+        client = ServingClient(addrs, deadline_ms=DEADLINE_MS, routing="consistent_hash")
+        ids = np.arange(1, 41, dtype=np.uint64)
+        np.testing.assert_array_equal(client.predict(ids), servers[0].runtime.predict(ids))
+        reports = client.reload(canary_ids=ids[:TCP_BUCKET])
+        assert [r["canary_parity"] for r in reports.values()] == [True, True]
+        assert [r["step"] for r in reports.values()] == [7, 7]
+    finally:
+        if client is not None:
+            client.close()
+        for s in servers:
+            s.stop()

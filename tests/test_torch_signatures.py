@@ -1,5 +1,6 @@
-"""euler_tpu_torch constructors (and `Graph.load`) take the JAX package's parameters in its
-order and under its names, so a caller's positional arguments mean the
+"""euler_tpu_torch constructors (and `Graph.load` and
+`InferenceRuntime.swap`) take the JAX package's parameters in its order
+and under its names, so a caller's positional arguments mean the
 same thing in both packages. Port-only parameters (`device`) are
 keyword-only. The one deliberate difference: the torch modules take their
 input width `in_dim` first, where flax infers it at init.
@@ -22,6 +23,11 @@ from euler_tpu.layers import SAGEConv as JaxSAGEConv
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGESupervised
 from euler_tpu.nn import GNNNet as JaxGNNNet
 from euler_tpu.serving import InferenceRuntime as JaxInferenceRuntime
+from euler_tpu.serving import MicroBatcher as JaxMicroBatcher
+from euler_tpu.serving import ModelServer as JaxModelServer
+from euler_tpu.serving import ServingClient as JaxServingClient
+from euler_tpu.serving import ServingRouter as JaxServingRouter
+from euler_tpu.serving import TenantQuota as JaxTenantQuota
 from euler_tpu_torch.dataflow import DeviceSageFlow, FullNeighborDataFlow, SageDataFlow
 from euler_tpu_torch.dataflow.base import DataFlow
 from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator
@@ -30,7 +36,14 @@ from euler_tpu_torch.graph.native import NativeGraphStore
 from euler_tpu_torch.layers import SAGEConv
 from euler_tpu_torch.models import GraphSAGESupervised
 from euler_tpu_torch.nn import GNNNet
-from euler_tpu_torch.serving import InferenceRuntime
+from euler_tpu_torch.serving import (
+    InferenceRuntime,
+    MicroBatcher,
+    ModelServer,
+    ServingClient,
+    ServingRouter,
+    TenantQuota,
+)
 
 torch.set_num_threads(1)
 
@@ -39,6 +52,12 @@ PAIRS = [
     (SageDataFlow, JaxSageDataFlow),
     (FullNeighborDataFlow, JaxFullNeighborDataFlow),
     (InferenceRuntime, JaxInferenceRuntime),
+    (InferenceRuntime.swap, JaxInferenceRuntime.swap),
+    (ModelServer, JaxModelServer),
+    (MicroBatcher, JaxMicroBatcher),
+    (TenantQuota, JaxTenantQuota),
+    (ServingClient, JaxServingClient),
+    (ServingRouter, JaxServingRouter),
     (Estimator, JaxEstimator),
     (DeviceFeatureCache, JaxDeviceFeatureCache),
     (DeviceSageFlow, JaxDeviceSageFlow),
