@@ -95,6 +95,33 @@ Phases, each of which raises (exit code != 0) when it fails:
      torch.matmul and its bound, and the select kernel against its plain
      version, stage 2, `canonical_topk`, `torch.topk` over the masked
      scores and its bound;
+     6b. `retrieve_lane`, bench.py's retrieval lane as written
+     (bench.py:1151-1223) at its accelerator sizes — a 20 000 x 64 cosine
+     corpus from default_rng(17) with a `cat` column, two RetrievalServers
+     (2 shards x 1 replica), one RetrievalClient, 300 queries of 4 at k
+     32, unfiltered then filtered by cat in {0, 2}: queries/s, p50, p99,
+     filtered over unfiltered, merge overhead, retrieval_bit_parity
+     (every answer bitwise `numpy_topk_oracle`), kernels 5 and 5b exactly
+     2 launches a query, one shard's engine in process, the card's share
+     of a profiled window;
+     6c. `retrieve_fleet`, phase 6's cell served over TCP — its checkpoint
+     and a second one of fresh vectors, 2 shards x 2 replicas of
+     RetrievalServer on the card loading the corpus through
+     `EmbeddingCorpus.from_checkpoint` (one prebuilt corpus a step), a
+     RetrievalClient hedging at 50 ms, 8 client threads sending bucket-4
+     and bucket-16 queries, unfiltered and filtered: every answer bitwise
+     the answer of one in-process `_CorpusEngine` over its version; a
+     steady window and a profiled one (queries/s, p50, p99, hedges issued
+     and denied, the card's busy and idle share), a rolling
+     `reload_all(canary_q=...)` to the second checkpoint under load
+     (every replica swapped with canary parity false, every answer of one
+     version, version rounds, each reload's build_s, peak device memory),
+     one replica stopped mid-window (failover, answers bitwise) and a
+     tenant past its TenantQuota (a typed OverloadError); kernels 5 and 5b
+     exactly one launch each a shard search in every window;
+     6d. `retrieve_selftest`, `python -m euler_tpu_torch.tools.retrieve
+     --selftest` in a process of its own on the card: exit 0 and
+     "selftest": "ok";
   7. train the north-star quality config through the host-batch lane —
      products_like_graph() (50 000 nodes, 47 Zipf classes, 100-wide
      features, average degree 16, seed 0), SageDataFlow(fanouts 10,5) and
@@ -279,6 +306,18 @@ RETR_FILTER = [[["cat", "in", [0, 2]]]]
 RETR_HOT, RETR_COPIES = 8, 80
 RETR_ORACLE_BUCKET, RETR_ORACLE_EXTRA = 16, (16, 31, 47, 63)
 RETR_TIMED, RETR_PROFILED, RETR_WARM_ROWS = 20, 10, 65_536
+# the retrieval front end: bench.py's retrieval lane at its accelerator
+# sizes (bench.py:1151-1223: 20 000 x 64 cosine from default_rng(17), 2
+# shards x 1 replica, 300 queries of 4, k 32, filter cat in {0, 2}); then
+# the retrieval cell above served over TCP by 2 shards x 2 replicas through
+# a hedged client, with a second checkpoint of fresh vectors to roll to
+LANE_ROWS, LANE_DIM, LANE_QUERIES, LANE_BATCH, LANE_K, LANE_SEED = 20_000, 64, 300, 4, 32, 17
+LANE_PROFILED = 50  # the lane's queries in a profiled window
+RF_SHARDS, RF_REPLICAS, RF_BUCKETS, RF_SETS = 2, 2, (4, 16), 8
+RF_CLIENTS, RF_REQS, RF_PROFILED, RF_HEDGE_MS, RF_SEED = 8, 40, 10, 50.0, 29
+RF_ROLL_ANSWERS = 2 * RF_CLIENTS  # answers of each version the roll must see
+RF_TENANT_QPS = 0.001  # one admit a tenant, then a dry bucket
+SELFTEST_WAIT_S = 300
 TOPK_SWEEP_DP = (1, 8, 32, 64, 128, 256)
 TOPK_SWEEP_ROWS = (1, 127, 1001, 100_003)
 TOPK_SWEEP_B = (1, 2, 3, 8, 16, 20, 64, 65)  # every block shape of the scorer
@@ -354,7 +393,13 @@ def _card_line() -> str:
     return out.strip().splitlines()[0]
 
 
+# the script's clock: each phase line carries the seconds since it started
+_START = time.perf_counter()
+
+
 def _emit(obj) -> None:
+    if "phase" in obj:
+        obj = {**obj, "elapsed_s": time.perf_counter() - _START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2003,7 +2048,7 @@ def retrieve(torch, tmp: str, seed: int) -> dict:
            "oracle_s": oracle_s}
     _emit(res)
     return {"engine": engine, "pool": pool, "launches": launches, "templates": templates,
-            "result": res}
+            "result": res, "data": data, "model_dir": model_dir}
 
 
 def time_retrieve(torch, engine, pool, card: str) -> dict:
@@ -3461,6 +3506,485 @@ def serve_fleet(torch, tmp: str, card: str) -> dict:
     return res
 
 
+def _kernel_searches(snapshot: dict, servers) -> int:
+    """Kernel-path searches (one scorer and one select launch each) the
+    engines of `servers` ran since `snapshot` ({id: (engine, searches)});
+    an engine a reload published since then counts from its creation."""
+    engines = dict(snapshot)
+    for srv in servers:
+        for eng in (srv._engine, srv._prev):
+            if eng is not None and id(eng) not in engines:
+                engines[id(eng)] = (eng, 0)
+    return sum(sum(eng.index.templates.values()) - n for eng, n in engines.values())
+
+
+def _engine_snapshot(servers) -> dict:
+    return {id(eng): (eng, sum(eng.index.templates.values()))
+            for srv in servers for eng in (srv._engine, srv._prev) if eng is not None}
+
+
+def _expect_searches(snapshot: dict, servers, what: str) -> dict:
+    """Each retrieval kernel launched exactly once per kernel-path shard
+    search since `snapshot` (counts reset with it), nothing else."""
+    from euler_tpu_torch import ops
+
+    searches = _kernel_searches(snapshot, servers)
+    if not searches:
+        raise AssertionError(f"{what}: no shard search reached the kernels")
+    _expect_launches(ops.launch_counts(), {"paged_topk_score": searches,
+                                           "paged_topk_select": searches}, what)
+    return {"shard_searches": searches, "paged_topk_score": searches,
+            "paged_topk_select": searches, "launches_per_shard_search": 1}
+
+
+def _retr_quiesce(servers, stopped=()) -> None:
+    """Wait until no request is queued or running on a live server, and
+    every worker of a stopped server has exited (a hedge's losing attempt
+    runs on after its client moved on)."""
+    deadline = time.monotonic() + SERVE_WAIT_S
+    for srv in stopped:
+        for t in srv.server._threads:
+            t.join(timeout=max(deadline - time.monotonic(), 0.1))
+            if t.is_alive():
+                raise AssertionError("a stopped retrieval server's thread still runs")
+    live = [s for s in servers if s not in stopped]
+    # quiet twice, 50 ms apart: a hedge sent just before its primary
+    # answered may still be on its way to a server
+    quiet = 0
+    while quiet < 2:
+        if time.monotonic() > deadline:
+            raise AssertionError("retrieval servers still busy after the clients finished")
+        quiet = 0 if any(s.server._inflight for s in live) else quiet + 1
+        time.sleep(0.05)
+
+
+def _lane_oracle_job(job):
+    from euler_tpu_torch.retrieval import numpy_topk_oracle
+
+    ids, vecs, q, k, mask = job
+    return numpy_topk_oracle(ids, vecs, q, k, metric="cosine", mask=mask)
+
+
+def _lane_oracle(ids, vecs, q, k: int, mask) -> dict:
+    """{filtered: `numpy_topk_oracle`'s (ids, scores, valid) for every row
+    of q}, unfiltered and under `mask`, the rows split over one spawned
+    process per core."""
+    import multiprocessing
+
+    workers = max(1, min(8, os.cpu_count() or 1))
+    per = -(-len(q) // workers)
+    jobs = [(ids, vecs, q[i:i + per], k, m) for m in (None, mask)
+            for i in range(0, len(q), per)]
+    with multiprocessing.get_context("spawn").Pool(workers) as procs:
+        parts = procs.map(_lane_oracle_job, jobs, chunksize=1)
+    half = len(parts) // 2
+    return {filtered: [np.concatenate([p[j] for p in chunk]) for j in range(3)]
+            for filtered, chunk in ((False, parts[:half]), (True, parts[half:]))}
+
+
+def retrieve_lane(torch, card: str) -> dict:
+    """Phase 6b: bench.py's retrieval lane as written (bench.py:1151-1223)
+    at its accelerator sizes on the card — two RetrievalServers over one
+    20 000 x 64 cosine corpus, one RetrievalClient, 300 queries of 4 at k
+    32 unfiltered and then filtered by cat in {0, 2}, each checked bitwise
+    against `numpy_topk_oracle` outside the timed span; kernels 5 and 5b
+    exactly 2 launches a query (one a shard); then the card's share of a
+    profiled window of the lane's queries."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.retrieval import EmbeddingCorpus, numpy_topk_oracle
+    from euler_tpu_torch.retrieval.client import RetrievalClient
+    from euler_tpu_torch.retrieval.server import RetrievalServer
+
+    n, dim, queries, k = LANE_ROWS, LANE_DIM, LANE_QUERIES, LANE_K
+    rng = np.random.default_rng(LANE_SEED)
+    ids = np.sort(rng.choice(max(10 * n, 1000), size=n, replace=False).astype(np.uint64))
+    vecs = rng.standard_normal((n, dim)).astype(np.float32)
+    attrs = {"cat": rng.integers(0, 4, size=n)}
+    corpus = EmbeddingCorpus.build(ids, vecs, attrs=attrs, metric="cosine")
+    dnf = [[("cat", "in", [0, 2])]]
+    mask = np.isin(np.asarray(attrs["cat"]), [0, 2])
+    servers, cli = [], None
+    try:
+        t0 = time.perf_counter()
+        for part in range(2):
+            servers.append(RetrievalServer(corpus=corpus, part=part, num_parts=2, warm_k=k,
+                                           device="cuda").start())
+        boot_s = time.perf_counter() - t0
+        cli = RetrievalClient([[(s.host, s.port)] for s in servers])
+        qs = rng.standard_normal((queries, LANE_BATCH, dim)).astype(np.float32)
+        parity = {"unfiltered": True, "filtered": True}
+        # the oracle outside the timed span, over one spawned process per
+        # core (its rows are independent: the same answers as one call a
+        # query)
+        t0 = time.perf_counter()
+        oracle = _lane_oracle(ids, vecs, qs.reshape(-1, dim), k, mask)
+        oracle_s = time.perf_counter() - t0
+
+        def measure(use_dnf):
+            name = "filtered" if use_dnf else "unfiltered"
+            lat = []
+            cli.retrieve(qs[0], k, dnf=dnf if use_dnf else None)  # warm
+            for j, q in enumerate(qs):
+                t1 = time.perf_counter()
+                got = cli.retrieve(q, k, dnf=dnf if use_dnf else None)
+                lat.append((time.perf_counter() - t1) * 1e3)
+                want = [a[j * LANE_BATCH:(j + 1) * LANE_BATCH] for a in oracle[use_dnf]]
+                parity[name] = parity[name] and _same_answer(got, want)
+            return queries / (sum(lat) / 1e3), lat
+
+        snapshot = _engine_snapshot(servers)
+        ops.reset_launch_counts()
+        qps, lat = measure(False)
+        fqps, flat = measure(True)
+        launches = _expect_searches(snapshot, servers, "retrieve_lane")
+        if launches["shard_searches"] != 2 * 2 * (queries + 1):
+            raise AssertionError(f"retrieve_lane: {launches['shard_searches']} shard searches "
+                                 f"for {2 * (queries + 1)} queries of 2 shards")
+        if not all(parity.values()):
+            raise AssertionError(f"retrieve_lane differs from numpy_topk_oracle: {parity}")
+        rst = cli.router.stats()
+        # one shard's engine in process: the search without the front end
+        engine_ms = _engine_ms(servers[0]._engine, {LANE_BATCH: qs[0]}, k,
+                               (None, json.dumps(dnf)))
+
+        def window():
+            for q in qs[:LANE_PROFILED]:
+                cli.retrieve(q, k)
+            torch.cuda.synchronize()
+
+        dev, wall_ms = _profile_window(torch, window, windows=1)
+        busy_ms = sum(dev.values()) / 1e3
+    finally:
+        if cli is not None:
+            cli.close()
+        for s in servers:
+            s.stop()
+    busy = rst["fanout_s"] + rst["merge_s"]
+    res = {"phase": "retrieve_lane", "card": card, "rows": n, "dim": dim, "queries": queries,
+           "batch": LANE_BATCH, "k": k, "shards": 2, "replicas": 1, "boot_s": boot_s,
+           "retrieval_queries_per_sec": qps, "retrieval_p50_ms": _percentiles(lat)["p50_ms"],
+           "retrieval_p99_ms": _percentiles(lat)["p99_ms"],
+           "filtered_queries_per_sec": fqps, "filtered": _percentiles(flat),
+           "retrieval_filtered_over_unfiltered": fqps / max(qps, 1e-9),
+           "retrieval_merge_overhead_pct": 100.0 * rst["merge_s"] / max(busy, 1e-9),
+           "retrieval_bit_parity": all(parity.values()), "router": rst, "oracle_s": oracle_s,
+           "shard_engine_median_ms": engine_ms,
+           "launches": launches, "kernel_launches_per_query": 2,
+           "device": {"queries": LANE_PROFILED, "wall_ms": wall_ms,
+                      "device_ms_per_query": busy_ms / LANE_PROFILED,
+                      "device_idle_share": 1.0 - busy_ms / wall_ms}}
+    _emit(res)
+    return res
+
+
+def _engine_ms(engine, queries: dict, k: int, filters, reps: int = 30) -> dict:
+    """Median host-clock ms of one `_CorpusEngine.retrieve` in process (it
+    returns host numpy, so it ends synchronised), per bucket and filter."""
+    out = {}
+    for b, q in queries.items():
+        for f in filters:
+            engine.retrieve(q, k, f)
+            lat = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                engine.retrieve(q, k, f)
+                lat.append((time.perf_counter() - t0) * 1e3)
+            out[f"{b}{' filtered' if f else ''}"] = statistics.median(lat)
+    return out
+
+
+def _retr_hammer(n_threads: int, seed0: int, sets: list, ask, check, n_reqs: int | None = None,
+                 stop=None, done=None) -> tuple:
+    """One closed-loop thread per client slot, each asking `ask(q, f)` of
+    query sets drawn from default_rng(SeedSequence([seed0, k])) with the
+    filter f in {0, 1}, `n_reqs` times or until `stop` is set; `check`
+    holds every answer, and `done` (a list) counts the answers as they
+    come. Returns (queries/s, latencies ms); a thread's error surfaces."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    lock = threading.Lock()
+
+    def worker(k):
+        rng = np.random.default_rng(np.random.SeedSequence([seed0, k]))
+        lats = []
+        deadline = time.monotonic() + SERVE_WAIT_S
+        while (len(lats) < n_reqs if n_reqs is not None else not stop.is_set()):
+            if time.monotonic() > deadline:
+                raise AssertionError("a retrieval client outran its wait")
+            i, f = int(rng.integers(len(sets))), int(rng.integers(2))
+            t0 = time.perf_counter()
+            ans = ask(sets[i], f)
+            lats.append((time.perf_counter() - t0) * 1e3)
+            check(i, f, ans)
+            if done is not None:
+                with lock:
+                    done.append(ans[3] if len(ans) > 3 else None)
+        return lats
+
+    with ThreadPoolExecutor(max_workers=n_threads) as pool:
+        t0 = time.perf_counter()
+        futs = [pool.submit(worker, k) for k in range(n_threads)]
+        lats = [x for f in futs for x in f.result(timeout=SERVE_WAIT_S)]
+        elapsed = time.perf_counter() - t0
+    return len(lats) / elapsed, lats
+
+
+def retrieve_fleet(torch, retrieved: dict, seed: int, card: str) -> dict:
+    """Phase 6c: phase 6's retrieval cell served over TCP — 2 shards x 2
+    replicas of RetrievalServer on the card, each loading the corpus
+    through `EmbeddingCorpus.from_checkpoint` (one prebuilt corpus a
+    checkpoint step), a RetrievalClient with hedging on, 8 client threads
+    sending bucket-4 and bucket-16 queries, unfiltered and filtered: every
+    answer bitwise the answer of one in-process `_CorpusEngine` over the
+    same version (phase 6 holds that engine to numpy_topk_oracle and impl
+    ref). A steady window, a profiled one, a rolling reload to a second
+    checkpoint under load (every replica swapped, canary parity false,
+    every answer of one version), one replica stopped mid-window
+    (failover), and a tenant past its TenantQuota (a typed
+    OverloadError); kernels 5 and 5b exactly one launch each a shard
+    search in every window."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.distributed.errors import OverloadError
+    from euler_tpu_torch.retrieval import EmbeddingCorpus
+    from euler_tpu_torch.retrieval.client import RetrievalClient
+    from euler_tpu_torch.retrieval.server import RetrievalServer, _CorpusEngine
+    from euler_tpu_torch.serving import TenantQuota
+    from euler_tpu_torch.training.checkpoint import CheckpointStore
+
+    data, model_dir = retrieved["data"], retrieved["model_dir"]
+    step2 = RETR_STEP + 1
+    t0 = time.perf_counter()
+    fresh = np.random.default_rng(seed + RF_SEED).standard_normal((RETR_ROWS, RETR_DIM),
+                                                                 dtype=np.float32)
+    CheckpointStore(model_dir).save_leaves(step2, [fresh], [])
+    del fresh
+    save_s = time.perf_counter() - t0
+
+    # phase 6's corpus is this loader's answer for its checkpoint step
+    corpora, corpora_lock = {RETR_STEP: retrieved["engine"].corpus}, threading.Lock()
+
+    def loader(source):
+        step = (source or {}).get("step", RETR_STEP)
+        with corpora_lock:
+            if step not in corpora:
+                corpora[step] = EmbeddingCorpus.from_checkpoint(
+                    model_dir, data["ids"], attrs={"cat": data["cat"]}, metric="cosine",
+                    step=step)
+            return corpora[step]
+
+    t0 = time.perf_counter()
+    for step in (RETR_STEP, step2):
+        loader({"step": step})
+    corpus_s = time.perf_counter() - t0
+    v1, v2 = corpora[RETR_STEP].version, corpora[step2].version
+    if v1 != retrieved["result"]["version"] or v1 >= v2:
+        raise AssertionError(f"versions {v1} / {v2} against phase 6's "
+                             f"{retrieved['result']['version']}")
+    refs = {v1: retrieved["engine"], v2: _CorpusEngine(corpora[step2]).warm(RETR_K)}
+    qrng = np.random.default_rng(seed + RF_SEED + 1)
+    sets = [qrng.standard_normal((b, RETR_DIM), dtype=np.float32)
+            for b in RF_BUCKETS for _ in range(RF_SETS)]
+    filters = (None, RETR_FILTER)
+    want = {(v, i, f): eng.retrieve(q, RETR_K, json.dumps(filters[f]) if f else None)
+            for v, eng in refs.items() for i, q in enumerate(sets) for f in (0, 1)}
+
+    def checker(version):
+        def check(i, f, ans):
+            ver = ans[3] if len(ans) > 3 else version
+            if ver not in refs or not _same_answer(ans[:3], want[(ver, i, f)]):
+                raise AssertionError(f"retrieve_fleet: set {i} filter {f} version {ver} "
+                                     "differs from the in-process engine")
+        return check
+
+    base_bytes = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    servers, stopped, cli = [], [], None
+    try:
+        t0 = time.perf_counter()
+        boots = []
+        shard_addrs = []
+        for part in range(RF_SHARDS):
+            reps = []
+            for _ in range(RF_REPLICAS):
+                t1 = time.perf_counter()
+                srv = RetrievalServer(loader=loader, part=part, num_parts=RF_SHARDS,
+                                      warm_k=RETR_K, device="cuda",
+                                      tenant_quota=TenantQuota(qps=RF_TENANT_QPS, burst=1.0))
+                servers.append(srv.start())
+                boots.append(time.perf_counter() - t1)
+                reps.append((srv.host, srv.port))
+            shard_addrs.append(reps)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        boot_peak = torch.cuda.max_memory_allocated()
+        cli = RetrievalClient(shard_addrs, hedge_ms=RF_HEDGE_MS)
+        router = cli.router
+        denied, denied_lock = [0], threading.Lock()
+        spend = router._hedge_budget.try_spend
+
+        def counted_spend():
+            ok = spend()
+            if not ok:
+                with denied_lock:
+                    denied[0] += 1
+            return ok
+
+        router._hedge_budget.try_spend = counted_spend
+
+        def ask_client(q, f):
+            return cli.retrieve(q, RETR_K, dnf=filters[f])
+
+        def ask_router(q, f):
+            return router.retrieve(q, RETR_K, dnf=filters[f])
+
+        def window(name, fn, stopped=()):
+            """Run `fn()` with the counts reset; the window's numbers."""
+            before = (router.hedges, denied[0], router.version_rounds, router.queries)
+            snapshot = _engine_snapshot(servers)
+            ops.reset_launch_counts()
+            qps, lat, extra = fn()
+            _retr_quiesce(servers, stopped)
+            out = {"queries_per_sec": qps, **_percentiles(lat), "queries": len(lat),
+                   "hedges_issued": router.hedges - before[0],
+                   "hedges_denied": denied[0] - before[1],
+                   "version_rounds": router.version_rounds - before[2],
+                   "router_queries": router.queries - before[3],
+                   "launches": _expect_searches(snapshot, servers, f"retrieve_fleet {name}"),
+                   **extra}
+            return out
+
+        results = {}
+        # a steady window at version 1
+        results["steady"] = window("steady", lambda: (*_retr_hammer(
+            RF_CLIENTS, 1, sets, ask_client, checker(v1), n_reqs=RF_REQS), {}))
+        # the card's share of a window
+        results["device"] = _device_share(torch, lambda: _retr_hammer(
+            RF_CLIENTS, 2, sets, ask_client, checker(v1), n_reqs=RF_PROFILED)[1])
+        # one shard's engine in process: the search without the front end
+        results["shard_engine_median_ms"] = _engine_ms(
+            servers[0]._engine, {b: sets[i * RF_SETS] for i, b in enumerate(RF_BUCKETS)},
+            RETR_K, (None, json.dumps(RETR_FILTER)))
+
+        # a rolling reload to the second checkpoint under load
+        def roll():
+            stop, done = threading.Event(), []
+            canary = sets[0]
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                fut = pool.submit(_retr_hammer, RF_CLIENTS, 3, sets, ask_router, checker(None),
+                                  stop=stop, done=done)
+                deadline = time.monotonic() + SERVE_WAIT_S
+                try:
+                    while len(done) < RF_ROLL_ANSWERS and time.monotonic() < deadline:
+                        time.sleep(0.005)
+                    torch.cuda.reset_peak_memory_stats()
+                    t1 = time.perf_counter()
+                    reports = cli.reload_all(source={"step": step2}, canary_q=canary,
+                                             canary_k=RETR_K)
+                    roll_s = time.perf_counter() - t1
+                    while (sum(v == v2 for v in done[:]) < RF_ROLL_ANSWERS
+                           and time.monotonic() < deadline):
+                        time.sleep(0.005)
+                finally:
+                    stop.set()
+                qps, lat = fut.result(timeout=SERVE_WAIT_S)
+            seen = {v: sum(x == v for x in done) for v in (v1, v2)}
+            bad = {k: r for k, r in reports.items()
+                   if r.get("swapped") is not True or r.get("canary_parity") is not False
+                   or r.get("to_version") != v2}
+            if bad or len(reports) != RF_SHARDS * RF_REPLICAS:
+                raise AssertionError(f"retrieve_fleet roll: reports {reports}")
+            if not all(seen.values()):
+                raise AssertionError(f"retrieve_fleet roll: answers by version {seen}")
+            return qps, lat, {"roll_s": roll_s, "answers_by_version": seen,
+                              "reload_build_s": {k: r["build_s"] for k, r in reports.items()},
+                              "peak_device_bytes": torch.cuda.max_memory_allocated(),
+                              "reports": reports}
+
+        results["roll"] = window("roll", roll)
+        if any(s._engine.corpus.version != v2 for s in servers):
+            raise AssertionError("retrieve_fleet: a replica does not serve the new version")
+
+        # one replica stopped mid-window: transport failover, same bits
+        victim = servers[1]
+
+        def failover():
+            done = []
+            retries = sum(sh.retry_count for sh in cli.shards)
+            with ThreadPoolExecutor(max_workers=1) as pool:
+                fut = pool.submit(_retr_hammer, RF_CLIENTS, 4, sets, ask_client, checker(v2),
+                                  n_reqs=RF_REQS, done=done)
+                deadline = time.monotonic() + SERVE_WAIT_S
+                while len(done) < RF_CLIENTS * RF_REQS // 2 and time.monotonic() < deadline:
+                    time.sleep(0.005)
+                at = len(done)
+                victim.stop()
+                stopped.append(victim)
+                qps, lat = fut.result(timeout=SERVE_WAIT_S)
+            failovers = sum(sh.retry_count for sh in cli.shards) - retries
+            if not failovers:
+                raise AssertionError("retrieve_fleet: stopping a replica caused no failover")
+            return qps, lat, {"stopped": f"0@{victim.host}:{victim.port}",
+                              "stopped_after_answers": at, "failovers": failovers}
+
+        results["failover"] = window("failover", failover, stopped=(victim,))
+
+        # a tenant past its quota: the typed OverloadError, over the wire
+        q = sets[0]
+        first = cli.retrieve(q, RETR_K, tenant="flood")
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            exc = _outcome(pool, cli.retrieve, q, RETR_K, None, None, "flood",
+                           expected=(OverloadError,))
+        if not isinstance(exc, OverloadError) or "flood" not in str(exc):
+            raise AssertionError(f"retrieve_fleet: a tenant past its quota got {exc!r}")
+        calm = cli.retrieve(q, RETR_K, tenant="calm")
+        if not (_same_answer(first, want[(v2, 0, 0)]) and _same_answer(calm, first)):
+            raise AssertionError("retrieve_fleet: tenant answers differ")
+        results["tenant"] = {"overload": type(exc).__name__, "message": str(exc)[:160]}
+        results["router"] = router.stats()
+    finally:
+        if cli is not None:
+            cli.close()
+        for s in servers:
+            if s not in stopped:
+                s.stop()
+    del refs[v2]
+    torch.cuda.empty_cache()
+    res = {"phase": "retrieve_fleet", "card": card, "cores": os.cpu_count(),
+           "rows": RETR_ROWS, "dim": RETR_DIM, "k": RETR_K, "shards": RF_SHARDS,
+           "replicas": RF_REPLICAS, "buckets": list(RF_BUCKETS), "filter": RETR_FILTER,
+           "clients": RF_CLIENTS, "hedge_ms": RF_HEDGE_MS, "versions": [v1, v2],
+           "check": "every answer bitwise the in-process engine of its version",
+           "save_s": save_s, "corpus_s": corpus_s, "boot_s": boot_s, "server_boot_s": boots,
+           "base_device_bytes": base_bytes, "boot_peak_device_bytes": boot_peak, **results}
+    _emit(res)
+    return res
+
+
+def retrieve_selftest(card: str) -> dict:
+    """Phase 6d: `python -m euler_tpu_torch.tools.retrieve --selftest` in a
+    process of its own on the card: a 2-shard x 2-replica fleet over a real
+    checkpoint, filtered and unfiltered answers bitwise the NumPy oracle,
+    a hot swap to a second checkpoint; exit 0 and "selftest": "ok"."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "euler_tpu_torch.tools.retrieve", "--selftest"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+                          text=True, timeout=SELFTEST_WAIT_S)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"retrieve selftest exited {proc.returncode}: "
+                             f"{proc.stdout[-2000:]}{proc.stderr[-2000:]}")
+    summary = json.loads(proc.stdout)
+    if summary.get("selftest") != "ok" or summary.get("device") != "cuda":
+        raise AssertionError(f"retrieve selftest: {summary}")
+    res = {"phase": "retrieve_selftest", "card": card, "seconds": seconds, **summary}
+    _emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -3532,7 +4056,12 @@ def main(argv=None) -> int:
         retrieved = retrieve(torch, tmp, args.seed)
         time_retrieve(torch, retrieved["engine"], retrieved["pool"], card)
         topk_rows = time_topk_kernel(torch, retrieved["engine"], retrieved["pool"], card)
-        del retrieved["engine"]
+        # 6b-6d. the retrieval front end: bench.py's retrieval lane, phase
+        # 6's cell served by a fleet over TCP, the CLI's selftest
+        lane = retrieve_lane(torch, card)
+        retr_fleet = retrieve_fleet(torch, retrieved, args.seed, card)
+        retrieve_selftest(card)
+        del retrieved["engine"], retrieved["data"]
         torch.cuda.empty_cache()
 
         # 7-9. the host-batch training lane (numpy, then the native
@@ -3727,7 +4256,12 @@ def main(argv=None) -> int:
                                           "library_ms", "bound_ms")} for r in rows],
         })
     # paged_topk_score and paged_topk_select: the sums over one unfiltered
-    # search of each bucket
+    # search of each bucket; launches on phase 6's path and the front end's
+    retr_launches = {name: {"retrieve": retrieved["launches"][name],
+                            "retrieve_lane": lane["launches"][name],
+                            **{f"retrieve_fleet_{w}": retr_fleet[w]["launches"][name]
+                               for w in ("steady", "roll", "failover")}}
+                     for name in ("paged_topk_score", "paged_topk_select")}
     t_bytes = sum(r["bytes_ms"] for r in topk_rows if r["bound_by"] == "bytes")
     t_ops = sum(r["ops_ms"] for r in topk_rows if r["bound_by"] == "operations")
     other = {"fma": "mul_add_ms", "mul_add": "fma_ms"}
@@ -3736,7 +4270,8 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "euler_tpu_torch/ops/csrc/topk_score.cu",
         "replaces": "euler_tpu/ops/pallas_kernels.py:534",
-        "launches": retrieved["launches"]["paged_topk_score"],
+        "launches": sum(retr_launches["paged_topk_score"].values()),
+        "launches_by_path": retr_launches["paged_topk_score"],
         "templates_on_path": retrieved["templates"],
         "max_abs_err": topk_check["max_abs_err"],
         "check": "bitwise",
@@ -3758,7 +4293,8 @@ def main(argv=None) -> int:
         "source": "euler_tpu_torch/ops/csrc/topk_score.cu",
         "replaces": "euler_tpu/retrieval/topk.py:92",
         "replaces_what": "jax.lax.top_k over the masked scores, outside any Pallas kernel",
-        "launches": retrieved["launches"]["paged_topk_select"],
+        "launches": sum(retr_launches["paged_topk_select"].values()),
+        "launches_by_path": retr_launches["paged_topk_select"],
         "max_abs_err": select_check["max_abs_err"],
         "check": "bitwise",
         "ms": total(sel, "select_ms"),

@@ -1,13 +1,20 @@
-"""Embedding retrieval: exact filtered top-K over a corpus staged on the
-device (counterpart: euler_tpu/retrieval/).
+"""Embedding retrieval serving: exact filtered top-K over a corpus staged
+on the device, sharded across servers and hot-swapped between versions
+(counterpart: euler_tpu/retrieval/).
 
   corpus.py  immutable versioned EmbeddingCorpus (checkpoint → paged
              table + id map + attribute columns)
   topk.py    bucket-padded brute-force top-K through the
              `paged_topk_score` and `paged_topk_select` kernels, the
              independent NumPy oracle, the canonical-order shard merge
-  server.py  `_CorpusEngine`, the scoring unit of a server (the wire
-             server, router and client are not ported yet)
+  server.py  RetrievalServer — retrieve/corpus_stats/reload_corpus wire
+             verbs over _PoolServer, dual-engine version pinning
+  router.py  RetrievalRouter — concurrent fan-out, hedging, heap merge,
+             mixed-version convergence
+  client.py  RetrievalClient — fleet facade (query + stats + rolling
+             hot swap)
+
+`python -m euler_tpu_torch.tools.retrieve` is the CLI.
 """
 
 from euler_tpu_torch.retrieval.corpus import (  # noqa: F401

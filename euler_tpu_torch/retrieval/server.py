@@ -1,25 +1,62 @@
-"""The scoring unit of a retrieval server
-(counterpart: euler_tpu/retrieval/server.py:54-87, `_CorpusEngine`).
+"""RetrievalServer — `retrieve`/`corpus_stats`/`reload_corpus` wire
+verbs over the pooled-TCP stack (counterpart:
+euler_tpu/retrieval/server.py).
 
-A `_CorpusEngine` is one immutable (corpus shard, staged TopKIndex,
-bounded DNF-mask cache) unit; a server publishes it by one reference
-assignment and swaps it whole on a corpus reload. Only the engine is
-ported so far: `RetrievalServer` (the `retrieve`/`corpus_stats`/
-`reload_corpus` wire verbs), the router, the client and
-`tools/retrieve.py` are wire code and come with the rest of serving
-(ROADMAP queue 1 item 3).
+One server owns ONE row shard of an embedding corpus (id % num_parts ==
+part) behind the port's `_PoolServer` (selector thread + bounded worker
+pool; a retrieval shard never fans out). Scoring runs through a
+`_CorpusEngine`: an immutable (corpus shard, staged TopKIndex, bounded
+DNF-mask cache) unit, published by a single reference assignment — the
+serving hot-swap discipline (`InferenceRuntime.swap`):
+
+  * `reload_corpus` builds + warms the NEW engine in the one pool worker
+    running the verb while every other worker keeps answering from the
+    old engine, then flips `self._engine`. The outgoing engine is
+    RETAINED as `self._prev`, so during a rolling fleet reload a router
+    that pins a version (trailing `version` arg on `retrieve`) can still
+    be answered consistently by shards that already swapped.
+  * canary queries ride the LIVE retrieve path pre/post swap; the
+    reported `canary_parity` is a bit-level proof (True iff the corpus
+    version did not actually change).
+
+Every engine of a server stages its table and searches on `device` (the
+CUDA card unless the caller names another) from the worker threads'
+shared default stream, so a search that follows a publish sees the new
+table's staging complete; while a reload runs, the server holds the old
+table, the retained `_prev` and the new one.
+
+Verbs:
+  retrieve      [q f32[B, D], k, dnf_json|None, tenant|None, version|None]
+                                  → [ids u64[B,k], scores f32[B,k],
+                                     valid u8[B,k], version str]
+  corpus_stats  []                → [json]
+  ping          []                → [0]
+  reload_corpus [source_json|None, canary_q f32[C, D]|None, k|None]
+                                  → [json report]
+
+Deadline/overload rejections ride the typed err-frame vocabulary
+(distributed/errors.py): already-expired work is rejected before
+dispatch by `_PoolServer`, per-tenant admission raises `OverloadError`
+naming the tenant, and a pinned `version` neither engine holds raises a
+deterministic "corpus version skew" error the router resolves by
+re-pinning (never a transport retry).
 """
 
 from __future__ import annotations
 
 import collections
 import json
+import os
 import threading
+import time
 
 import numpy as np
 
+from euler_tpu_torch.device import resolve_device
+from euler_tpu_torch.distributed.service import _PoolServer
 from euler_tpu_torch.retrieval.corpus import EmbeddingCorpus
 from euler_tpu_torch.retrieval.topk import TopKIndex
+from euler_tpu_torch.serving.batcher import TenantQuota
 
 
 class _CorpusEngine:
@@ -56,3 +93,203 @@ class _CorpusEngine:
 
     def retrieve(self, q: np.ndarray, k: int, dnf_json: str | None):
         return self.index.search(q, k, self.mask_for(dnf_json))
+
+
+class RetrievalServer:
+    """Serves one corpus row shard over the wire protocol."""
+
+    def __init__(
+        self,
+        corpus: EmbeddingCorpus | None = None,
+        loader=None,
+        part: int = 0,
+        num_parts: int = 1,
+        host: str = "127.0.0.1",
+        port: int = 0,
+        workers: int | None = None,
+        registry=None,
+        impl: str = "auto",
+        warm_k: int = 16,
+        tenant_quota: TenantQuota | None = None,
+        *,
+        device=None,
+    ):
+        """`loader(source: dict | None) -> EmbeddingCorpus` produces the
+        FULL corpus (reload calls it again with the wire `source`); the
+        server keeps only its row shard. A prebuilt `corpus` (already
+        full — it is sharded here) serves without a loader, but then
+        `reload_corpus` needs a loader to have been given too. `device`:
+        where the shard's table is staged and searched (default: the
+        CUDA card)."""
+        if corpus is None and loader is None:
+            raise ValueError("need a corpus or a loader")
+        self._loader = loader
+        self.part, self.num_parts = int(part), int(num_parts)
+        self.impl = impl
+        self.warm_k = int(warm_k)
+        self.device = resolve_device(device)
+        full = corpus if corpus is not None else loader(None)
+        self._engine = self._build_engine(full)
+        self._prev: _CorpusEngine | None = None
+        self._swap_lock = threading.Lock()
+        self.reloads = 0
+        if tenant_quota is None:
+            tenant_quota = TenantQuota.from_env()
+        self.tenant_quota = tenant_quota
+        if workers is None:
+            # like the model server: workers park on device compute, so
+            # size for concurrency, not cores
+            workers = min(64, max(8, (os.cpu_count() or 1) * 2))
+        self.server = _PoolServer((host, port), self, workers)
+        self.host, self.port = self.server.server_address
+        self.registry = registry
+        self._beat = None
+        self._started = time.monotonic()
+        self.retrieves = 0
+        # per-verb wire byte counters (filled by _PoolServer at the
+        # socket seam, same telemetry stance as the other services)
+        self.wire_bytes_in: collections.Counter = collections.Counter()
+        self.wire_bytes_out: collections.Counter = collections.Counter()
+
+    def _build_engine(self, full: EmbeddingCorpus) -> _CorpusEngine:
+        shard = (
+            full.shard(self.part, self.num_parts)
+            if self.num_parts > 1
+            else full
+        )
+        return _CorpusEngine(shard, impl=self.impl, device=self.device).warm(
+            self.warm_k
+        )
+
+    # -- lifecycle -------------------------------------------------------
+
+    def start(self):
+        self.server.start()
+        if self.registry is not None:
+            self._beat = self.registry.register(
+                self.part, self.host, self.port
+            )
+        return self
+
+    def stop(self, drain_s: float | None = None):
+        if self._beat is not None:
+            self._beat.set()
+        if drain_s:
+            self.server.drain(drain_s)
+        self.server.shutdown()
+        self.server.server_close()
+
+    # -- _PoolServer service surface -------------------------------------
+
+    # dispatch() gates on it; the retrieval client's WIRE_VERBS must
+    # equal it (tests/test_torch_retrieval_front.py)
+    HANDLED_VERBS = frozenset(
+        {"retrieve", "corpus_stats", "ping", "reload_corpus"}
+    )
+
+    def is_coordinator(self, op: str) -> bool:
+        return False
+
+    def dispatch(self, op: str, a: list) -> list:
+        if op not in self.HANDLED_VERBS:
+            raise ValueError(f"unknown op {op!r}")
+        if op == "retrieve":
+            return self._retrieve(a)
+        if op == "corpus_stats":
+            return [json.dumps(self._stats())]
+        if op == "ping":
+            return [0]
+        if op == "reload_corpus":
+            return [json.dumps(self._reload(a))]
+        raise RuntimeError(
+            f"op {op!r} is in HANDLED_VERBS but has no dispatch arm"
+        )
+
+    def _engine_for(self, version: str | None) -> _CorpusEngine:
+        eng = self._engine  # ONE read: request-coherent snapshot
+        if version is None or eng.corpus.version == version:
+            return eng
+        prev = self._prev
+        if prev is not None and prev.corpus.version == version:
+            return prev
+        raise ValueError(
+            "corpus version skew: "
+            f"want {version} have {eng.corpus.version}"
+            + (f" prev {prev.corpus.version}" if prev is not None else "")
+        )
+
+    def _retrieve(self, a: list) -> list:
+        q = np.asarray(a[0], dtype=np.float32)
+        k = int(a[1])
+        dnf_json = a[2] if len(a) > 2 else None
+        tenant = a[3] if len(a) > 3 else None
+        version = a[4] if len(a) > 4 else None
+        if tenant is not None and self.tenant_quota is not None:
+            self.tenant_quota.admit(tenant)  # raises typed OverloadError
+        try:
+            eng = self._engine_for(version)
+            ids, scores, valid = eng.retrieve(q, k, dnf_json)
+            self.retrieves += 1
+            return [ids, scores, valid.astype(np.uint8), eng.corpus.version]
+        finally:
+            if tenant is not None and self.tenant_quota is not None:
+                self.tenant_quota.release(tenant)
+
+    def _stats(self) -> dict:
+        eng = self._engine
+        prev = self._prev
+        out = {
+            "shard": self.part,
+            "num_parts": self.num_parts,
+            "retrieves": self.retrieves,
+            "reloads": self.reloads,
+            "uptime_s": round(time.monotonic() - self._started, 3),
+            "programs": len(eng.index._programs),
+            "prev_version": prev.corpus.version if prev else None,
+            "wire_bytes_in": dict(self.wire_bytes_in),
+            "wire_bytes_out": dict(self.wire_bytes_out),
+        }
+        if self.tenant_quota is not None:
+            out["tenants"] = self.tenant_quota.stats()
+        out.update(eng.corpus.stats())
+        return out
+
+    def _reload(self, a: list) -> dict:
+        """Hot-swap to a freshly loaded corpus version with a canary
+        bit-parity proof through the live retrieve path."""
+        source = json.loads(a[0]) if a and a[0] else None
+        canary = a[1] if len(a) > 1 else None
+        canary_k = int(a[2]) if len(a) > 2 and a[2] is not None else 4
+        if self._loader is None:
+            raise ValueError("reload_corpus: server was built without a loader")
+        pre = None
+        if canary is not None and len(canary):
+            canary = np.asarray(canary, np.float32)
+            pre = self._engine.retrieve(canary, canary_k, None)
+        with self._swap_lock:
+            old = self._engine
+            t0 = time.monotonic()
+            # build + warm OFF the dispatch path: every other worker keeps
+            # serving `old` until the single reference flip below
+            new = self._build_engine(self._loader(source))
+            build_s = time.monotonic() - t0
+            self._prev = old
+            self._engine = new  # atomic publish
+            self.reloads += 1
+        report = {
+            "from_version": old.corpus.version,
+            "to_version": new.corpus.version,
+            "rows": new.corpus.num_rows,
+            "build_s": round(build_s, 4),
+            "swapped": new.corpus.version != old.corpus.version,
+        }
+        if pre is not None:
+            # canary through `new` — the engine THIS reload published —
+            # not self._engine, which a concurrent reload may have flipped
+            # to a third version between our publish and this read
+            post = new.retrieve(canary, canary_k, None)
+            report["canary_n"] = int(len(canary))
+            report["canary_parity"] = bool(
+                all(np.array_equal(x, y) for x, y in zip(pre, post))
+            )
+        return report

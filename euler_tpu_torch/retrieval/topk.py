@@ -36,6 +36,7 @@ canonical-order heap merge that fuses per-shard answers.
 from __future__ import annotations
 
 import heapq
+import threading
 
 import numpy as np
 import torch
@@ -105,6 +106,9 @@ class TopKIndex:
         # the (bucket, k) shapes searched so far: the JAX package compiles
         # one program for each, this port runs eagerly
         self._programs: set[tuple[int, int]] = set()
+        # a server's pool workers search one index at once: the two
+        # bookkeeping updates above are read-modify-writes
+        self._book_lock = threading.Lock()
 
     def warmup(self, k: int, buckets=None) -> int:
         """Run each bucket once at k off the serving path (builds the
@@ -146,7 +150,8 @@ class TopKIndex:
             mask = np.asarray(mask, dtype=bool)
             if mask.shape != (self._n,):
                 raise ValueError(f"mask must be [{self._n}], got {mask.shape}")
-        self._programs.add((bp, keff))
+        with self._book_lock:
+            self._programs.add((bp, keff))
         qt = torch.from_numpy(q).to(self.device)
         mt = None if mask is None else torch.from_numpy(mask).to(self.device)
         if _resolve(self.impl, self.table2d) == "ref":
@@ -156,7 +161,8 @@ class TopKIndex:
             vals, idx = canonical_topk(s[:b], keff)  # the bucket's padding rows are dropped
         else:
             exact = products_exact(operand_range(q), self._x_range)
-            self.templates["fma" if exact else "mul_add"] += 1
+            with self._book_lock:
+                self.templates["fma" if exact else "mul_add"] += 1
             s = paged_topk_score(self.table2d, qt, self._n, self._dp, impl=self.impl,
                                  exact_products=exact)
             keys = paged_topk_select(s, b, keff, mt, impl=self.impl)  # real queries only

@@ -151,7 +151,6 @@ class InferenceRuntime:
                 "reloads": self.reloads,
                 "warmed_buckets": warmed,
                 "model_dir": new_dir,
-                "step": eng.step,
             }
 
     def predict(self, node_ids) -> np.ndarray:

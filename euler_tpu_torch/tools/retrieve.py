@@ -1,0 +1,263 @@
+"""Retrieval-serving CLI (counterpart: euler_tpu/tools/retrieve.py), the
+embedding top-K fleet, tools/serve.py's sibling for the retrieval path.
+
+Boots RetrievalServer shards over a trained checkpoint's embedding
+table, on the CUDA card unless `--device cpu`:
+
+    python -m euler_tpu_torch.tools.retrieve --model-dir CKPT --num-ids 10000 \
+        --metric cosine --num-parts 2 --part 0 --replicas 2 --port 9300
+
+Every server loads the corpus via `EmbeddingCorpus.from_checkpoint`
+(COMMIT discipline: a half-written checkpoint is invisible), shards it
+by row id, and serves `retrieve` / `corpus_stats` / `reload_corpus`.
+Clients front the fleet with `RetrievalClient([[shard0 replicas],
+[shard1 replicas], ...])` (either package's client: the wire is the
+same). A later checkpoint hot-swaps in with `RetrievalClient.reload_all`
+— zero downtime, canary bit-parity reported per replica. The flags keep
+the JAX CLI's names and defaults; `--impl` takes the port's kernel modes
+(auto, ref, cuda) and `--device` is new.
+
+`--selftest` is the smoke mode: builds a synthetic corpus, commits it
+as a real checkpoint in a temp dir, boots a 2-shard x 2-replica fleet
+in-process, asserts filtered AND unfiltered answers match the
+independent NumPy oracle bit-for-bit, hot-swaps to a second checkpoint
+mid-session (canary proof + post-swap oracle parity), prints a JSON
+summary, and exits 0. A failure prints the summary with its error and
+raises.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+from euler_tpu_torch.ops.paged import IMPLS
+
+
+def _load_ids(args):
+    import numpy as np
+
+    if args.ids:
+        return np.load(args.ids).astype(np.uint64).reshape(-1)
+    if args.num_ids:
+        return np.arange(args.num_ids, dtype=np.uint64)
+    raise SystemExit("need --ids FILE.npy or --num-ids N")
+
+
+def _load_attrs(path):
+    import numpy as np
+
+    if not path:
+        return None
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def make_loader(args, ids, attrs):
+    """loader(source) for RetrievalServer: re-reads the newest COMMITted
+    checkpoint (or source={'step': N} pins one) on every (re)load."""
+    from euler_tpu_torch.retrieval import EmbeddingCorpus
+
+    def loader(source):
+        step = (source or {}).get("step")
+        return EmbeddingCorpus.from_checkpoint(
+            args.model_dir,
+            ids,
+            attrs=attrs,
+            metric=args.metric,
+            step=step,
+            leaf=args.leaf,
+        )
+
+    return loader
+
+
+def serve(args) -> int:
+    import threading
+
+    from euler_tpu_torch.distributed.rendezvous import make_registry
+    from euler_tpu_torch.retrieval.server import RetrievalServer
+
+    ids = _load_ids(args)
+    attrs = _load_attrs(args.attrs)
+    loader = make_loader(args, ids, attrs)
+    registry = make_registry(args.registry) if args.registry else None
+    servers = []
+    for r in range(args.replicas):
+        port = args.port + r if args.port else 0
+        srv = RetrievalServer(
+            loader=loader,
+            part=args.part,
+            num_parts=args.num_parts,
+            host=args.host,
+            port=port,
+            registry=registry,
+            impl=args.impl,
+            warm_k=args.warm_k,
+            device=args.device,
+        ).start()
+        servers.append(srv)
+        print(
+            json.dumps(
+                {
+                    "serving": f"{srv.host}:{srv.port}",
+                    "shard": args.part,
+                    "num_parts": args.num_parts,
+                    "device": str(srv.device),
+                    **srv._engine.corpus.stats(),
+                }
+            ),
+            flush=True,
+        )
+    try:
+        threading.Event().wait()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        for srv in servers:
+            srv.stop(drain_s=2.0)
+    return 0
+
+
+def selftest(seed: int = 0, verbose: bool = True, *, device=None) -> int:
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from euler_tpu_torch.retrieval import EmbeddingCorpus, numpy_topk_oracle
+    from euler_tpu_torch.retrieval.client import RetrievalClient
+    from euler_tpu_torch.retrieval.server import RetrievalServer
+    from euler_tpu_torch.training.checkpoint import CheckpointStore
+
+    rng = np.random.default_rng(seed)
+    n, d = 300, 24
+    ids = np.sort(
+        rng.choice(50_000, size=n, replace=False).astype(np.uint64)
+    )
+    attrs = {"cat": rng.integers(0, 4, size=n)}
+    tables = {
+        1: rng.standard_normal((n, d)).astype(np.float32),
+        2: rng.standard_normal((n, d)).astype(np.float32),
+    }
+    model_dir = tempfile.mkdtemp(prefix="etpu_retrieve_selftest_")
+    store = CheckpointStore(model_dir)
+    store.save_leaves(1, [tables[1]], [], {})
+
+    def loader(source):
+        step = (source or {}).get("step")
+        return EmbeddingCorpus.from_checkpoint(
+            model_dir, ids, attrs=attrs, metric="cosine", step=step
+        )
+
+    servers, shard_addrs, cli = [], [], None
+    summary = {"rows": n, "dim": d, "fleet": "2 shards x 2 replicas"}
+    ok = False
+    try:
+        for part in range(2):
+            reps = []
+            for _ in range(2):
+                srv = RetrievalServer(
+                    loader=loader, part=part, num_parts=2, warm_k=8,
+                    device=device,
+                ).start()
+                servers.append(srv)
+                reps.append((srv.host, srv.port))
+            shard_addrs.append(reps)
+        summary["device"] = str(servers[0].device)
+        cli = RetrievalClient(shard_addrs)
+        q = rng.standard_normal((4, d)).astype(np.float32)
+        got = cli.retrieve(q, 10)
+        want = numpy_topk_oracle(ids, tables[1], q, 10, metric="cosine")
+        unfiltered = all(
+            np.array_equal(g, w) for g, w in zip(got, want)
+        )
+        dnf = [[("cat", "in", [0, 2])]]
+        mask = np.isin(np.asarray(attrs["cat"]), [0, 2])
+        gotf = cli.retrieve(q, 10, dnf=dnf)
+        wantf = numpy_topk_oracle(
+            ids, tables[1], q, 10, metric="cosine", mask=mask
+        )
+        filtered = all(
+            np.array_equal(g, w) for g, w in zip(gotf, wantf)
+        )
+        # hot swap: commit checkpoint 2, roll the fleet, re-check parity
+        store.save_leaves(2, [tables[2]], [], {})
+        reports = cli.reload_all(canary_q=q, canary_k=4)
+        swapped = all(
+            r.get("swapped") is True and r.get("canary_parity") is False
+            for r in reports.values()
+        )
+        got2 = cli.retrieve(q, 10)
+        want2 = numpy_topk_oracle(ids, tables[2], q, 10, metric="cosine")
+        post_swap = all(
+            np.array_equal(g, w) for g, w in zip(got2, want2)
+        )
+        ok = unfiltered and filtered and swapped and post_swap
+        summary.update(
+            unfiltered_parity=unfiltered,
+            filtered_parity=filtered,
+            hot_swap=swapped,
+            post_swap_parity=post_swap,
+            versions=sorted(
+                {r.get("to_version") for r in reports.values()}
+            ),
+            router=cli.router.stats(),
+        )
+    except Exception as e:
+        # the summary names the error; the error itself still surfaces
+        summary["error"] = repr(e)
+        raise
+    finally:
+        if cli is not None:
+            cli.close()
+        for srv in servers:
+            srv.stop()
+        shutil.rmtree(model_dir, ignore_errors=True)
+        summary["selftest"] = "ok" if ok else "MISMATCH"
+        if verbose:
+            print(json.dumps(summary, indent=2))
+    return 0 if ok else 1
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--selftest", action="store_true",
+                    help="in-process fleet smoke test vs the NumPy oracle")
+    ap.add_argument("--model-dir", help="CheckpointStore dir with the "
+                    "embedding table leaf")
+    ap.add_argument("--ids", help=".npy of u64 row ids (row i of the "
+                    "table gets ids[i])")
+    ap.add_argument("--num-ids", type=int, default=0,
+                    help="shorthand for ids = arange(N)")
+    ap.add_argument("--attrs", default=None,
+                    help=".npz of per-row attribute columns (DNF filters)")
+    ap.add_argument("--metric", default="dot", choices=("dot", "cosine"))
+    ap.add_argument("--leaf", type=int, default=None,
+                    help="param-leaf index when the checkpoint holds "
+                    "several [N, D] tables")
+    ap.add_argument("--part", type=int, default=0)
+    ap.add_argument("--num-parts", type=int, default=1)
+    ap.add_argument("--replicas", type=int, default=1)
+    ap.add_argument("--host", default="127.0.0.1")
+    ap.add_argument("--port", type=int, default=0)
+    ap.add_argument("--registry", default=None)
+    ap.add_argument("--impl", default="auto", choices=IMPLS,
+                    help="kernel mode: auto (the kernels on the card, the "
+                    "plain versions on the CPU), ref or cuda")
+    ap.add_argument("--warm-k", type=int, default=16)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="where the shards are staged and searched: the "
+                    "CUDA card (default) or cpu")
+    args = ap.parse_args(argv)
+    if args.selftest:
+        return selftest(seed=args.seed, device=args.device)
+    if not args.model_dir:
+        ap.error("--model-dir is required (or --selftest)")
+    return serve(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -49,6 +49,8 @@ PORTED = [
     "euler_tpu_torch.serving.batcher", "euler_tpu_torch.serving.server",
     "euler_tpu_torch.serving.router", "euler_tpu_torch.serving.client",
     "euler_tpu_torch.tools.serve",
+    "euler_tpu_torch.retrieval.router", "euler_tpu_torch.retrieval.client",
+    "euler_tpu_torch.tools.retrieve",
 ]
 
 

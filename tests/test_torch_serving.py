@@ -134,7 +134,8 @@ def test_runtime_swap_buckets_and_errors(tmp_path):
     assert not np.allclose(predict(), before)
     # a newer complete checkpoint in model_dir is picked up on swap()
     JaxCheckpointStore(args.model_dir).save_leaves(9, leaves, [])
-    assert rt.swap()["step"] == 9
+    rt.swap()
+    assert rt._engine.step == 9
     np.testing.assert_allclose(predict(), before, rtol=TOL, atol=TOL)
     with pytest.raises(ValueError):
         rt.predict([])
@@ -237,7 +238,8 @@ def test_serve_fleet_registers_routes_and_reloads(tmp_path):
         np.testing.assert_array_equal(client.predict(ids), servers[0].runtime.predict(ids))
         reports = client.reload(canary_ids=ids[:TCP_BUCKET])
         assert [r["canary_parity"] for r in reports.values()] == [True, True]
-        assert [r["step"] for r in reports.values()] == [7, 7]
+        assert [r["reloads"] for r in reports.values()] == [1, 1]
+        assert [s.runtime._engine.step for s in servers] == [7, 7]
     finally:
         if client is not None:
             client.close()
