@@ -63,8 +63,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      Then the median step time, the device idle share and the kernel
      launches a step over 10 profiled steps; paged_sample_hop per hop on
      the path's tables, rows and draws (held bitwise first), cycled past the
-     L2 and L2-warm, against its plain version, the composition of kernels
-     2-4 it replaced (mode 'cuda') and its bound; then `train_grouped`:
+     L2 and L2-warm (200 calls), against its plain version and the
+     composition of kernels 2-4 it replaced (mode 'cuda'; 50 calls each)
+     and its bound; then `train_grouped`:
      the 20 steps again at steps_per_call 16 (one call of 16 and a
      remainder of 4; the first step eager, then 19 replays of the
      captured step), with the same launches a step, counted launches equal
@@ -224,7 +225,49 @@ Phases, each of which raises (exit code != 0) when it fails:
      attempt threads, then 64), hedges within the RetryBudget; kernel-1
      launches exactly 3 a device batch summed over the replicas; a reload
      of the same checkpoint on one replica with canary parity; the host's
-     core count.
+     core count;
+ 16. `unsup_train`, GraphSAGEUnsupervised on phase 5's graph (bf16 weight
+     plane) through DeviceUnsupSageFlow(fanouts 10,10, batch 512, 5
+     negatives, layout paged, page size 16), dims 128,128, adam lr 0.01:
+     20 steps in mode auto with exactly 7 paged_sample_hop launches a step
+     (the pos draw, then one a hop of the src, pos and negs fanouts), 9 of
+     gather_weighted_sum and 3 of its dx (one a MiniBatch), none of kernels
+     2-4; the first 3 steps in mode ref on the card (bitwise batches,
+     losses within 1e-4 relative); the dense layout's triples from the
+     same draws, bitwise; 20 steps at steps_per_call 16 (replays, the same
+     launches, losses within 1e-4 of K = 1's); 3 host-lane steps
+     (unsupervised_batches over SageDataFlow) on the card, 9 + 3 launches
+     a step, and on the CPU (losses within 1e-4); calls of 8 steps timed
+     at K = 1 and K = 16 (median step, device ms, idle share, the port's
+     kernels on the card a step by profiler record);
+ 17. `skipgram_train`, DeepWalk, node2vec (p 0.5, q 2) and LINE at dim
+     128 on phase 4's graph, batch 512, 5 negatives, walk 5, window 2,
+     adam lr 0.01: 20 steps each through DeviceWalkFlow / DeviceEdgeFlow
+     (no launch of the port's kernels), the first 2 again on the CPU from
+     the card's draws (bitwise batches, losses within 1e-4) and 2 through
+     deepwalk_batches / line_batches on the card and the CPU; calls of 8
+     steps timed; then on cora_like (tests/test_quality.py:467-507's
+     recipe) LINE after 2 000 steps with MRR in (0.87, 0.97) and DeepWalk
+     after 600 in (0.87, 0.995);
+ 18. `kg_train`, the six TransX variants at FB15k's shape (14 951
+     entities, 1 345 relations, 483 142 triples drawn from seed 5), dim
+     100, batch 512, 8 negatives, adam lr 0.01: 20 steps each through
+     DeviceKGFlow with finite losses, the first 2 again on the CPU from the
+     card's draws (bitwise batches, losses within 1e-4); TransE through
+     kg_batches on the card and the CPU, and timed in calls of 8 steps;
+     then on fb15k_like (tests/test_quality.py:510-546) the untrained
+     control's MeanRank > 600, and after 1 500 steps MeanRank in (30, 420)
+     and Hit@10 in (0.32, 0.55);
+ 19. `kg_retrieve`, phase 18's trained TransE entity table from its
+     committed checkpoint through `EmbeddingCorpus.from_checkpoint(leaf=)`
+     (cosine, padding rows masked out), 16 (head, relation) queries at
+     buckets 1, 4 and 16, k 10: answers bitwise numpy_topk_oracle's, one
+     paged_topk_score and one paged_topk_select launch a search;
+ 20. `run_model_cli`, `python -m euler_tpu_torch.examples.run_model` for
+     graphsage_unsup, deepwalk, line and transe on --synthetic data with
+     and without --device-flow (8 processes at once), then evaluate
+     (transe, graphsage_unsup) and infer (deepwalk, line, graphsage_unsup)
+     on the device-flow runs (5 at once): each exits 0.
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
@@ -294,6 +337,7 @@ HOP_KERNEL = "paged_sample_hop"
 HOP_NODES, HOP_GRAPH_SEED, HOP_HUBS = 3000, 21, (256, 257, 270, 600, 4200)
 HOP_PAGE_SIZES = (1, 8, 16, 128)
 HOP_KS = (1, 3, 10, 12, 17, 33)
+HOP_SLOW_ITERS = 50  # calls of the plain hop and the composition in their timing
 # one DRAM sector: the least a gather of one 4-byte word moves
 SECTOR_BYTES = 32
 
@@ -383,6 +427,29 @@ SERVE_WAIT_S = 120  # bound on every wait for a client thread
 # its x type: `gws_kernel<__nv_bfloat16, ...>` on bf16 features)
 CARD_KERNELS = {"gather_weighted_sum": "::gws_kernel<", "gather_weighted_sum_dx": "::gws_dx_kernel<",
                 HOP_KERNEL: "paged_sample_hop_kernel"}
+
+# the link-prediction cells (phases 16-20): GraphSAGEUnsupervised on the
+# paged device lane's graph (phase 5's), DeepWalk / node2vec / LINE on
+# phase 4's serving graph, the TransX family at FB15k's shape, and the JAX
+# package's quality bands (tests/test_quality.py:467-546) on its stand-ins
+UNSUP_BATCH, UNSUP_NEGS, UNSUP_STEPS, UNSUP_HOST_STEPS = 512, 5, 20, 3
+UNSUP_K, UNSUP_CALLS = 8, 5
+# launches an unsupervised step: paged_sample_hop once for the pos draw and
+# once a hop of each of the three fanouts (src, pos, negs); kernel 1 three
+# a MiniBatch (layer 0 over hops 0 and 1, layer 1 over hop 0) and its dx
+# one a MiniBatch (layer 1's x carries a gradient, layer 0's are features)
+UNSUP_PER_STEP = {HOP_KERNEL: 1 + 3 * len(TRAIN_FANOUTS), "gather_weighted_sum": 9,
+                  "gather_weighted_sum_dx": 3}
+SG_BATCH, SG_NEGS, SG_DIM, SG_WALK, SG_WINDOW, SG_STEPS, SG_CPU_STEPS = 512, 5, 128, 5, 2, 20, 2
+SG_K, SG_CALLS = 8, 5
+N2V_P, N2V_Q = 0.5, 2.0
+KG_ENT, KG_REL, KG_TRIPLES, KG_SEED = 14_951, 1_345, 483_142, 5
+KG_DIM, KG_BATCH, KG_NEGS, KG_STEPS, KG_CPU_STEPS = 100, 512, 8, 20, 2
+KGR_QUERIES, KGR_K, KGR_BUCKETS = 16, 10, (1, 4, 16)
+CLI_RM_MODELS, CLI_RM_STEPS = ("graphsage_unsup", "deepwalk", "line", "transe"), 20
+# the kernels line's paths of phase 16 and the launch counts each reads
+UNSUP_PATHS = (("unsup_train", "launches"), ("unsup_train_k16", "launches_k16"),
+               ("unsup_host", "launches_host"))
 
 
 def _card_line() -> str:
@@ -1161,30 +1228,34 @@ def check_hop_kernel(torch, gen) -> tuple[int, list]:
 
 
 class _Tap:
-    """Keeps copies of what a flow's draw_inputs and fanout_batch return
-    for their next `n` calls, by wrapping the instance's methods; they
-    launch no kernel of their own."""
+    """Keeps copies of what a flow's draw_inputs and make_batch return for
+    their next `n` calls (any nest of tensors), by wrapping the
+    instance's methods; they launch no kernel of their own. `close`
+    deletes the wrappers, and with them any draw_inputs the instance held
+    before."""
 
     def __init__(self, flow, n: int):
+        from euler_tpu_torch.estimator.graph_step import tree_map
+
         self.flow, self.draws, self.batches = flow, [], []
-        draw_inputs, fanout_batch = flow.draw_inputs, flow.fanout_batch
+        draw_inputs, make_batch = flow.draw_inputs, flow.make_batch
 
         def tap_draws(gen):
             out = draw_inputs(gen)
             if len(self.draws) < n:
-                self.draws.append((out[0].clone(), tuple(d.clone() for d in out[1])))
+                self.draws.append(tree_map(lambda v: v.clone(), out))
             return out
 
-        def tap_batch(roots, hop_draws):
-            out = fanout_batch(roots, hop_draws)
+        def tap_batch(*inputs):
+            out = make_batch(*inputs)
             if len(self.batches) < n:
                 self.batches.append(out)
             return out
 
-        flow.draw_inputs, flow.fanout_batch = tap_draws, tap_batch
+        flow.draw_inputs, flow.make_batch = tap_draws, tap_batch
 
     def close(self):
-        del self.flow.draw_inputs, self.flow.fanout_batch
+        del self.flow.draw_inputs, self.flow.make_batch
 
 
 def _batch_tensors(b) -> dict:
@@ -1221,7 +1292,6 @@ def _assert_close(got, want, what: str) -> float:
 
 def train(torch, tmp: str, seed: int) -> dict:
     """Phase 5: the training path on the paged device lane, at full width."""
-    from euler_tpu_torch import ops
     from euler_tpu_torch.dataflow import DeviceSageFlow, SageDataFlow
     from euler_tpu_torch.datasets import skewed_weighted_graph
     from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
@@ -1250,19 +1320,6 @@ def train(torch, tmp: str, seed: int) -> dict:
         model = GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2)
         return Estimator(model, flow, cfg, feature_cache=cache, device=device)
 
-    def run(est, steps: int, mode: str):
-        """`steps` optimizer steps in kernel mode `mode`, launch counts
-        reset just before and read just after."""
-        ops.set_kernel_mode(mode)
-        ops.reset_launch_counts()
-        try:
-            t = time.perf_counter()
-            losses = est.train(steps, log=False, save=False)
-            torch.cuda.synchronize()
-            return losses, ops.launch_counts(), time.perf_counter() - t
-        finally:
-            ops.set_kernel_mode("auto")
-
     try:
         # (a) the main path: bf16 weight plane, kernel mode auto
         flow, cache, stage_s = lane("bf16", "cuda")
@@ -1270,7 +1327,7 @@ def train(torch, tmp: str, seed: int) -> dict:
             raise AssertionError("the bf16 run did not stage a packed weight plane")
         est = estimator(flow, cache, "cuda", "main")
         tap = _Tap(flow, REF_STEPS)
-        losses, launches, main_s = run(est, TRAIN_STEPS, "auto")
+        losses, launches, main_s = _run_counted(torch, est, TRAIN_STEPS)
         tap.close()
         # one hop kernel a hop, and none of kernels 2-4 it replaced; kernel
         # 1: layer 0 over hops 0 and 1, layer 1 over hop 0; its dx only for
@@ -1290,7 +1347,7 @@ def train(torch, tmp: str, seed: int) -> dict:
         # (b) mode ref on the card: the plain versions, no kernel launch
         est_ref = estimator(flow, cache, "cuda", "ref")
         tap_ref = _Tap(flow, REF_STEPS)
-        losses_ref, launches_ref, _ = run(est_ref, REF_STEPS, "ref")
+        losses_ref, launches_ref, _ = _run_counted(torch, est_ref, REF_STEPS, "ref")
         tap_ref.close()
         if any(launches_ref.values()):
             raise AssertionError(f"mode ref launched kernels: {launches_ref}")
@@ -1314,7 +1371,7 @@ def train(torch, tmp: str, seed: int) -> dict:
         flow_f32, cache_f32, _ = lane("f32", "cuda")
         est_f32 = estimator(flow_f32, cache_f32, "cuda", "f32")
         tap_f32 = _Tap(flow_f32, F32_STEPS)
-        losses_f32, launches_f32, _ = run(est_f32, F32_STEPS, "auto")
+        losses_f32, launches_f32, _ = _run_counted(torch, est_f32, F32_STEPS)
         tap_f32.close()
         if (flow_f32._page_w_packed or launches_f32[HOP_KERNEL] != 2 * F32_STEPS
                 or any(launches_f32[name] for name in PAGED_KERNELS)):
@@ -1692,9 +1749,12 @@ def time_hop_kernel(torch, hops, card: str) -> list:
         kern = lambda t, c, d: paged_sample_hop(t, c, d, "cuda")  # noqa: E731
         comp = lambda t, c, d: _compose_hop(t, c, d, "cuda")  # noqa: E731
         iters = max(200, 2 * copies)
+        # the plain hop and the superseded composition issue dozens of
+        # small launches a call: fewer calls time them as well
+        slow_iters = max(HOP_SLOW_ITERS, copies)
         tk = _time_ms(torch, kern, sets, iters)
-        tp = _time_ms(torch, paged_sample_hop_ref, sets, iters)
-        tc = _time_ms(torch, comp, sets, iters)
+        tp = _time_ms(torch, paged_sample_hop_ref, sets, slow_iters)
+        tc = _time_ms(torch, comp, sets, slow_iters)
         warm = _time_ms(torch, kern, sets[:1], iters)
         if tk["device_ms"] <= 0:
             raise AssertionError(f"the profiler saw no device time for {HOP_KERNEL}")
@@ -1714,7 +1774,7 @@ def time_hop_kernel(torch, hops, card: str) -> list:
                                  "composition": tc["loop_ms"]},
                      "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                     "iters": iters})
+                     "iters": iters, "slow_iters": slow_iters})
         del sets, tables
     torch.cuda.empty_cache()
     _emit({"phase": "hop_kernel_timing", "card": card, "shapes": rows})
@@ -3985,6 +4045,476 @@ def retrieve_selftest(card: str) -> dict:
     return res
 
 
+# ---- phases 16-20: the link-prediction and shallow-embedding families -----
+
+
+def _same_nests(torch, got: list, want: list, what: str) -> int:
+    """Bitwise equality of lists of batches (any nest of tuples, dicts and
+    dataclasses of one structure; bf16 by its bits, on the host)."""
+    from euler_tpu_torch.estimator.graph_step import tensor_leaves, tree_map
+
+    if len(got) != len(want):
+        raise AssertionError(f"{what}: {len(got)} batches against {len(want)}")
+    for step, (a, b) in enumerate(zip(got, want)):
+        tree_map(lambda *v: None, a, b)  # raises where the structures differ
+        ta, tb = tensor_leaves(a), tensor_leaves(b)
+        if len(ta) != len(tb):
+            raise AssertionError(f"{what}: step {step} has {len(ta)} tensors against {len(tb)}")
+        for key, (x, y) in enumerate(zip(ta, tb)):
+            x, y = x.cpu(), y.cpu()
+            if x.dtype == torch.bfloat16:
+                x, y = x.view(torch.int16), y.view(torch.int16)
+            if x.dtype != y.dtype or not torch.equal(x, y):
+                raise AssertionError(f"{what}: step {step} {key} differs")
+    return len(got)
+
+
+def _to_cpu(torch, x):
+    from euler_tpu_torch.estimator.graph_step import tree_map
+
+    return tree_map(lambda v: v.cpu() if isinstance(v, torch.Tensor) else v, x)
+
+
+def _run_counted(torch, est, steps: int, mode: str = "auto") -> tuple:
+    """`steps` optimizer steps in kernel mode `mode`: (losses, the launch
+    counts reset just before and read just after, seconds)."""
+    from euler_tpu_torch import ops
+
+    ops.set_kernel_mode(mode)
+    ops.reset_launch_counts()
+    try:
+        t = time.perf_counter()
+        losses = est.train(steps, log=False, save=False)
+        torch.cuda.synchronize()
+        return losses, ops.launch_counts(), time.perf_counter() - t
+    finally:
+        ops.set_kernel_mode("auto")
+
+
+def _card_vs_cpu(torch, make_est, card_flow, cpu_flow, steps: int, what: str) -> dict:
+    """`steps` steps of two Estimators built alike (`make_est(flow,
+    device)`: one seed, one init) on the card and on the CPU, the CPU
+    flow handed the card's draws: bitwise equal batches, losses within
+    TRAIN_TOL relative."""
+    tap = _Tap(card_flow, steps)
+    losses = make_est(card_flow, "cuda").train(steps, log=False, save=False)
+    tap.close()
+    draws = iter([_to_cpu(torch, d) for d in tap.draws])
+    cpu_flow.draw_inputs = lambda gen: next(draws)
+    tap_cpu = _Tap(cpu_flow, steps)
+    try:
+        losses_cpu = make_est(cpu_flow, "cpu").train(steps, log=False, save=False)
+    finally:
+        tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
+    same = _same_nests(torch, tap_cpu.batches, tap.batches, f"{what}: card vs CPU")
+    return {"batches_equal": same, "losses": losses, "losses_cpu": losses_cpu,
+            "max_rel_err": _assert_close(losses_cpu, losses, f"{what}: card vs CPU")}
+
+
+def _host_card_vs_cpu(torch, make_est, batches: list, what: str, want: dict | None) -> dict:
+    """The same host batches through an Estimator on the card (launches
+    counted: `want` a step) and one on the CPU: losses within TRAIN_TOL
+    relative. The first batch is the init draw of each."""
+    steps = len(batches) - 1
+    it = iter(batches)
+    est = make_est(lambda: next(it), "cuda")
+    losses, launches, _ = _run_counted(torch, est, steps)
+    if want is not None:
+        _expect_launches(launches, {k: n * steps for k, n in want.items()}, what)
+    it_cpu = iter(batches)
+    losses_cpu = make_est(lambda: next(it_cpu), "cpu").train(steps, log=False, save=False)
+    return {"steps": steps, "losses": losses, "losses_cpu": losses_cpu, "launches": launches,
+            "max_rel_err": _assert_close(losses_cpu, losses, f"{what}: card vs CPU")}
+
+
+def unsup_train(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 16: GraphSAGEUnsupervised on the paged device lane's graph
+    (phase 5's: skewed_weighted_graph 200 000 nodes, bf16 weight plane),
+    DeviceUnsupSageFlow(fanouts 10,10, batch 512, 5 negatives, paged, P =
+    16), dims 128,128, adam lr 0.01: 20 steps in mode auto with exactly
+    UNSUP_PER_STEP launches a step; the first 3 again in mode ref (bitwise
+    batches, losses within 1e-4); the dense layout's triples from the same
+    draws bitwise; 20 steps at K = 16 (replays, the same launches, losses
+    within 1e-4 of K = 1's); a few host-lane steps (unsupervised_batches
+    over SageDataFlow) on the card (9 + 3 launches a step) and the CPU;
+    then calls of UNSUP_K steps timed at K = 1 and K = 16."""
+    from euler_tpu_torch.dataflow import DeviceUnsupSageFlow, SageDataFlow
+    from euler_tpu_torch.datasets import skewed_weighted_graph
+    from euler_tpu_torch.estimator import (DeviceFeatureCache, Estimator, EstimatorConfig,
+                                           unsupervised_batches)
+    from euler_tpu_torch.models import GraphSAGEUnsupervised
+
+    t0 = time.perf_counter()
+    g = skewed_weighted_graph(TRAIN_NODES, TRAIN_GRAPH_SEED)
+    prev_dtype = os.environ.get("EULER_TPU_PAGE_DTYPE")
+    os.environ["EULER_TPU_PAGE_DTYPE"] = "bf16"
+    try:
+        def flow(layout: str, device: str = "cuda"):
+            return DeviceUnsupSageFlow(g, fanouts=TRAIN_FANOUTS, batch_size=UNSUP_BATCH,
+                                       num_negs=UNSUP_NEGS, layout=layout, page_size=PAGE_SIZE,
+                                       device=device)
+
+        paged = flow("paged")
+        if not paged._page_w_packed:
+            raise AssertionError("the unsupervised lane did not stage a packed weight plane")
+        cache = DeviceFeatureCache(g, ["feat"], device="cuda")
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev_dtype
+    setup_s = time.perf_counter() - t0
+
+    def estimator(f, name: str, k: int = 1, fc=cache, device: str = "cuda"):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, name), learning_rate=0.01,
+                              optimizer="adam", log_steps=10**9, seed=seed, steps_per_call=k)
+        return Estimator(GraphSAGEUnsupervised(TRAIN_FEAT, TRAIN_DIMS), f, cfg,
+                         feature_cache=fc, device=device)
+
+    # (a) the main path, mode auto
+    est = estimator(paged, "unsup")
+    tap = _Tap(paged, REF_STEPS)
+    losses, launches, main_s = _run_counted(torch, est, UNSUP_STEPS)
+    tap.close()
+    _expect_launches(launches, {k: n * UNSUP_STEPS for k, n in UNSUP_PER_STEP.items()},
+                     "the unsupervised device lane")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"unsupervised losses not finite: {losses}")
+    # (b) mode ref on the card: the plain versions, the same batches
+    tap_ref = _Tap(paged, REF_STEPS)
+    losses_ref, launches_ref, _ = _run_counted(torch, estimator(paged, "unsup_ref"),
+                                               REF_STEPS, "ref")
+    tap_ref.close()
+    if any(launches_ref.values()):
+        raise AssertionError(f"mode ref launched kernels: {launches_ref}")
+    same_ref = _same_nests(torch, tap_ref.batches, tap.batches, "unsup auto vs ref")
+    err_ref = _assert_close(losses_ref, losses[:REF_STEPS], "unsup auto vs ref")
+    # (c) the dense layout draws the same triples from the same numbers
+    dense = flow("dense")
+    same_dense = _same_nests(torch, [dense.make_batch(*d) for d in tap.draws], tap.batches,
+                             "unsup dense vs paged")
+    del dense
+    # (d) K = 16: the captured step replayed
+    est16 = estimator(paged, "unsup_k16", k=GROUP_K)
+    losses16, launches16, _ = _run_counted(torch, est16, UNSUP_STEPS)
+    _expect_launches(launches16, {k: n * UNSUP_STEPS for k, n in UNSUP_PER_STEP.items()},
+                     f"the unsupervised device lane at K = {GROUP_K}")
+    replays = _replay_launches(est16, launches16,
+                               {k: n * est16.captures for k, n in UNSUP_PER_STEP.items()})
+    err16 = _assert_close(losses16, losses, f"unsup K = {GROUP_K} vs K = 1")
+    # (e) the host lane: (src, pos, negs) host batches on the card and the CPU
+    host_flow = SageDataFlow(g, ["feat"], fanouts=TRAIN_FANOUTS, rng=np.random.default_rng(seed))
+    src = unsupervised_batches(g, host_flow, UNSUP_BATCH, num_negs=UNSUP_NEGS,
+                               rng=np.random.default_rng(seed + 1))
+    host_batches = [src() for _ in range(UNSUP_HOST_STEPS + 1)]
+    host = _host_card_vs_cpu(
+        torch, lambda fn, device: estimator(fn, f"unsup_host_{device}", fc=None, device=device),
+        host_batches, "the unsupervised host lane",
+        {k: v for k, v in UNSUP_PER_STEP.items() if k != HOP_KERNEL})
+    del host_batches
+    # (f) timing: calls of UNSUP_K steps at K = 1 and K = 16
+    per_step = UNSUP_PER_STEP
+    k1 = _call_window(torch, est, UNSUP_K, UNSUP_CALLS, card, "unsup K = 1", per_step)
+    k16 = _call_window(torch, est16, UNSUP_K, UNSUP_CALLS, card, f"unsup K = {GROUP_K}",
+                       per_step)
+    res = {"phase": "unsup_train", "card": card, "nodes": TRAIN_NODES,
+           "batch": UNSUP_BATCH, "num_negs": UNSUP_NEGS, "fanouts": TRAIN_FANOUTS,
+           "dims": TRAIN_DIMS, "layout": "paged", "page_size": PAGE_SIZE, "steps": UNSUP_STEPS,
+           "losses": losses, "launches": launches, "launches_per_step": per_step,
+           "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref,
+                           "max_rel_err": err_ref},
+           "dense_vs_paged_batches_equal": same_dense,
+           "k16": {"losses": losses16, "max_rel_err": err16, "launches": launches16,
+                   "captures": est16.captures, **replays},
+           "host_lane": host, "timing_k1": k1, f"timing_k{GROUP_K}": k16,
+           "setup_s": setup_s, "main_run_s": main_s, "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"launches": launches, "launches_k16": launches16,
+            "launches_host": host["launches"], "result": res}
+
+
+def skipgram_train(torch, graph, tmp: str, seed: int, card: str) -> dict:
+    """Phase 17: DeepWalk, node2vec (p 0.5, q 2) and LINE at
+    SkipGramModel's default dim 128 on phase 4's serving graph (200 000
+    nodes, out-degree 10: the biased walk's max degree <= 64 holds), batch
+    512, 5 negatives, adam lr 0.01: through DeviceWalkFlow / DeviceEdgeFlow
+    (20 steps; the first 2 again on the CPU from the card's draws:
+    bitwise batches, losses within 1e-4) and through deepwalk_batches /
+    line_batches (the same host batches on the card and the CPU); no
+    kernel of the port launches on these paths. Then the quality bands of
+    tests/test_quality.py:467-507 on cora_like on the card: LINE 2 000
+    steps MRR in (0.87, 0.97), DeepWalk 600 steps in (0.87, 0.995); and
+    calls of SG_K steps timed for each device-flow cell."""
+    from euler_tpu_torch.dataflow import DeviceEdgeFlow, DeviceWalkFlow
+    from euler_tpu_torch.datasets import cora_like_json
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.examples.link_quality import skipgram_quality
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.models import SkipGramModel, deepwalk_batches, line_batches
+
+    max_id = int(graph.shards[0].node_ids.max())
+
+    def make(name: str, shared: bool):
+        def build(fn, device: str):
+            cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"{name}_{device}"),
+                                  learning_rate=0.01, log_steps=10**9, seed=seed)
+            return Estimator(SkipGramModel(max_id, SG_DIM, shared_context=shared), fn, cfg,
+                             device=device)
+        return build
+
+    cells = {
+        "deepwalk": (lambda d: DeviceWalkFlow(graph, SG_BATCH, SG_WALK, SG_WINDOW, SG_NEGS,
+                                              device=d), False,
+                     lambda r: deepwalk_batches(graph, SG_BATCH, SG_WALK, SG_WINDOW, SG_NEGS,
+                                                rng=r)),
+        "node2vec": (lambda d: DeviceWalkFlow(graph, SG_BATCH, SG_WALK, SG_WINDOW, SG_NEGS,
+                                              p=N2V_P, q=N2V_Q, device=d), False,
+                     lambda r: deepwalk_batches(graph, SG_BATCH, SG_WALK, SG_WINDOW, SG_NEGS,
+                                                p=N2V_P, q=N2V_Q, rng=r)),
+        "line": (lambda d: DeviceEdgeFlow(graph, SG_BATCH, SG_NEGS, device=d), True,
+                 lambda r: line_batches(graph, SG_BATCH, SG_NEGS, rng=r)),
+    }
+    res = {"phase": "skipgram_train", "card": card, "nodes": NUM_NODES, "dim": SG_DIM,
+           "batch": SG_BATCH, "num_negs": SG_NEGS, "walk_len": SG_WALK, "window": SG_WINDOW,
+           "node2vec_pq": [N2V_P, N2V_Q]}
+    for name, (make_flow, shared, host_src) in cells.items():
+        t0 = time.perf_counter()
+        flow = make_flow("cuda")
+        if name == "node2vec" and not (flow.biased and flow.max_deg <= 64):
+            raise AssertionError(f"node2vec flow biased={flow.biased} max_deg={flow.max_deg}")
+        build = make(name, shared)
+        est = build(flow, "cuda")
+        losses, launches, run_s = _run_counted(torch, est, SG_STEPS)
+        _expect_launches(launches, {}, f"the {name} device flow")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{name} losses not finite: {losses}")
+        cpu = _card_vs_cpu(torch, build, flow, make_flow("cpu"), SG_CPU_STEPS, name)
+        src = host_src(np.random.default_rng(seed))
+        host = _host_card_vs_cpu(torch, make(f"{name}_host", shared),
+                                 [src() for _ in range(SG_CPU_STEPS + 1)], f"{name} host", {})
+        timing = _call_window(torch, est, SG_K, SG_CALLS, card, f"{name} device flow", {})
+        res[name] = {"losses": losses, "launches": {k: v for k, v in launches.items() if v},
+                     "card_vs_cpu": cpu, "host": host, "timing": timing,
+                     "pairs_per_step": (SG_BATCH * flow.pairs_per_walk
+                                        if name != "line" else SG_BATCH),
+                     "seconds": time.perf_counter() - t0}
+        del est, flow
+    # the quality bands on cora_like, the JAX tests' recipes
+    t0 = time.perf_counter()
+    cg = Graph.from_json(cora_like_json())
+    quality = {name: skipgram_quality(name, "cuda", graph=cg) for name in ("line", "deepwalk")}
+    for name, q in quality.items():
+        if not q["in_band"]:
+            raise AssertionError(f"{name} quality out of its band: {q}")
+    res["quality"] = {**quality, "seconds": time.perf_counter() - t0}
+    _emit(res)
+    return res
+
+
+def kg_graph(num_entities: int, num_relations: int, num_triples: int, seed: int):
+    """A knowledge graph at a given shape, drawn from `seed`: entities
+    1..num_entities (unit weights), triples with uniform heads, relations
+    and tails, built straight into the port's columnar store (the arrays
+    `build_from_json` would make for those edges, without the in-edge
+    adjacency no flow of this phase reads)."""
+    from euler_tpu_torch.graph import Graph, GraphStore
+    from euler_tpu_torch.graph.builder import _csr_adjacency
+    from euler_tpu_torch.graph.meta import GraphMeta
+
+    rng = np.random.default_rng(seed)
+    ids = np.arange(1, num_entities + 1, dtype=np.uint64)
+    h = rng.integers(1, num_entities + 1, num_triples).astype(np.uint64)
+    r = rng.integers(0, num_relations, num_triples).astype(np.int32)
+    t = rng.integers(1, num_entities + 1, num_triples).astype(np.uint64)
+    w = np.ones(num_triples, np.float32)
+    arrays = {"node_ids": ids, "node_types": np.zeros(num_entities, np.int32),
+              "node_weights": np.ones(num_entities, np.float32), "edge_src": h, "edge_dst": t,
+              "edge_types": r, "edge_weights": w}
+    arrays.update(_csr_adjacency(ids, h, t, r, w, np.arange(num_triples, dtype=np.int64),
+                                 num_relations, "adj"))
+    meta = GraphMeta(name="kg", num_partitions=1, num_node_types=1,
+                     num_edge_types=num_relations)
+    meta.node_weight_sums.append([float(num_entities)])
+    ew = np.zeros(num_relations, np.float64)
+    np.add.at(ew, r, 1.0)
+    meta.edge_weight_sums.append(ew.tolist())
+    return Graph(meta, [GraphStore(meta, arrays, 0)])
+
+
+def kg_train(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 18: the TransX family at FB15k's shape (14 951 entities, 1 345
+    relations, 483 142 triples drawn from a seed), dim 100, batch 512, 8
+    negatives, adam lr 0.01: each of the six variants 20 steps on
+    DeviceKGFlow (finite losses; the first 2 again on the CPU from the
+    card's draws: bitwise batches, losses within 1e-4), TransE also
+    through kg_batches (card and CPU); TransE timed in calls of SG_K
+    steps; the trained TransE saved as a checkpoint for phase 19. Then
+    the quality band of tests/test_quality.py:510-546 on fb15k_like on
+    the card: the untrained control MeanRank > 600, then after 1 500 steps
+    MeanRank in (30, 420) and Hit@10 in (0.32, 0.55)."""
+    from euler_tpu_torch.dataflow import DeviceKGFlow
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.examples.link_quality import transe_quality
+    from euler_tpu_torch.models import TransX, kg_batches
+    from euler_tpu_torch.models.kg import VARIANTS
+
+    t0 = time.perf_counter()
+    g = kg_graph(KG_ENT, KG_REL, KG_TRIPLES, KG_SEED)
+    flow, flow_cpu = (DeviceKGFlow(g, KG_BATCH, KG_NEGS, device=d) for d in ("cuda", "cpu"))
+    setup_s = time.perf_counter() - t0
+
+    def make(variant: str, name: str):
+        def build(fn, device: str):
+            cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"{name}_{device}"),
+                                  learning_rate=0.01, log_steps=10**9, seed=seed)
+            return Estimator(TransX(KG_ENT, KG_REL, dim=KG_DIM, variant=variant), fn, cfg,
+                             device=device)
+        return build
+
+    res = {"phase": "kg_train", "card": card, "entities": KG_ENT, "relations": KG_REL,
+           "triples": KG_TRIPLES, "dim": KG_DIM, "batch": KG_BATCH, "num_negs": KG_NEGS,
+           "setup_s": setup_s, "variants": {}}
+    transe = None
+    for variant in VARIANTS:
+        t = time.perf_counter()
+        est = make(variant, variant)(flow, "cuda")
+        losses, launches, _ = _run_counted(torch, est, KG_STEPS)
+        _expect_launches(launches, {}, f"{variant} on DeviceKGFlow")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{variant} losses not finite: {losses}")
+        cpu = _card_vs_cpu(torch, make(variant, f"{variant}_cmp"), flow, flow_cpu,
+                           KG_CPU_STEPS, variant)
+        res["variants"][variant] = {"losses": losses, "card_vs_cpu": cpu,
+                                    "seconds": time.perf_counter() - t}
+        if variant == "transe":
+            transe = est
+        else:
+            del est
+    src = kg_batches(g, KG_BATCH, KG_NEGS, rng=np.random.default_rng(seed))
+    res["transe_host"] = _host_card_vs_cpu(torch, make("transe", "transe_host"),
+                                           [src() for _ in range(KG_CPU_STEPS + 1)],
+                                           "transe host", {})
+    res["transe_timing"] = _call_window(torch, transe, SG_K, SG_CALLS, card,
+                                        "transe device flow", {})
+    ckpt = transe.save()
+    # the quality band on fb15k_like, the JAX test's recipe
+    t = time.perf_counter()
+    quality = transe_quality("cuda")
+    if not quality["in_band"]:
+        raise AssertionError(f"TransE quality out of its bands: {quality}")
+    res["quality"] = {**quality, "seconds": time.perf_counter() - t}
+    _emit(res)
+    return {"result": res, "checkpoint": ckpt, "model_dir": transe.cfg.model_dir,
+            "graph": g, "estimator": transe}
+
+
+def kg_retrieve(torch, trained: dict, card: str) -> dict:
+    """Phase 19: phase 18's TransE entity table from its committed
+    checkpoint (`EmbeddingCorpus.from_checkpoint(leaf=)`, every table row
+    an id, the padding rows masked out), served by TopKIndex on the card:
+    KGR_QUERIES (h, r) queries normalize(E[h]) + R[r] at buckets 1, 4 and
+    16, cosine, k KGR_K: answers bitwise numpy_topk_oracle's, one
+    paged_topk_score and one paged_topk_select launch a search."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.params import checkpoint_order
+    from euler_tpu_torch.retrieval import EmbeddingCorpus, TopKIndex
+    from euler_tpu_torch.retrieval.topk import numpy_topk_oracle
+
+    est = trained["estimator"]
+    sd = est.model.state_dict()
+    keys = checkpoint_order(sd)
+    rows = sd["entity.table"].shape[0]
+    ids = np.arange(rows, dtype=np.uint64)
+    corpus = EmbeddingCorpus.from_checkpoint(trained["model_dir"], ids, metric="cosine",
+                                             leaf=keys.index("entity.table"))
+    want = EmbeddingCorpus.build(ids, sd["entity.table"].cpu().numpy(), metric="cosine")
+    if corpus.step != est.step or not np.array_equal(corpus.vectors, want.vectors):
+        raise AssertionError("the corpus is not the checkpoint's entity table")
+    index = TopKIndex(corpus, device="cuda")
+    mask = (ids >= 1) & (ids <= KG_ENT)
+    e = trained["graph"].sample_edge(KGR_QUERIES, rng=np.random.default_rng(31))
+    ent, rel = sd["entity.table"].cpu().numpy(), sd["relation.table"].cpu().numpy()
+    head = ent[e[:, 0].astype(np.int64)]
+    q = (head / np.maximum(np.linalg.norm(head, axis=1, keepdims=True), 1e-12)
+         + rel[e[:, 2].astype(np.int64)]).astype(np.float32)
+    index.warmup(KGR_K, buckets=KGR_BUCKETS)
+    ops.reset_launch_counts()
+    answers = [index.search(q[:b], KGR_K, mask) for b in KGR_BUCKETS]
+    launches = ops.launch_counts()
+    want = {"paged_topk_score": len(KGR_BUCKETS), "paged_topk_select": len(KGR_BUCKETS)}
+    _expect_launches(launches, want, "the TransE table's searches")
+    for b, got in zip(KGR_BUCKETS, answers):
+        oracle = numpy_topk_oracle(ids, ent, q[:b], KGR_K, metric="cosine", mask=mask)
+        if not _same_answer(got, oracle):
+            raise AssertionError(f"TransE retrieval at bucket {b} differs from the oracle")
+    res = {"phase": "kg_retrieve", "card": card, "rows": int(rows), "dim": KG_DIM,
+           "checkpoint": os.path.basename(trained["checkpoint"]), "k": KGR_K,
+           "buckets": list(KGR_BUCKETS), "launches": {k: v for k, v in launches.items() if v},
+           "bitwise_vs_oracle": True, "templates": dict(index.templates)}
+    _emit(res)
+    return {"launches": launches, "result": res}
+
+
+def run_model_cli(torch, tmp: str, card: str) -> dict:
+    """Phase 20: `python -m euler_tpu_torch.examples.run_model` as
+    processes, on the card, on --synthetic data (cora for
+    graphsage_unsup / deepwalk / line, fb15k for transe, converted once
+    beforehand): train with and without --device-flow (8 processes at
+    once), then --mode evaluate (transe) and infer (deepwalk, line,
+    graphsage_unsup) on the device-flow runs' dirs (4 at once): every one
+    exits 0 with its result line."""
+    from euler_tpu_torch.datasets import get_dataset
+
+    env = dict(os.environ, EULER_TPU_DATA=os.path.join(tmp, "cli_data"))
+    prev = os.environ.get("EULER_TPU_DATA")
+    os.environ["EULER_TPU_DATA"] = env["EULER_TPU_DATA"]
+    try:
+        for name in ("cora", "fb15k"):
+            get_dataset(name).load_graph(synthetic=True)
+    finally:
+        if prev is None:
+            os.environ.pop("EULER_TPU_DATA", None)
+        else:
+            os.environ["EULER_TPU_DATA"] = prev
+
+    def cmd(model, flow, mode):
+        return [sys.executable, "-m", "euler_tpu_torch.examples.run_model", "--model", model,
+                "--dataset", "fb15k" if model == "transe" else "cora", "--synthetic",
+                "--mode", mode, "--total-steps", str(CLI_RM_STEPS),
+                "--model-dir", os.path.join(tmp, f"cli_runs_{flow}")] + (
+                    ["--device-flow"] if flow == "device" else [])
+
+    def wave(jobs):
+        procs = [(job, subprocess.Popen(cmd(*job), env=env, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)) for job in jobs]
+        out = {}
+        for job, p in procs:
+            try:
+                text, _ = p.communicate(timeout=CLI_WAIT_S)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+                raise
+            last = text.strip().splitlines()[-1] if text.strip() else ""
+            if p.returncode != 0:
+                raise AssertionError(f"run_model {' '.join(job)} exited {p.returncode}:\n{text}")
+            out[" ".join(job)] = last[:200]
+        return out
+
+    t0 = time.perf_counter()
+    flows = ("host", "device")
+    trained = wave([(m, f, "train") for m in CLI_RM_MODELS for f in flows])
+    if not all("trained" in v for v in trained.values()):
+        raise AssertionError(f"run_model train runs: {trained}")
+    later = wave([(m, "device", mode)
+                  for m, mode in (("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer"),
+                                  ("graphsage_unsup", "infer"))])
+    res = {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
+           "evaluate_infer": later, "seconds": time.perf_counter() - t0}
+    _emit(res)
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--model-dir", default=None,
@@ -4089,10 +4619,23 @@ def main(argv=None) -> int:
         # 13-15. the serving front end over TCP: bench.py's serving lane on
         # phase 4's graph, its parity and admission checks, the fleet lane
         tcp = serve_tcp(torch, served["graph"], tmp, card)
-        tcp_parity = serve_parity(torch, served.pop("graph"), tcp, card)
+        tcp_parity = serve_parity(torch, served["graph"], tcp, card)
         fleet = serve_fleet(torch, tmp, card)
         served_paths = {"serve_tcp": tcp["result"], "serve_parity": tcp_parity,
                         "serve_fleet": fleet}
+
+        # 16-20. the link-prediction and shallow-embedding families: the
+        # unsupervised GraphSAGE lane, the skip-gram family on phase 4's
+        # graph, the TransX family, its table served, the run_model CLI
+        unsup = unsup_train(torch, tmp, args.seed, card)
+        torch.cuda.empty_cache()
+        skipgram_train(torch, served.pop("graph"), tmp, args.seed, card)
+        torch.cuda.empty_cache()
+        kg = kg_train(torch, tmp, args.seed, card)
+        kg_search = kg_retrieve(torch, kg, card)
+        del kg
+        torch.cuda.empty_cache()
+        run_model_cli(torch, tmp, card)
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -4111,6 +4654,13 @@ def main(argv=None) -> int:
     head_dx_rows = (time_dx(torch, gen, head_shapes[2:], "headline step, f32 convs")
                     + time_dx(torch, gen, (head_bf16,), "headline step, bf16 convs",
                               torch.bfloat16))
+    # the unsupervised step (phase 16): src and pos batches of UNSUP_BATCH
+    # roots, the negs batch of UNSUP_BATCH * UNSUP_NEGS; dx on each layer 1
+    unsup_shapes = (tuple(("src/pos " + s[0],) + s[1:] for s in gws_shapes(UNSUP_BATCH, TRAIN_FEAT))
+                    + tuple(("negs " + s[0],) + s[1:]
+                            for s in gws_shapes(UNSUP_BATCH * UNSUP_NEGS, TRAIN_FEAT)))
+    unsup_rows = time_kernels(torch, gen, unsup_shapes, "unsup step")
+    unsup_dx_rows = time_dx(torch, gen, unsup_shapes[2::3], "unsup step")
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -4118,6 +4668,12 @@ def main(argv=None) -> int:
 
     def bound_by(rows):
         return "bytes" if all(r["bound_by"] == "bytes" for r in rows) else "operations"
+
+    def unsup_step(rows):
+        """One unsupervised step's sum: twice the src/pos rows, once the negs'."""
+        half = len(rows) // 2
+        return {k: 2 * total(rows[:half], k) + total(rows[half:], k)
+                for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
 
     # 6. the kernels line: per kernel, the sums over the launches of one
     # bucket-128 predict (gather_weighted_sum) or one train step (paged)
@@ -4132,7 +4688,8 @@ def main(argv=None) -> int:
         "headline": head["launches"]["gather_weighted_sum"],
         "train_host_native": host_native["launches"]["gather_weighted_sum"],
         "host_headline": host_head["launches"]["gather_weighted_sum"],
-        **{path: r["gather_weighted_sum"] for path, r in served_paths.items()}}
+        **{path: r["gather_weighted_sum"] for path, r in served_paths.items()},
+        **{path: unsup[key]["gather_weighted_sum"] for path, key in UNSUP_PATHS}}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -4140,7 +4697,9 @@ def main(argv=None) -> int:
                         "headline": head["launches"]["gather_weighted_sum_dx"],
                         "train_host_native": host_native["launches"]["gather_weighted_sum_dx"],
                         "host_headline": host_head["launches"]["gather_weighted_sum_dx"],
-                        **{path: r["gather_weighted_sum_dx"] for path, r in served_paths.items()}}
+                        **{path: r["gather_weighted_sum_dx"] for path, r in served_paths.items()},
+                        **{path: unsup[key]["gather_weighted_sum_dx"]
+                           for path, key in UNSUP_PATHS}}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -4177,6 +4736,8 @@ def main(argv=None) -> int:
                                               ("bf16", head_rows[:2] + head_rows[3:]))},
         "headline_shapes": [{k: r[k] for k in shape_keys + ("x_dtype", "max_abs_err")}
                             for r in head_rows],
+        "unsup_step": unsup_step(unsup_rows),
+        "unsup_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in unsup_rows],
     }, {
         "name": "gather_weighted_sum_dx",
         "route": "cuda",
@@ -4202,6 +4763,8 @@ def main(argv=None) -> int:
         "host_shapes": [{k: r[k] for k in shape_keys} for r in host_dx_rows],
         "headline_shapes": [{k: r[k] for k in shape_keys + ("dx_dtype",)}
                             for r in head_dx_rows],
+        "unsup_step": unsup_step(unsup_dx_rows),
+        "unsup_shapes": [{k: r[k] for k in shape_keys} for r in unsup_dx_rows],
     }]
     # the hop kernel: the sums over the two hops of one train step
     kernels.append({
@@ -4211,9 +4774,12 @@ def main(argv=None) -> int:
         "replaces": "euler_tpu/ops/pallas_kernels.py:356, :436, :247 and :478-503 "
                     "(paged_page_search), as euler_tpu/dataflow/device.py:922-975 "
                     "composes them",
-        "launches": train_launches[HOP_KERNEL] + grouped["launches"][HOP_KERNEL],
+        "launches": (train_launches[HOP_KERNEL] + grouped["launches"][HOP_KERNEL]
+                     + unsup["launches"][HOP_KERNEL] + unsup["launches_k16"][HOP_KERNEL]),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
-                             "train_grouped": grouped["launches"][HOP_KERNEL]},
+                             "train_grouped": grouped["launches"][HOP_KERNEL],
+                             "unsup_train": unsup["launches"][HOP_KERNEL],
+                             "unsup_train_k16": unsup["launches_k16"][HOP_KERNEL]},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],
@@ -4243,7 +4809,9 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"euler_tpu_torch/ops/csrc/{src}",
             "replaces": f"euler_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_launches[name],
+            "launches": train_launches[name] + unsup["launches"][name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "unsup_train": unsup["launches"][name]},
             "max_abs_err": paged_check["max_abs_err"],
             "check": "bitwise",
             "ms": total(rows, "ms"),
@@ -4259,6 +4827,7 @@ def main(argv=None) -> int:
     # search of each bucket; launches on phase 6's path and the front end's
     retr_launches = {name: {"retrieve": retrieved["launches"][name],
                             "retrieve_lane": lane["launches"][name],
+                            "kg_retrieve": kg_search["launches"][name],
                             **{f"retrieve_fleet_{w}": retr_fleet[w]["launches"][name]
                                for w in ("steady", "roll", "failover")}}
                      for name in ("paged_topk_score", "paged_topk_select")}

@@ -9,4 +9,12 @@ from euler_tpu_torch.dataflow.base import (  # noqa: F401
     upgrade_lean_host,
 )
 from euler_tpu_torch.dataflow.sage import FullNeighborDataFlow, SageDataFlow  # noqa: F401
-from euler_tpu_torch.dataflow.device import DeviceGraphTables, DeviceSageFlow  # noqa: F401
+from euler_tpu_torch.dataflow.device import (  # noqa: F401
+    DeviceEdgeFlow,
+    DeviceGraphTables,
+    DeviceKGFlow,
+    DeviceSageFlow,
+    DeviceUnsupSageFlow,
+    DeviceWalkFlow,
+)
+from euler_tpu_torch.dataflow.walk import gen_pair  # noqa: F401

@@ -1,7 +1,11 @@
-"""Device-resident GraphSAGE sampling: the adjacency lives on the card and
-every training step draws its fanout batch there
+"""Device-resident sampling: the adjacency (or the flat edge list) lives
+on the card and every training step draws its batch there
 (counterpart: euler_tpu/dataflow/device.py:84-154, 211-566, 742-975,
-978-1075).
+978-1338): the GraphSAGE fanout (`DeviceSageFlow`), its unsupervised
+(src, pos, negs) triple (`DeviceUnsupSageFlow`), DeepWalk / node2vec
+walks and skip-gram pairs (`DeviceWalkFlow`), LINE's edges
+(`DeviceEdgeFlow`) and the TransX family's corrupted triples
+(`DeviceKGFlow`).
 
 Staging (once, on the host, numpy) is the JAX package's, step for step,
 so both packages stage the same integers: the compacted neighbour rows
@@ -26,15 +30,18 @@ Both layouts invert the same quantized CDF, so they draw the same
 neighbours from the same random numbers.
 
 Random numbers. The port draws with `torch.Generator` and cannot give
-JAX's threefry bits. A draw is therefore split in two: `draw_inputs`
-makes the root rows and, per hop, the u32 random bits (weighted graphs,
-held as int32 bit patterns) or f32 uniforms (unit weights); the
-deterministic `fanout_batch` turns them into the lean `MiniBatch`. Fed
-the numbers JAX derives from its key, `fanout_batch` gives JAX's batch
-bit for bit (tests/test_torch_device_flow.py).
+JAX's threefry bits. A draw is therefore split in two: every flow's
+`draw_inputs` makes the node rows (roots, negatives) or edge picks and,
+per neighbour draw, the u32 random bits (weighted graphs, held as int32
+bit patterns) or f32 uniforms (unit weights, and the biased walk); the
+flow's deterministic `make_batch` turns them into the batch. Fed the
+numbers JAX derives from its key, `make_batch` gives JAX's batch bit for bit
+(tests/test_torch_device_flow.py, tests/test_torch_unsup.py,
+tests/test_torch_skipgram.py, tests/test_torch_kg.py).
 
-Not ported yet: `refresh_rows`, `mesh`, remote-shard staging, the typed,
-edge, walk and frontier draws, and the other device flows.
+Not ported yet: `refresh_rows` (ROADMAP queue 1 item 8), `mesh` (item
+6), `with_hop_ids` (item 2), remote-shard staging (item 8), and the
+typed, layerwise, whole-graph and frontier flows (items 3-5).
 """
 
 from __future__ import annotations
@@ -122,6 +129,9 @@ class DeviceGraphTables:
     """Device-resident graph tables and the draw primitives over them."""
 
     is_device_flow = True
+    # the SAGE-family flows draw only through _draw_neighbors and may
+    # stage paged; the walk flow's biased step reads the dense planes
+    _PAGED_OK = True
 
     def __init__(
         self,
@@ -175,7 +185,13 @@ class DeviceGraphTables:
         degs = self._stage_degrees(graph, ids, edge_types)
         dmax = max(int(degs.max(initial=0)), 1)
         if layout == "auto":
-            layout = "paged" if dmax > max_degree else "dense"
+            layout = "paged" if (dmax > max_degree and self._PAGED_OK) else "dense"
+        if layout == "paged" and not self._PAGED_OK:
+            raise ValueError(
+                f"{type(self).__name__} reads the dense adjacency planes "
+                "directly (bias math) — the paged layout serves the "
+                "SAGE-family flows only"
+            )
         if layout == "dense" and dmax > max_degree:
             raise ValueError(
                 f"graph max degree {dmax} exceeds max_degree={max_degree}; "
@@ -287,6 +303,14 @@ class DeviceGraphTables:
     def _stage_nodes(self, graph, ids, wn, nt, roots_pool, root_node_type: int):
         n = len(ids)
         wn = np.asarray(wn, dtype=np.float64)
+        # the unrestricted node CDF: negatives draw from every node even
+        # when roots are pool- or type-restricted (host
+        # unsupervised_batches' neg_type=-1)
+        self.global_cdf = (
+            self._quantize_cdf(wn, "graph node")
+            if wn.size and not np.all(wn == wn[0])
+            else None
+        )
         pool_rows = None
         if roots_pool is not None:
             pool_rows = graph.lookup_rows(np.asarray(roots_pool, dtype=np.uint64))
@@ -334,6 +358,53 @@ class DeviceGraphTables:
             1, self.num_nodes + 1, (count,), dtype=torch.int32,
             generator=generator, device=self.device,
         )
+
+    def _draw_global_nodes(self, generator, count: int) -> torch.Tensor:
+        """[count] rows (row+1 space) over ALL nodes, weight-proportional
+        (ignores roots_pool/root_node_type): the negative draw."""
+        if self.global_cdf is not None:
+            r = u32(self._bits(generator, (count,)))
+            pick = torch.searchsorted(self.global_cdf, r, right=True)
+            return pick.clamp_max(self.num_nodes - 1).to(torch.int32) + 1
+        return torch.randint(
+            1, self.num_nodes + 1, (count,), dtype=torch.int32,
+            generator=generator, device=self.device,
+        )
+
+    def _stage_flat_edges(self, graph, edge_type: int = -1, stage_er: bool = False):
+        """Stage the flat (src, [type,] dst) edge columns and a weight CDF —
+        the layout for whole-edge draws on any degree distribution (one
+        searchsorted a draw, no max_degree guard). Edges with an endpoint
+        missing from the node table are dropped. Sets eh/et (int32 ids,
+        the host's truncation), er when stage_er (KG relations),
+        num_edges and edge_cdf (None when the weights are all equal)."""
+        if not all(hasattr(s, "edge_src") for s in graph.shards):
+            raise ValueError("flat edge staging needs local shards with edge columns")
+        h = np.concatenate([np.asarray(s.edge_src) for s in graph.shards])
+        t = np.concatenate([np.asarray(s.edge_dst) for s in graph.shards])
+        r = np.concatenate([np.asarray(s.edge_types) for s in graph.shards])
+        w = np.concatenate([np.asarray(s.edge_weights, np.float64) for s in graph.shards])
+        rows_ht = graph.lookup_rows(np.concatenate([h, t]))
+        keep = (rows_ht[: len(h)] >= 0) & (rows_ht[len(h):] >= 0)
+        if edge_type >= 0:
+            keep &= r == edge_type
+        h, t, r, w = h[keep], t[keep], r[keep], w[keep]
+        if len(h) == 0 or np.sum(w) <= 0:
+            raise ValueError("graph has no sampleable edges")
+        to32 = lambda x: x.astype(np.int64).astype(np.int32)  # noqa: E731
+        self.eh = self._put(to32(h))
+        self.et = self._put(to32(t))
+        self.er = self._put(r.astype(np.int32)) if stage_er else None
+        self.num_edges = len(h)
+        self.edge_cdf = None if np.all(w == w[0]) else self._quantize_cdf(w, "edge")
+
+    def _draw_edges(self, generator, count: int) -> torch.Tensor:
+        """[count] indices into the staged flat edge list, ∝ weight."""
+        if self.edge_cdf is not None:
+            r = u32(self._bits(generator, (count,)))
+            return torch.searchsorted(self.edge_cdf, r, right=True).clamp_max(self.num_edges - 1)
+        return torch.randint(0, self.num_edges, (count,), generator=generator,
+                             device=self.device)
 
     def _hop_draw(self, generator, width: int, k: int) -> torch.Tensor:
         if self.unit_w:
@@ -383,7 +454,7 @@ class DeviceSageFlow(DeviceGraphTables):
     """Device-resident adjacency + fanout sampling → lean MiniBatch.
 
     Pass it to an `Estimator`: each step draws with `draw_inputs` from a
-    per-step generator and builds the batch with `fanout_batch`. The lean
+    per-step generator and builds the batch with `make_batch`. The lean
     batch carries int32 feature rows (hydrated by a DeviceFeatureCache),
     bf16 edge weights on weighted graphs, and no masks or edge ids
     (`hydrate_blocks` rebuilds them).
@@ -409,9 +480,11 @@ class DeviceSageFlow(DeviceGraphTables):
         """The reference's parameters in its order; `mesh` and
         `with_hop_ids` are not ported yet. On the CUDA card unless
         device="cpu"."""
-        if mesh is not None or with_hop_ids:
+        _refuse_mesh(type(self).__name__, mesh)
+        if with_hop_ids:
             raise NotImplementedError(
-                "DeviceSageFlow(mesh=, with_hop_ids=True) is not ported yet"
+                f"{type(self).__name__}(with_hop_ids=True) is not ported yet "
+                "(ROADMAP queue 1 item 2: it feeds ShallowEncoder's id embedding)"
             )
         super().__init__(
             graph, edge_types, max_degree, roots_pool, root_node_type,
@@ -436,7 +509,7 @@ class DeviceSageFlow(DeviceGraphTables):
             width *= k
         return roots, tuple(draws)
 
-    def fanout_batch(self, roots: torch.Tensor, hop_draws) -> MiniBatch:
+    def make_batch(self, roots: torch.Tensor, hop_draws) -> MiniBatch:
         """Deterministic multi-hop fanout from [B] root rows and the hops'
         draws → lean MiniBatch."""
         cur = roots
@@ -462,4 +535,276 @@ class DeviceSageFlow(DeviceGraphTables):
         )
 
     def sample(self, generator: torch.Generator) -> MiniBatch:
-        return self.fanout_batch(*self.draw_inputs(generator))
+        return self.make_batch(*self.draw_inputs(generator))
+
+
+def _refuse_mesh(name: str, mesh) -> None:
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{name}(mesh=) is not ported yet (ROADMAP queue 1 item 6: parallelism)"
+        )
+
+
+class DeviceUnsupSageFlow(DeviceSageFlow):
+    """On-device (src, pos, negs) fanout triples for GraphSAGEUnsupervised
+    (counterpart: euler_tpu/dataflow/device.py:1079-1121).
+
+    Host parity: `unsupervised_batches` — pos is a sampled 1-hop neighbour
+    of src (src itself where it has none), negs are `batch_size *
+    num_negs` globally drawn nodes; each of the three gets its own lean
+    multi-hop fanout batch. `make_batch` returns the 3-tuple of
+    MiniBatches the model's (src, pos, negs) signature consumes. Under
+    layout "paged" a step runs `paged_sample_hop` once for the pos draw
+    and once a hop of each of the three batches.
+    """
+
+    def __init__(
+        self,
+        graph,
+        fanouts,
+        batch_size: int,
+        num_negs: int = 5,
+        edge_types=None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        mesh=None,
+        with_hop_ids: bool = False,
+        layout: str = "auto",
+        page_size: int = 16,
+        *,
+        device=None,
+    ):
+        super().__init__(
+            graph, fanouts, batch_size, None, edge_types, max_degree,
+            roots_pool, root_node_type, mesh, with_hop_ids=with_hop_ids,
+            layout=layout, page_size=page_size, device=device,
+        )
+        self.num_negs = int(num_negs)
+
+    def _hop_draws(self, generator, width: int) -> tuple:
+        draws = []
+        for k in self.fanouts:
+            draws.append(self._hop_draw(generator, width, k))
+            width *= k
+        return tuple(draws)
+
+    def draw_inputs(self, generator: torch.Generator):
+        """(src rows [B], the pos draw [B, 1], neg rows [B*N], then the
+        hop draws of the src, pos and neg fanouts), in JAX's key order."""
+        b = self.batch_size
+        src = self._draw_roots(generator, b)
+        pos_draw = self._hop_draw(generator, b, 1)
+        negs = self._draw_global_nodes(generator, b * self.num_negs)
+        return (src, pos_draw, negs, self._hop_draws(generator, b),
+                self._hop_draws(generator, b), self._hop_draws(generator, b * self.num_negs))
+
+    def make_batch(self, src, pos_draw, negs, src_hops, pos_hops, neg_hops) -> tuple:
+        nbr, _, _ = self._draw_neighbors(src, pos_draw)
+        pos = torch.where(nbr > 0, nbr, src)
+        fanout = super().make_batch
+        return fanout(src, src_hops), fanout(pos, pos_hops), fanout(negs, neg_hops)
+
+
+class DeviceWalkFlow(DeviceGraphTables):
+    """On-device random walks + skip-gram pairs for DeepWalk / node2vec
+    (counterpart: euler_tpu/dataflow/device.py:1124-1255).
+
+    The walk is a length-L chain of one-neighbour draws against the dense
+    staged adjacency; the sliding-window pair extraction is a static
+    column gather (`gen_pair`'s pairs), and the negatives ride the root
+    node CDF. `make_batch` returns `SkipGramModel`'s dict batch (src/pos
+    int32 ids, negs [P, num_negs], mask), dead-walk slots -1 and masked.
+
+    node2vec bias (p/q != 1): each step weights the current node's row
+    by 1/p back to the previous node, 1 for neighbours of the previous
+    node and 1/q elsewhere, then inverts an f32 cumsum of the biased
+    weights with a uniform. The membership test is a [W, D, D] compare,
+    so the biased walk needs max degree <= 64 (checked here).
+    """
+
+    _PAGED_OK = False  # _walk_step reads the dense adj plane directly
+
+    def __init__(
+        self,
+        graph,
+        batch_size: int,
+        walk_len: int = 5,
+        window: int = 2,
+        num_negs: int = 5,
+        p: float = 1.0,
+        q: float = 1.0,
+        edge_types=None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        mesh=None,
+        layout: str = "auto",
+        *,
+        device=None,
+    ):
+        _refuse_mesh(type(self).__name__, mesh)
+        super().__init__(graph, edge_types, max_degree, roots_pool, root_node_type,
+                         layout=layout, device=device)
+        self.batch_size = int(batch_size)
+        self.walk_len = int(walk_len)
+        self.num_negs = int(num_negs)
+        self.p, self.q = float(p), float(q)
+        self.biased = not (p == 1.0 and q == 1.0)
+        if self.biased and self.max_deg > 64:
+            raise ValueError(
+                f"node2vec bias needs a [W, D, D] membership test; max "
+                f"degree {self.max_deg} > 64 makes that table too wide — "
+                "use the host random_walk for this graph"
+            )
+        # static sliding-window columns (gen_pair's pairs): for each
+        # offset, source columns [lo, hi) pair with context columns
+        # [lo+off, hi+off); padded tail slots point at column 0, invalid
+        length = self.walk_len + 1
+        src_cols, ctx_cols, valid = [], [], []
+        for off in range(-window, window + 1):
+            if off == 0:
+                continue
+            lo, hi = max(0, -off), min(length, length - off)
+            cols = np.arange(length)
+            src_cols.append(np.where(cols < hi - lo, cols + lo, 0))
+            ctx_cols.append(np.where(cols < hi - lo, cols + lo + off, 0))
+            valid.append(cols < hi - lo)
+        self._src_cols = self._put(np.concatenate(src_cols).astype(np.int64))
+        self._ctx_cols = self._put(np.concatenate(ctx_cols).astype(np.int64))
+        self._col_valid = self._put(np.concatenate(valid).astype(np.int32))
+        self.pairs_per_walk = int(self._src_cols.shape[0])
+
+    def draw_inputs(self, generator: torch.Generator):
+        """(root rows [B], per step its draw [B, 1] — f32 uniforms for the
+        biased walk, else the hop draw —, negative rows [B*P*N])."""
+        b = self.batch_size
+        roots = self._draw_roots(generator, b)
+        steps = tuple(
+            torch.rand((b, 1), generator=generator, device=self.device)
+            if self.biased else self._hop_draw(generator, b, 1)
+            for _ in range(self.walk_len)
+        )
+        negs = self._draw_roots(generator, b * self.pairs_per_walk * self.num_negs)
+        return roots, steps, negs
+
+    def _walk_step(self, cur, prev, u):
+        """One biased transition: the weight row times the node2vec bias,
+        inverted with the uniforms `u` [W, 1] through its f32 cumsum."""
+        width = cur.shape[0]
+        nbr_rows = self.adj[cur]  # [W, D]
+        deg = self.deg[cur]
+        w = (nbr_rows > 0).float() if self.unit_w else self.wtab[cur]
+        prev_nbrs = self.adj[prev]  # [W, D]
+        is_back = nbr_rows == prev[:, None]
+        near = ((nbr_rows[:, :, None] == prev_nbrs[:, None, :])
+                & (prev_nbrs[:, None, :] > 0)).any(dim=-1)
+        one = torch.ones_like(w)
+        bias = torch.where(is_back, one * (1.0 / self.p),
+                           torch.where(near, one, one * (1.0 / self.q)))
+        bias = torch.where((prev > 0)[:, None], bias, one)
+        bw = w * bias * (nbr_rows > 0).float()
+        cum = torch.cumsum(bw, dim=1)
+        idx = (cum <= u * cum[:, -1:]).sum(dim=1)
+        idx = torch.minimum(idx, (deg.long() - 1).clamp_min(0))
+        alive = (deg > 0) & (cum[:, -1] > 0)
+        picked = nbr_rows[torch.arange(width, device=cur.device), idx]
+        return torch.where(alive, picked, torch.zeros_like(picked))
+
+    def make_batch(self, roots, steps, negs) -> dict:
+        cur = roots
+        walk = [cur]
+        prev = torch.zeros_like(cur)
+        for draw in steps:
+            if self.biased:
+                nxt = self._walk_step(cur, prev, draw)
+            else:
+                nxt, _, _ = self._draw_neighbors(cur, draw)
+            prev, cur = cur, nxt
+            walk.append(cur)
+        walks = torch.stack(walk, dim=1)  # [B, L+1] rows (0 = dead)
+        src = walks[:, self._src_cols] * self._col_valid
+        ctx = walks[:, self._ctx_cols] * self._col_valid
+        mask = (src > 0) & (ctx > 0)
+        return {
+            "src": self.node_id[src.reshape(-1)],
+            "pos": self.node_id[ctx.reshape(-1)],
+            "negs": self.node_id[negs].reshape(-1, self.num_negs),
+            "mask": mask.reshape(-1),
+        }
+
+    def sample(self, generator: torch.Generator) -> dict:
+        return self.make_batch(*self.draw_inputs(generator))
+
+
+class _FlatEdgeFlow(DeviceGraphTables):
+    """Shared staging of the flows that draw whole edges from the flat
+    list (LINE, KG): edge columns + weight CDF + node tables for the
+    negatives (counterpart: euler_tpu/dataflow/device.py:1258-1268)."""
+
+    def __init__(self, graph, batch_size: int, num_negs: int, edge_type: int = -1,
+                 mesh=None, stage_er: bool = False, *, device=None):
+        _refuse_mesh(type(self).__name__, mesh)
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        self.num_negs = int(num_negs)
+        self._stage_flat_edges(graph, edge_type, stage_er=stage_er)
+        ids, wn, nt = _node_table(graph)
+        self._stage_nodes(graph, ids, wn, nt, None, -1)
+
+    def sample(self, generator: torch.Generator) -> dict:
+        return self.make_batch(*self.draw_inputs(generator))
+
+
+class DeviceEdgeFlow(_FlatEdgeFlow):
+    """On-device weighted edge draws for LINE (counterpart:
+    euler_tpu/dataflow/device.py:1271-1301; host parity `line_batches`):
+    each edge one searchsorted over the flat list's weight CDF, the
+    negatives from the global node CDF. `make_batch` returns the
+    SkipGramModel dict batch."""
+
+    def __init__(self, graph, batch_size: int, num_negs: int = 5,
+                 edge_type: int = -1, mesh=None, *, device=None):
+        super().__init__(graph, batch_size, num_negs, edge_type, mesh, device=device)
+
+    def draw_inputs(self, generator: torch.Generator):
+        """(edge picks [B], negative rows [B*N])."""
+        pick = self._draw_edges(generator, self.batch_size)
+        return pick, self._draw_global_nodes(generator, self.batch_size * self.num_negs)
+
+    def make_batch(self, pick, negs) -> dict:
+        return {
+            "src": self.eh[pick],
+            "pos": self.et[pick],
+            "negs": self.node_id[negs].reshape(-1, self.num_negs),
+            "mask": torch.ones(self.batch_size, dtype=torch.bool, device=pick.device),
+        }
+
+
+class DeviceKGFlow(_FlatEdgeFlow):
+    """On-device (h, r, t) triples and corrupted heads/tails for the
+    TransX family (counterpart: euler_tpu/dataflow/device.py:1304-1338;
+    host parity `kg_batches`): the flat edge list (int32 h, r, t, 12
+    bytes an edge), one searchsorted a draw, the corruptions from the
+    global node CDF. `make_batch` returns TransX's dict batch."""
+
+    def __init__(self, graph, batch_size: int, num_negs: int = 8,
+                 edge_type: int = -1, mesh=None, *, device=None):
+        super().__init__(graph, batch_size, num_negs, edge_type, mesh, stage_er=True,
+                         device=device)
+
+    def draw_inputs(self, generator: torch.Generator):
+        """(edge picks [B], corruption rows [2*B*N])."""
+        pick = self._draw_edges(generator, self.batch_size)
+        negs = self._draw_global_nodes(generator, self.batch_size * self.num_negs * 2)
+        return pick, negs
+
+    def make_batch(self, pick, negs) -> dict:
+        negs = self.node_id[negs].reshape(2, self.batch_size, self.num_negs)
+        return {
+            "h": self.eh[pick],
+            "r": self.er[pick],
+            "t": self.et[pick],
+            "neg_h": negs[0],
+            "neg_t": negs[1],
+        }

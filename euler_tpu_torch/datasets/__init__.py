@@ -5,4 +5,10 @@ from euler_tpu_torch.datasets.synthetic import (  # noqa: F401
     skewed_weighted_graph,
     synthetic_meta,
 )
-from euler_tpu_torch.datasets.quality import products_like_graph  # noqa: F401
+from euler_tpu_torch.datasets.quality import (  # noqa: F401
+    cora_like_json,
+    fb15k_like,
+    products_like_graph,
+)
+from euler_tpu_torch.datasets.base import Dataset  # noqa: F401
+from euler_tpu_torch.datasets.catalog import get_dataset  # noqa: F401

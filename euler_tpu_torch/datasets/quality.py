@@ -1,9 +1,11 @@
 """Calibrated quality stand-ins, numpy only
-(counterpart: euler_tpu/datasets/quality.py:53-185).
+(counterpart: euler_tpu/datasets/quality.py:53-185, 217-308, 384-480).
 
 `products_like_graph` is the ogbn-products-shaped graph of the JAX
 package's north-star quality config: the same seed gives the same
-arrays, built into the port's `Graph`.
+arrays, built into the port's `Graph`. `cora_like_json` (the skip-gram
+bands) and `fb15k_like` (the TransX bands) give the JAX package's
+graph.json for the same arguments.
 """
 
 from __future__ import annotations
@@ -125,3 +127,196 @@ def products_like_graph(
         }
         stores.append(GraphStore(meta, arrays, part=p))
     return Graph(meta, stores), types
+
+
+def fb15k_like(
+    n_ent: int = 2000,
+    n_rel: int = 40,
+    dim: int = 16,
+    n_train: int = 30000,
+    n_test: int = 1000,
+    tail_cands: int = 4,
+    noise_frac: float = 0.25,
+    seed: int = 0,
+    projective: bool = False,
+) -> tuple[dict, np.ndarray]:
+    """Calibrated KG stand-in for the TransX quality bands.
+
+    FB15k itself (14951 entities, 483k triples) cannot be downloaded here;
+    this plants real translational structure instead: ground-truth entity
+    points E and relation offsets R, each triple's tail drawn from the
+    `tail_cands` nearest entities to E[h]+R[r] (1-to-N ambiguity, like
+    FB15k's multi-valued relations) with a `noise_frac` of uniform-random
+    tails (unlearnable mass). The knobs are tuned so a correct TransE
+    lands near FB15k's published *relative* numbers (examples/TransX/
+    README.md:43-49: MeanRank 197 = 1.3% of the entity count, Hit@10
+    39.7%) while untrained embeddings stay at MeanRank ≈ n_ent/2 — the
+    control that separates "learned the structure" from "easy dataset".
+
+    projective=True plants PER-RELATION SUBSPACE structure instead:
+    each relation owns an orthogonal map P_r and tails sit near
+    P_r·E[h] + R[r]. A pure translation (TransE) underfits this geometry
+    while projection variants (TransR/TransD) can represent it exactly —
+    the discriminating control for the projection machinery, mirroring
+    how TransR out-Hit@10s TransE on real FB15k
+    (examples/TransX/README.md:43-48).
+
+    Returns (graph_json, test_triples int32 [n_test, 3] of (h, r, t)).
+    """
+    rng = np.random.default_rng(seed)
+    E = rng.uniform(-1.0, 1.0, (n_ent, dim))
+    R = rng.uniform(-0.6, 0.6, (n_rel, dim))
+    if projective:
+        # per-relation linear map: an equal blend of identity and a
+        # random orthogonal matrix (QR of a gaussian) — NOT itself
+        # orthogonal; the identity component keeps tails correlated with
+        # heads so the structure stays learnable, the orthogonal
+        # component rotates each relation into its own subspace
+        P = np.empty((n_rel, dim, dim))
+        for k in range(n_rel):
+            q, _ = np.linalg.qr(rng.normal(size=(dim, dim)))
+            P[k] = 0.5 * np.eye(dim) + 0.5 * q
+    else:
+        P = None
+
+    def make_triples(count):
+        h = rng.integers(0, n_ent, count)
+        r = rng.integers(0, n_rel, count)
+        t = np.empty(count, dtype=np.int64)
+        # nearest-entity tails in chunks (count × n_ent distance matrix)
+        for lo in range(0, count, 4096):
+            hi = min(lo + 4096, count)
+            if P is not None:
+                target = (
+                    np.einsum("bd,bde->be", E[h[lo:hi]], P[r[lo:hi]])
+                    + R[r[lo:hi]]
+                )
+            else:
+                target = E[h[lo:hi]] + R[r[lo:hi]]
+            d2 = ((target[:, None, :] - E[None, :, :]) ** 2).sum(-1)
+            near = np.argpartition(d2, tail_cands, axis=1)[:, :tail_cands]
+            pick = rng.integers(0, tail_cands, hi - lo)
+            t[lo:hi] = near[np.arange(hi - lo), pick]
+        noise = rng.random(count) < noise_frac
+        t[noise] = rng.integers(0, n_ent, int(noise.sum()))
+        return np.stack([h, r, t], axis=1)
+
+    train = make_triples(n_train)
+    test = make_triples(n_test)
+    nodes = [
+        {"id": i + 1, "type": 0, "weight": 1.0, "features": []}
+        for i in range(n_ent)
+    ]
+    edges = [
+        {
+            "src": int(h) + 1,
+            "dst": int(t) + 1,
+            "type": int(r),
+            "weight": 1.0,
+            "features": [],
+        }
+        for h, r, t in train
+    ]
+    test32 = np.stack(
+        [test[:, 0] + 1, test[:, 1], test[:, 2] + 1], axis=1
+    ).astype(np.int32)
+    return {"nodes": nodes, "edges": edges}, test32
+
+
+def cora_like_json(
+    num_nodes: int = 2708,
+    num_classes: int = 7,
+    feature_dim: int = 1433,
+    avg_degree: float = 3.9,
+    homophily: float = 0.68,
+    features_on: int = 18,
+    word_sigma: float = 0.8,
+    train_per_class: int = 20,
+    val_n: int = 500,
+    test_n: int = 1000,
+    seed: int = 0,
+) -> dict:
+    """Citation-network stand-in calibrated to cora's GCN score.
+
+    Each node's bag-of-words draws from its class's word distribution
+    softmax(word_sigma * G[c]) over the shared vocabulary (G ~ N(0,1)), so
+    classes overlap like real topics. word_sigma is the calibration knob:
+    lower → more shared words → weaker features → bigger GCN-over-LR gap.
+    """
+    rng = np.random.default_rng(seed)
+    classes = rng.integers(0, num_classes, num_nodes)
+
+    # citation-style degree heavy tail, truncated
+    deg = np.clip(
+        rng.lognormal(mean=np.log(avg_degree * 0.75), sigma=0.75, size=num_nodes),
+        1,
+        30,
+    ).astype(np.int64)
+    by_class = [np.nonzero(classes == c)[0] for c in range(num_classes)]
+    seen = set()
+    pairs = []
+    for i in range(num_nodes):
+        for _ in range(int(deg[i])):
+            if rng.random() < homophily:
+                j = int(rng.choice(by_class[classes[i]]))
+            else:
+                j = int(rng.integers(num_nodes))
+            if j == i:
+                continue
+            key = (min(i, j), max(i, j))
+            if key in seen:
+                continue
+            seen.add(key)
+            pairs.append(key)
+
+    # sparse bag-of-words from overlapping per-class word distributions
+    logits = word_sigma * rng.normal(0, 1, (num_classes, feature_dim))
+    probs = np.exp(logits - logits.max(axis=1, keepdims=True))
+    probs /= probs.sum(axis=1, keepdims=True)
+    feat_rows = []
+    for i in range(num_nodes):
+        k = 1 + rng.poisson(features_on - 1)
+        idx = rng.choice(feature_dim, size=k, p=probs[classes[i]])
+        feat_rows.append(np.unique(idx))
+
+    # split: 20/class train, then val/test from the remainder (shuffled)
+    types = np.full(num_nodes, 3, dtype=np.int64)  # 3 = unused pool
+    for c in range(num_classes):
+        types[rng.permutation(by_class[c])[:train_per_class]] = 0
+    rest = rng.permutation(np.nonzero(types == 3)[0])
+    types[rest[:val_n]] = 1
+    types[rest[val_n : val_n + test_n]] = 2
+
+    feats = np.zeros((num_nodes, feature_dim), np.float32)
+    for i in range(num_nodes):
+        feats[i, feat_rows[i]] = 1.0
+    labels = np.zeros((num_nodes, num_classes), np.float32)
+    labels[np.arange(num_nodes), classes] = 1.0
+    return _emit_node_class_json(feats, labels, types, pairs)
+
+
+def _emit_node_class_json(feats, labels, types, pairs) -> dict:
+    """Shared JSON emission for node-classification stand-ins: one dense
+    `feature` + one dense `label` per node, 1-based ids, each dedup'd
+    undirected pair emitted in both directions."""
+    nodes = [
+        {
+            "id": i + 1,
+            "type": int(types[i]),
+            "weight": 1.0,
+            "features": [
+                {"name": "feature", "type": "dense",
+                 "value": np.asarray(feats[i]).tolist()},
+                {"name": "label", "type": "dense",
+                 "value": np.asarray(labels[i]).tolist()},
+            ],
+        }
+        for i in range(len(types))
+    ]
+    edges = [
+        {"src": s + 1, "dst": d + 1, "type": 0, "weight": 1.0,
+         "features": []}
+        for i, j in pairs
+        for s, d in ((i, j), (j, i))
+    ]
+    return {"nodes": nodes, "edges": edges}

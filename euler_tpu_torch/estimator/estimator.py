@@ -4,14 +4,19 @@
 The model contract is the JAX package's: calling the model on a batch
 returns (embedding, loss, metric_name, metric). Two lanes feed it:
 
-- a host batch function: `batch_fn()` returns a tuple of numpy
-  `MiniBatch`es (e.g. `node_batches`, a `ResumableSource` or a
-  `Prefetcher`), which go through `to_device` → `hydrate_blocks` → the
-  feature cache → the step;
-- a device flow (`DeviceSageFlow`): each step draws its batch on the
-  device from a generator seeded from (cfg.seed + 2, global step), so the
-  batch stream is a function of the global step, as JAX's `fold_in`
-  makes it; the draws go through the flow's one `draw_inputs` method.
+- a host batch function: `batch_fn()` returns a tuple of model args —
+  numpy `MiniBatch`es (`node_batches`, `unsupervised_batches`'s (src,
+  pos, negs), a `ResumableSource` or a `Prefetcher`), which go through
+  `to_device` → `hydrate_blocks` → the feature cache, or dicts of numpy
+  arrays (the skip-gram and KG sources), whose arrays are moved as they
+  are (int32 ids stay int32);
+- a device flow (`DeviceSageFlow`, `DeviceUnsupSageFlow`,
+  `DeviceWalkFlow`, `DeviceEdgeFlow`, `DeviceKGFlow`): each step draws its
+  batch on the device from a generator seeded from (cfg.seed + 2, global
+  step), so the batch stream is a function of the global step, as JAX's
+  `fold_in` makes it; the draws go through the flow's one `draw_inputs`
+  method and its deterministic `make_batch`, which returns a MiniBatch,
+  a tuple of them (the model's args) or a dict.
 
 `EstimatorConfig.steps_per_call` = K > 1 groups the steps into calls of
 K, as JAX's lax.scan does (`_train_scan`): the host lane then takes one
@@ -203,30 +208,26 @@ class Estimator:
             self.batch_fn()
 
     def batch(self, step: int):
-        """The lean batch of global step `step` (device flows)."""
+        """The batch of global step `step` (device flows): a lean
+        MiniBatch, a tuple of them or a dict, as the flow makes it."""
         gen = step_generator(self.cfg.seed, step, self.device)
-        return self.flow.fanout_batch(*self.flow.draw_inputs(gen))
+        return self.flow.make_batch(*self.flow.draw_inputs(gen))
 
-    def _next_batch(self):
-        """One step's batch: a device-flow draw for the global step, or
-        the next host batch."""
+    def _next_batch(self) -> tuple:
+        """One step's args on the device: the global step's device-flow
+        batch, or the next host batch, moved."""
         if self.flow is not None:
-            return self.batch(self.step)
-        return self.batch_fn()
+            return as_args(self.batch(self.step))
+        return args_to_device(self.batch_fn(), self.device)
 
     def _hydrate(self, batch):
         batch = hydrate_blocks(batch)
         return self.feature_cache.hydrate(batch) if self.feature_cache is not None else batch
 
-    def _model_args(self, batch) -> tuple:
-        """The model's args on the device: a device-flow batch hydrated;
-        each MiniBatch of a host batch tuple moved, then hydrated."""
-        if self.flow is not None:
-            return (self._hydrate(batch),)
-        return tuple(
-            self._hydrate(to_device(b, self.device)) if isinstance(b, MiniBatch) else b
-            for b in batch
-        )
+    def _model_args(self, args: tuple) -> tuple:
+        """The model's args from args on the device: each MiniBatch
+        hydrated."""
+        return tuple(self._hydrate(b) if isinstance(b, MiniBatch) else b for b in args)
 
     def _update(self, batch):
         self.optimizer.zero_grad(set_to_none=True)
@@ -238,10 +239,12 @@ class Estimator:
     # -- calls of steps_per_call steps (counterpart: estimator.py:516-542,
     # 651-727) ---------------------------------------------------------------
 
-    def _batch_of(self, x):
-        """A call step's batch from its input: a device flow's draws go
-        through `fanout_batch`; a host batch is itself."""
-        return self.flow.fanout_batch(*x) if self.flow is not None else x
+    def _batch_of(self, x) -> tuple:
+        """A call step's args on the device from its input: a device
+        flow's draws go through `make_batch`; a host batch is moved."""
+        if self.flow is None:
+            return args_to_device(x, self.device)
+        return as_args(self.flow.make_batch(*x))
 
     def _call_inputs(self, n: int, stacked: bool) -> Iterator:
         """The inputs of the next n steps: each global step's draws
@@ -258,8 +261,7 @@ class Estimator:
             yield item
             return
         if self.device.type == "cuda":
-            item = tuple(to_device(b, self.device) if isinstance(b, MiniBatch) else b
-                         for b in item)
+            item = args_to_device(item, self.device)
         for i in range(n):
             yield tree_map(lambda v: v[i] if isinstance(v, (np.ndarray, torch.Tensor)) else v,
                            item)
@@ -415,7 +417,8 @@ class Estimator:
         losses, metrics = [], []
         with torch.inference_mode():
             for batch in batches:
-                _, loss, name, metric = self.model(*self._model_args(batch))
+                _, loss, name, metric = self.model(
+                    *self._model_args(args_to_device(batch, self.device)))
                 losses.append(float(loss))
                 metrics.append(float(metric))
         return {
@@ -430,7 +433,7 @@ class Estimator:
 
         def embed(batch: MiniBatch) -> torch.Tensor:
             with torch.inference_mode():
-                return self.model.embed(*self._model_args((batch,)))
+                return self.model.embed(*self._model_args(args_to_device((batch,), self.device)))
 
         return embed
 
@@ -517,6 +520,29 @@ class Estimator:
         return True
 
 
+def as_args(batch) -> tuple:
+    """A flow's batch as model args: a tuple is the args, anything else
+    the one arg (counterpart: estimator.py:267-276)."""
+    return batch if isinstance(batch, tuple) else (batch,)
+
+
+def args_to_device(args: tuple, device) -> tuple:
+    """Model args on `device`: MiniBatches through `to_device`, dicts with
+    each array or tensor moved (dtypes kept), anything else as it is."""
+
+    def put(v):
+        if isinstance(v, np.ndarray):
+            v = torch.from_numpy(np.ascontiguousarray(v))
+        return v.to(device) if isinstance(v, torch.Tensor) else v
+
+    return tuple(
+        to_device(b, device) if isinstance(b, MiniBatch)
+        else {k: put(v) for k, v in b.items()} if isinstance(b, dict)
+        else b
+        for b in args
+    )
+
+
 def _drain(history: list) -> list[float]:
     """Device losses (scalars or [k] per call) → host floats, in order."""
     return torch.cat([h.reshape(-1) for h in history]).cpu().tolist()
@@ -579,6 +605,44 @@ def node_batches(graph, flow, batch_size: int, node_type: int = -1, rng=None) ->
     def fn():
         roots = graph.sample_node(batch_size, node_type, rng=rng)
         return (flow.query(roots),)
+
+    return fn
+
+
+def edge_batches(graph, flow, batch_size: int, edge_type: int = -1, rng=None) -> Callable:
+    """Training source over sampled edges: (src batch, dst batch), the dst
+    as the positive context (counterpart: estimator.py:1069-1080)."""
+    rng = rng if rng is not None else np.random.default_rng()
+
+    def fn():
+        edges = graph.sample_edge(batch_size, edge_type, rng=rng)
+        return (flow.query(edges[:, 0]), flow.query(edges[:, 1]))
+
+    return fn
+
+
+def unsupervised_batches(
+    graph,
+    flow,
+    batch_size: int,
+    node_type: int = -1,
+    edge_types=None,
+    num_negs: int = 5,
+    neg_type: int = -1,
+    rng=None,
+) -> Callable:
+    """(src, pos, negs) source of the unsupervised heads
+    (counterpart: estimator.py:1083-1104): pos is a sampled 1-hop
+    neighbour of src (src itself where it has none), negs are
+    `batch_size * num_negs` globally sampled nodes."""
+    rng = rng if rng is not None else np.random.default_rng()
+
+    def fn():
+        src = graph.sample_node(batch_size, node_type, rng=rng)
+        nbr, _, _, mask, _ = graph.sample_neighbor(src, edge_types, 1, rng=rng)
+        pos = np.where(mask[:, 0], nbr[:, 0], src)
+        negs = graph.sample_node(batch_size * num_negs, neg_type, rng=rng)
+        return (flow.query(src), flow.query(pos), flow.query(negs))
 
     return fn
 

@@ -29,11 +29,16 @@ from euler_tpu_torch.ops import _build
 
 
 def tree_map(fn, x, *rest):
-    """`fn` over the leaves of one or more nests of tuples and
+    """`fn` over the leaves of one or more nests of tuples, dicts and
     dataclasses of one structure (a leaf is anything else), rebuilt in
-    that structure. Raises ValueError where the structures differ."""
+    that structure; a dict's leaves go in its key order. Raises
+    ValueError where the structures differ."""
     if any(type(r) is not type(x) for r in rest):
         raise ValueError(f"mixed types {sorted({type(v).__name__ for v in (x, *rest)})}")
+    if isinstance(x, dict):
+        if any(list(r) != list(x) for r in rest):
+            raise ValueError(f"dicts of keys {sorted({tuple(v) for v in (x, *rest)})}")
+        return {k: tree_map(fn, x[k], *(r[k] for r in rest)) for k in x}
     if isinstance(x, tuple):
         if any(len(r) != len(x) for r in rest):
             raise ValueError(f"tuples of lengths {sorted({len(v) for v in (x, *rest)})}")
@@ -46,7 +51,7 @@ def tree_map(fn, x, *rest):
 
 
 def tensor_leaves(x) -> list:
-    """The tensors of a nest of tuples and dataclasses, in order."""
+    """The tensors of a nest of tuples, dicts and dataclasses, in order."""
     out = []
     tree_map(lambda v: out.append(v) if isinstance(v, torch.Tensor) else None, x)
     return out

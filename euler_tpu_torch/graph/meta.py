@@ -8,6 +8,8 @@ import json
 import os
 
 DENSE = "dense"
+SPARSE = "sparse"
+BINARY = "binary"
 
 
 @dataclasses.dataclass

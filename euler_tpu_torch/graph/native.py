@@ -20,8 +20,10 @@ threads and seeds each chunk from its start, so a seed's draws are the
 same on one machine and may differ between machines with other core
 counts.
 
-Not bound yet: the random walk, layer-wise sampling and the
-variable-length and binary feature calls, which no ported module calls.
+The random walk is bound for unbiased walks; a node2vec-biased walk (p
+or q != 1) runs the numpy store's path, as in the JAX package. Not bound
+yet: layer-wise sampling and the variable-length and binary feature
+calls, which no ported module calls.
 """
 
 from __future__ import annotations
@@ -80,6 +82,7 @@ _SIGNATURES = (
     ("etpu_get_dense_rows", None, [_h, _i64p, _i64, _i64, _i64, _f32p]),
     ("etpu_sample_fanout", None,
      [_h, _u64p, _i64, _i32p, _i64, _i64p, _i64, _u64, _u64p, _i64p, _f32p, _i32p, _u8p]),
+    ("etpu_random_walk", None, [_h, _u64p, _i64, _i32p, _i64, _i64, _u64, _u64p]),
     ("etpu_stats", None, [_h, _u64p]),
     ("etpu_reset_stats", None, [_h]),
 )
@@ -269,6 +272,18 @@ class NativeGraphStore(GraphStore):
         ids_h, w_h, tt_h, mask_h, rows_h = split_hops(
             n, counts, ids_out, w_out, tt_out, mask_out, rows_out)
         return ids_h, w_h, tt_h, [m.astype(bool) for m in mask_h], rows_h
+
+    def random_walk(self, ids, edge_types=None, walk_len=3, p=1.0, q=1.0, rng=None):
+        """u64 [n, walk_len+1] walks in one engine call; a node2vec bias
+        (p or q != 1) takes the numpy store's path."""
+        if p != 1.0 or q != 1.0:
+            return super().random_walk(ids, edge_types, walk_len, p, q, rng)
+        ids, types = _as_ids(ids), _types_arr(edge_types)
+        out = np.empty((len(ids), walk_len + 1), dtype=np.uint64)
+        self._lib.etpu_random_walk(
+            self._h, _ptr(ids, _c.c_uint64), len(ids), _ptr(types, _c.c_int32), len(types),
+            walk_len, self._seed(rng), _ptr(out, _c.c_uint64))
+        return out
 
     def op_stats(self) -> dict:
         """Per-op {"calls", "ms"} counters of the engine."""

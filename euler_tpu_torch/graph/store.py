@@ -2,9 +2,10 @@
 (counterpart: euler_tpu/graph/store.py).
 
 This is the part of the JAX package's store that the serving and
-training paths run: id lookup, weighted root and neighbor sampling, the
-fused multi-hop fanout with feature rows, dense feature reads, and the
-full adjacency and degrees the device flows stage. The numpy draw order
+training paths run: id lookup, weighted root, edge and neighbor
+sampling, the fused multi-hop fanout with feature rows, dense feature
+reads, the full adjacency and degrees the device flows stage, and the
+(node2vec-biased) random walk. The numpy draw order
 is the JAX package's exactly, so a seed gives the same sample in both
 packages (held by tests/test_torch_graph_flow.py). `Graph.load(native=)`
 serves the hot paths from the C++ engine instead (`graph/native.py`).
@@ -94,6 +95,7 @@ class _CSR:
         self.w = np.asarray(w)
         self.eidx = np.asarray(eidx)
         self._cum = None  # lazy (8 B/edge)
+        self._dst_sorted = None  # lazy: within-row dst-sorted view for lookups
 
     @property
     def cum(self) -> np.ndarray:
@@ -117,6 +119,47 @@ class _CSR:
         j = np.searchsorted(self.cum, target, side="right") - 1
         return np.clip(j, s, np.maximum(s, e - 1))
 
+    def sorted_dst(self):
+        """(perm, dst_sorted): within-row permutation sorting dst ascending."""
+        if self._dst_sorted is None:
+            rows = np.repeat(np.arange(len(self.indptr) - 1), np.diff(self.indptr))
+            perm = np.lexsort((self.dst, rows))
+            self._dst_sorted = (perm, self.dst[perm])
+        return self._dst_sorted
+
+    def contains(self, rows: np.ndarray, targets: np.ndarray) -> np.ndarray:
+        """Membership: is targets[i] a neighbor of row rows[i]?"""
+        perm, dsts = self.sorted_dst()
+        s, e = self.indptr[rows], self.indptr[rows + 1]
+        out = np.zeros(len(rows), dtype=bool)
+        left = s + _searchsorted_segments(dsts, s, e, targets)
+        ok = left < e
+        out[ok] = dsts[left[ok]] == targets[ok]
+        return out
+
+
+def _searchsorted_segments(sorted_vals, seg_start, seg_end, targets, side="left"):
+    """For each i, insertion position of targets[i] within the sorted slice
+    sorted_vals[seg_start[i]:seg_end[i]] (vectorized per-segment binary
+    search; side as in np.searchsorted)."""
+    n = len(targets)
+    lo = np.asarray(seg_start).copy()
+    hi = np.asarray(seg_end).copy()
+    right = side == "right"
+    while True:
+        active = lo < hi
+        if not active.any():
+            break
+        mid = (lo + hi) // 2
+        less = np.zeros(n, dtype=bool)
+        if right:
+            less[active] = sorted_vals[mid[active]] <= targets[active]
+        else:
+            less[active] = sorted_vals[mid[active]] < targets[active]
+        lo = np.where(active & less, mid + 1, lo)
+        hi = np.where(active & ~less, mid, hi)
+    return lo - np.asarray(seg_start)
+
 
 class GraphStore:
     """One graph shard served from columnar arrays."""
@@ -128,6 +171,10 @@ class GraphStore:
         self.node_types = np.asarray(arrays["node_types"])
         self.node_weights = np.asarray(arrays["node_weights"])
         self.num_nodes = len(self.node_ids)
+        self.edge_src = np.asarray(arrays["edge_src"])
+        self.edge_dst = np.asarray(arrays["edge_dst"])
+        self.edge_types = np.asarray(arrays["edge_types"])
+        self.edge_weights = np.asarray(arrays["edge_weights"])
         self.arrays = arrays
         # data version of this shard: 0 at load (counterpart:
         # euler_tpu/graph/store.py:356); a training checkpoint records it
@@ -142,6 +189,7 @@ class GraphStore:
             for t in range(meta.num_edge_types)
         ]
         self._samplers_n: dict[int, _WeightedSampler] = {}
+        self._samplers_e: dict[int, _WeightedSampler] = {}
         self._unit_w: dict[int, bool] = {}  # per type: every weight == 1.0
 
     def unit_edge_weights(self, edge_types=None) -> bool:
@@ -188,12 +236,41 @@ class GraphStore:
             s = self._samplers_n.setdefault(key, _WeightedSampler(w))
         return s
 
+    def _edge_sampler(self, edge_type: int) -> _WeightedSampler:
+        key = -1 if edge_type < 0 else int(edge_type)
+        if key >= self.meta.num_edge_types:
+            raise IndexError(f"edge type {key} out of range")
+        s = self._samplers_e.get(key)
+        if s is None:
+            w = (
+                self.edge_weights
+                if key < 0
+                else np.where(self.edge_types == key, self.edge_weights, 0.0)
+            )
+            s = self._samplers_e.setdefault(key, _WeightedSampler(w))
+        return s
+
     def sample_node(self, count: int, node_type: int = -1, rng=None) -> np.ndarray:
         sampler = self._node_sampler(node_type)
         rowz = sampler.sample(count, rng)
         if sampler.total <= 0:
             return np.full(count, DEFAULT_ID, dtype=np.uint64)
         return self.node_ids[rowz]
+
+    def sample_edge(self, count: int, edge_type: int = -1, rng=None) -> np.ndarray:
+        """[count, 3] uint64 rows of (src, dst, type), weight-proportional."""
+        sampler = self._edge_sampler(edge_type)
+        if sampler.total <= 0:
+            return np.full((count, 3), DEFAULT_ID, dtype=np.uint64)
+        rowz = sampler.sample(count, rng)
+        return np.stack(
+            [
+                self.edge_src[rowz],
+                self.edge_dst[rowz],
+                self.edge_types[rowz].astype(np.uint64),
+            ],
+            axis=1,
+        )
 
     def node_type(self, ids: np.ndarray) -> np.ndarray:
         rows = self.lookup(ids)
@@ -305,6 +382,68 @@ class GraphStore:
         """[n, sum(dims)] f32; missing nodes → zeros."""
         return self.get_dense_by_rows(self.lookup(ids), names)
 
+    # ---- random walks (counterpart: store.py:944-1013) ------------------
+
+    def random_walk(
+        self,
+        ids,
+        edge_types=None,
+        walk_len: int = 3,
+        p: float = 1.0,
+        q: float = 1.0,
+        rng=None,
+    ) -> np.ndarray:
+        """node2vec walk. Returns u64 [n, walk_len+1]; DEFAULT_ID once stuck."""
+        rng = _rng(rng)
+        ids = np.asarray(ids, dtype=np.uint64)
+        n = len(ids)
+        walks = np.full((n, walk_len + 1), DEFAULT_ID, dtype=np.uint64)
+        walks[:, 0] = ids
+        cur = ids.copy()
+        prev = np.full(n, DEFAULT_ID, dtype=np.uint64)
+        for step in range(1, walk_len + 1):
+            if p == 1.0 and q == 1.0:
+                nbr, _, _, mask, _ = self.sample_neighbor(cur, edge_types, 1, rng)
+                nxt = np.where(mask[:, 0], nbr[:, 0], DEFAULT_ID)
+            else:
+                nxt = self._node2vec_step(cur, prev, edge_types, p, q, rng)
+            dead = cur == DEFAULT_ID
+            nxt[dead] = DEFAULT_ID
+            walks[:, step] = nxt
+            prev, cur = cur, nxt
+        return walks
+
+    def _node2vec_step(self, cur, prev, edge_types, p, q, rng):
+        """One node2vec transition. `prev` may be off-shard: the 1/p return
+        bias works from ids alone; the "distance-1" membership bias needs
+        prev's adjacency and degrades to 1/q when prev is not local."""
+        nbr, w, _, mask, _ = self.get_full_neighbor(cur, edge_types)
+        n, cap = nbr.shape
+        rows = self.lookup(cur)
+        # bias: 1/p back to prev, 1 if nbr adjacent to prev, 1/q else
+        adj_w = w.astype(np.float64).copy()
+        prev = np.asarray(prev, dtype=np.uint64)
+        prev_rows = self.lookup(prev)
+        has_prev = prev != DEFAULT_ID
+        prev_local = prev_rows >= 0
+        flat_prev = np.repeat(np.maximum(prev_rows, 0), cap)
+        flat_nbr = nbr.ravel()
+        is_back = flat_nbr == np.repeat(prev, cap)
+        near = np.zeros(n * cap, dtype=bool)
+        for _, c in self._csrs(edge_types):
+            near |= c.contains(flat_prev, flat_nbr)
+        near &= np.repeat(prev_local, cap)
+        bias = np.where(is_back, 1.0 / p, np.where(near, 1.0, 1.0 / q))
+        bias = np.where(np.repeat(has_prev, cap), bias, 1.0).reshape(n, cap)
+        adj_w *= bias
+        adj_w[~mask] = 0.0
+        tot = adj_w.sum(axis=1)
+        ok = tot > 0
+        r = _rng(rng).random(n) * np.maximum(tot, 1e-30)
+        choice = (r[:, None] >= np.cumsum(adj_w, axis=1)).sum(axis=1)
+        choice = np.minimum(choice, cap - 1)
+        return np.where(ok & (rows >= 0), nbr[np.arange(n), choice], DEFAULT_ID)
+
     def get_dense_by_rows(self, rows, names) -> np.ndarray:
         """Dense node features by pre-resolved local rows (-1 → zeros)."""
         rows = np.asarray(rows, dtype=np.int64)
@@ -328,8 +467,17 @@ class Graph:
         self.meta = meta
         self.shards = shards
         self.num_shards = len(shards)
-        # shard-weighted root sampling
+        # shard-weighted root and edge sampling
         self._node_shard_w = np.asarray(meta.node_weight_sums, dtype=np.float64)
+        self._edge_shard_w = np.asarray(meta.edge_weight_sums, dtype=np.float64)
+
+    @classmethod
+    def from_json(cls, graph_json, num_partitions: int = 1) -> "Graph":
+        """In-memory graph from graph.json (a path or a dict)."""
+        from euler_tpu_torch.graph.builder import build_from_json
+
+        meta, arrays = build_from_json(graph_json, num_partitions)
+        return cls(meta, [GraphStore(meta, a, p) for p, a in enumerate(arrays)])
 
     @classmethod
     def load(cls, directory: str, mmap: bool = True, native: bool | None = None) -> "Graph":
@@ -354,17 +502,19 @@ class Graph:
                 shards.append(GraphStore(meta, arrays, part=p))
         return cls(meta, shards)
 
-    def _scatter_gather(self, ids, fn):
-        """fn(shard, sub_ids) → tuple/array, gathered to input order."""
+    def _scatter_gather(self, ids, fn, extras=()):
+        """fn(shard, sub_ids, *sub_extras) → tuple/array, gathered to input
+        order; `extras` are arrays aligned with `ids`, scattered the same
+        way."""
         ids = np.asarray(ids, dtype=np.uint64)
         shards = self.shards
         num = len(shards)
         if num == 1 or len(ids) == 0:
-            return fn(shards[0], ids)
+            return fn(shards[0], ids, *extras)
         owner = (ids % np.uint64(num)).astype(np.int64)
         index = [np.nonzero(owner == s)[0] for s in range(num)]
         parts = [
-            fn(shards[s], ids[sel]) if len(sel) else None
+            fn(shards[s], ids[sel], *[e[sel] for e in extras]) if len(sel) else None
             for s, sel in enumerate(index)
         ]
         # find a template result to size outputs
@@ -407,8 +557,60 @@ class Graph:
                 out[sel] = sh.sample_node(int(sel.sum()), node_type, rng)
         return out
 
+    def sample_edge(self, count: int, edge_type: int = -1, rng=None) -> np.ndarray:
+        """[count, 3] u64 (src, dst, type) rows, weight-proportional across
+        shards."""
+        rng = _rng(rng)
+        shards = self.shards
+        if len(shards) == 1:
+            return shards[0].sample_edge(count, edge_type, rng)
+        w = (
+            self._edge_shard_w.sum(axis=1)
+            if edge_type < 0
+            else self._edge_shard_w[:, edge_type]
+        )
+        picks = _WeightedSampler(w).sample(count, rng)
+        out = np.empty((count, 3), dtype=np.uint64)
+        for s, sh in enumerate(shards):
+            sel = picks == s
+            if sel.any():
+                out[sel] = sh.sample_edge(int(sel.sum()), edge_type, rng)
+        return out
+
     def node_type(self, ids) -> np.ndarray:
         return self._scatter_gather(ids, lambda sh, i: sh.node_type(i))
+
+    def random_walk(self, ids, edge_types=None, walk_len=3, p=1.0, q=1.0, rng=None):
+        """u64 [n, walk_len+1] walks (node2vec-biased when p or q != 1);
+        DEFAULT_ID once stuck. Across shards each step is owned by the
+        current node's shard; the previous id travels along, so the 1/p
+        return bias is exact and the distance-1 bias degrades to 1/q when
+        the previous node is on another shard."""
+        rng = _rng(rng)
+        if self.num_shards == 1:
+            return self.shards[0].random_walk(ids, edge_types, walk_len, p, q, rng)
+        ids = np.asarray(ids, dtype=np.uint64)
+        n = len(ids)
+        walks = np.full((n, walk_len + 1), DEFAULT_ID, dtype=np.uint64)
+        walks[:, 0] = ids
+        cur = ids.copy()
+        prev = np.full(n, DEFAULT_ID, dtype=np.uint64)
+        for step in range(1, walk_len + 1):
+            if p == 1.0 and q == 1.0:
+                nbr, _, _, mask, _ = self.sample_neighbor(cur, edge_types, 1, rng)
+                nxt = np.where(mask[:, 0], nbr[:, 0], DEFAULT_ID)
+            else:
+                rngs = self._shard_rngs(rng)
+                nxt = self._scatter_gather(
+                    cur,
+                    lambda sh, i, pv: sh._node2vec_step(i, pv, edge_types, p, q, rngs[sh.part]),
+                    extras=(prev,),
+                )
+            nxt = np.asarray(nxt, dtype=np.uint64)
+            nxt[cur == DEFAULT_ID] = DEFAULT_ID
+            walks[:, step] = nxt
+            prev, cur = cur, nxt
+        return walks
 
     def _shard_rngs(self, rng) -> list:
         """One independent child generator per shard, split up-front."""

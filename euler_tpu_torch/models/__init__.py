@@ -1,1 +1,16 @@
-from euler_tpu_torch.models.graphsage import GraphSAGESupervised  # noqa: F401
+from euler_tpu_torch.models.embedding_models import (  # noqa: F401
+    SkipGramModel,
+    deepwalk_batches,
+    line_batches,
+)
+from euler_tpu_torch.models.graphsage import (  # noqa: F401
+    GraphSAGESupervised,
+    GraphSAGEUnsupervised,
+)
+from euler_tpu_torch.models.kg import (  # noqa: F401
+    TransX,
+    kg_batches,
+    kg_rank_eval,
+    kg_ranking_metrics,
+    transx_warm_start,
+)

@@ -1,4 +1,5 @@
-"""GraphSAGE, supervised (counterpart: euler_tpu/models/graphsage.py:24-85).
+"""GraphSAGE, supervised and unsupervised
+(counterpart: euler_tpu/models/graphsage.py:24-122).
 
 Training calls the model: (emb, loss, "f1", micro_f1), the loss being the
 mean over rows of the summed sigmoid cross-entropy, as optax's. Serving
@@ -18,6 +19,7 @@ from torch.nn import functional as F
 
 from euler_tpu_torch.dataflow.base import MiniBatch
 from euler_tpu_torch.nn.base_gnn import GNNNet
+from euler_tpu_torch.nn.heads import check_conv, contrastive_loss
 from euler_tpu_torch.nn.metrics import micro_f1
 
 
@@ -69,3 +71,39 @@ class GraphSAGESupervised(nn.Module):
         loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
         loss = loss.sum(dim=-1).mean()
         return emb, loss, "f1", micro_f1(labels, logits)
+
+
+class GraphSAGEUnsupervised(nn.Module):
+    """(src, pos, negs) contrastive GraphSAGE: one shared encoder embeds
+    the three MiniBatches; the loss is the sampled-softmax cross-entropy
+    with the positive in column 0, the metric MRR. `encoder_dim`/`max_id`
+    (the ShallowEncoder stage) and `remat` are not ported yet."""
+
+    def __init__(
+        self,
+        in_dim: int,
+        dims: Sequence[int],
+        encoder_dim: int = 0,
+        max_id: int = 0,
+        conv: str = "sage",
+        conv_kwargs: dict | None = None,
+        remat: bool = False,
+    ):
+        super().__init__()
+        if encoder_dim or max_id:
+            raise NotImplementedError(
+                "GraphSAGEUnsupervised(encoder_dim=, max_id=) needs ShallowEncoder, "
+                "which is not ported yet (ROADMAP queue 1 item 4)"
+            )
+        check_conv(conv, remat)
+        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+
+    def embed(self, batch: MiniBatch) -> torch.Tensor:
+        return self.net(batch)
+
+    def forward(self, src: MiniBatch, pos: MiniBatch, negs: MiniBatch):
+        e_src = self.embed(src)
+        loss, metric = contrastive_loss(
+            e_src, self.embed(pos), self.embed(negs)
+        )
+        return e_src, loss, "mrr", metric

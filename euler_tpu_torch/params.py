@@ -5,7 +5,8 @@ A flax Dense keeps `kernel` [in, out] and `bias` [out]; a torch
 nn.Linear keeps `weight` [out, in] and `bias` [out]. Module paths map
 one to one: `params/net/gnn/convs_<i>/Dense_0/kernel` becomes
 `net.gnn.convs.<i>.linear.weight` (transposed), `params/out/bias` becomes
-`out.bias`. A checkpoint holds the leaves in flax's tree_flatten order
+`out.bias`, and an `Embedding`'s `params/<name>/table` (the skip-gram
+and KG tables, TransX's projections) becomes `<name>.table` as it is. A checkpoint holds the leaves in flax's tree_flatten order
 (sorted keys) and the optimizer state in optax's leaf order, so either
 package restores what the other saved.
 """
@@ -192,10 +193,15 @@ def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> N
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Re-initialise every nn.Linear of `model` the way flax's Dense does
     by default (lecun_normal kernel: truncated normal at ±2σ, σ =
-    sqrt(1/fan_in)/0.8796…; zero bias), drawing from `generator`.
-    Returns the model's state_dict."""
+    sqrt(1/fan_in)/0.8796…; zero bias) and every `Embedding` table from
+    its row init (normal(0.02), or the KG projections' identity and
+    zeros), drawing from `generator`. Returns the model's state_dict."""
+    from euler_tpu_torch.nn.encoders import Embedding
+
     for m in model.modules():
-        if isinstance(m, nn.Linear):
+        if isinstance(m, Embedding):
+            m.reset_parameters(generator)
+        elif isinstance(m, nn.Linear):
             std = math.sqrt(1.0 / m.in_features) / 0.87962566103423978
             nn.init.trunc_normal_(
                 m.weight, std=std, a=-2 * std, b=2 * std, generator=generator

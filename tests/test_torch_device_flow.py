@@ -1,5 +1,5 @@
 """euler_tpu_torch DeviceSageFlow against the JAX package's: the staged
-tables are equal, and `fanout_batch` fed the random numbers JAX derives
+tables are equal, and `make_batch` fed the random numbers JAX derives
 from its key gives JAX's `sample(key)` MiniBatch leaf for leaf, bitwise —
 dense and paged layouts, weighted and unit-weight graphs, page sizes 8
 and 16, f32 and packed bf16 weight planes, and a hub graph whose rows
@@ -155,7 +155,7 @@ def test_tables_and_batches_match_jax(layout, weighted, page_size, plane, monkey
     sample = jax.jit(jf.sample)
     for t in range(2):
         key = jax.random.PRNGKey(t)
-        assert_same_batch(sample(key), pf.fanout_batch(*jax_draws(jf, key)))
+        assert_same_batch(sample(key), pf.make_batch(*jax_draws(jf, key)))
 
 
 def test_two_shard_graph_matches_jax():
@@ -165,7 +165,7 @@ def test_two_shard_graph_matches_jax():
                     batch_size=8, label_feature="label", layout="paged")
     assert_same_tables(jf, pf)
     key = jax.random.PRNGKey(4)
-    assert_same_batch(jax.jit(jf.sample)(key), pf.fanout_batch(*jax_draws(jf, key)))
+    assert_same_batch(jax.jit(jf.sample)(key), pf.make_batch(*jax_draws(jf, key)))
 
 
 @pytest.mark.parametrize("plane", ["f32", "bf16"])
@@ -181,7 +181,7 @@ def test_hub_graph_multi_page_rows_match_jax(plane, monkeypatch):
     sample = jax.jit(jf.sample)
     for t in range(2):
         key = jax.random.PRNGKey(t)
-        assert_same_batch(sample(key), pf.fanout_batch(*jax_draws(jf, key)))
+        assert_same_batch(sample(key), pf.make_batch(*jax_draws(jf, key)))
 
 
 def test_kernel_modes_agree_on_cpu():

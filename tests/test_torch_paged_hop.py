@@ -202,7 +202,7 @@ def test_device_flow_modes_give_jax_batches(monkeypatch):
     try:
         for mode in ("off", "ref", "auto"):
             ops.set_kernel_mode(mode)
-            got = pf.fanout_batch(roots, draws)
+            got = pf.make_batch(roots, draws)
             assert torch.equal(got.feats[0], roots)
             for (nbr, ew), feat, blk in zip(want, got.feats[1:], got.blocks):
                 np.testing.assert_array_equal(feat.numpy(), nbr)
@@ -228,7 +228,7 @@ def test_cuda_impl_raises_on_cpu_tensors(monkeypatch):
     ops.set_kernel_mode("cuda")
     try:
         with pytest.raises(ValueError, match="CUDA tensors"):
-            pf.fanout_batch(cur, (draw,))
+            pf.make_batch(cur, (draw,))
     finally:
         ops.set_kernel_mode("auto")
     with pytest.raises(ValueError, match="impl"):

@@ -92,7 +92,7 @@ def _flax_tree(seed=0):
 def _hydrated(setup, key):
     jb = setup["jcache"].hydrate(jax_hydrate_blocks(jax.jit(setup["jflow"].sample)(key)))
     pb = setup["pcache"].hydrate(
-        hydrate_blocks(setup["pflow"].fanout_batch(*_draws(setup["jflow"], key)))
+        hydrate_blocks(setup["pflow"].make_batch(*_draws(setup["jflow"], key)))
     )
     return jb, pb
 
