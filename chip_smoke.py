@@ -264,15 +264,42 @@ Phases, each of which raises (exit code != 0) when it fails:
      buckets 1, 4 and 16, k 10: answers bitwise numpy_topk_oracle's, one
      paged_topk_score and one paged_topk_select launch a search;
  20. `run_model_cli`, `python -m euler_tpu_torch.examples.run_model` for
-     graphsage_unsup, deepwalk, line and transe on --synthetic data with
-     and without --device-flow (8 processes at once), then evaluate
-     (transe, graphsage_unsup) and infer (deepwalk, line, graphsage_unsup)
-     on the device-flow runs (5 at once): each exits 0.
+     graphsage_unsup, deepwalk, line, transe, gcn and gat on --synthetic
+     data with and without --device-flow (12 processes at once), then
+     evaluate (transe) and infer (deepwalk, line, graphsage_unsup) on the
+     device-flow runs (4 at once): each exits 0;
+ 21. `conv_train`, the conv zoo's first half (GCN, GAT as run_model builds
+     it — improved, one head —, GraphConv, APPNP, SGCN, TAGCN, ARMA)
+     through SuperviseModel on phase 5's paged device lane (bf16 weight
+     plane, DeviceSageFlow(fanouts 10,10, batch 1024, paged, P = 16)),
+     dims 128,128, adam lr 0.01: 20 steps each in mode auto with exactly 2
+     paged_sample_hop launches a step, GAT also 3 gather_weighted_sum and
+     3 gather_weighted_sum_dx launches a step (its grid path gathers h_src
+     = W·x_src with its softmax weights, and h_src carries a gradient in
+     every conv call), the other convs none; the first 3 steps in mode
+     ref on the card and 2 on the CPU from the card's draws (bitwise
+     batches, losses within 1e-4 relative); GCN and GAT at steps_per_call
+     16 (replays, the same launches, losses within 1e-4 of K = 1's); calls
+     of 8 steps timed (median step, device ms, idle share, the port's
+     kernels on the card a step) at K = 1, and at K = 16 for GCN and GAT;
+ 22. `conv_quality`, the JAX package's full-graph quality recipes
+     (tests/test_quality.py:82-96, :136-170, :244-263, :306-320) through
+     `examples/conv_quality.py` on the card: FullGraphFlow(gcn_norm=True)
+     on cora_like, 200 adam steps at lr 0.01 on the 140-label split from
+     the JAX test's init (`params.flax_init`, seed 0), F1 on the 1 000
+     test nodes in the JAX tests' bands — GCN [16, 16] (0.79, 0.88),
+     APPNP (0.78, 0.90), GAT [64, 64] 4 heads improved (0.70, 0.86), SGCN
+     (0.79, 0.92), TAGCN (0.70, 0.86), ARMA (0.65, 0.82) — and GAT at the
+     640-label pool after 300 steps in (0.86, 0.97); no kernel of the
+     port launches (the whole-graph block has no grid).
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
-Then kernel 1 and its dx at the host lane's shapes, each held first
-against its plain version.
+Then kernel 1 and its dx at the host lane's shapes, at the unsupervised
+step's and at GAT's step's (h_src, F = 128, in each of a step's three
+calls, with GAT's masked softmax weights), each held first against its
+plain version; and the dx kernel at GAT's shapes with repeated slots,
+within 1e-5.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
 {1, 2, 3, 8, 16, 20, 64, 65}, sig12 and raw f32 operands with a padded tail, an
@@ -446,10 +473,26 @@ N2V_P, N2V_Q = 0.5, 2.0
 KG_ENT, KG_REL, KG_TRIPLES, KG_SEED = 14_951, 1_345, 483_142, 5
 KG_DIM, KG_BATCH, KG_NEGS, KG_STEPS, KG_CPU_STEPS = 100, 512, 8, 20, 2
 KGR_QUERIES, KGR_K, KGR_BUCKETS = 16, 10, (1, 4, 16)
-CLI_RM_MODELS, CLI_RM_STEPS = ("graphsage_unsup", "deepwalk", "line", "transe"), 20
+CLI_RM_MODELS, CLI_RM_STEPS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat"), 20
 # the kernels line's paths of phase 16 and the launch counts each reads
 UNSUP_PATHS = (("unsup_train", "launches"), ("unsup_train_k16", "launches_k16"),
                ("unsup_host", "launches_host"))
+# the conv zoo's first half (phases 21-22): each conv through SuperviseModel
+# on phase 5's paged device lane (GAT as run_model builds it: improved, one
+# head, so its grid path runs kernel 1), GCN and GAT also at K = 16; then
+# the JAX quality tests' full-graph recipes on cora_like
+CONV_NAMES = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma")
+CONV_KWARGS = {"gat": {"improved": True}}
+CONV_GROUPED = ("gcn", "gat")
+CONV_K, CONV_CALLS = 8, 5
+# a GAT step launches kernel 1 once a conv call (layer 0 over hops 0 and 1,
+# layer 1 over hop 0) and its dx as often: h_src = W·x_src carries a
+# gradient in every call, where SAGE's layer-0 x are features; the other
+# convs gather and scatter with index_select / index_add_ (XLA ops in the
+# JAX package, never Pallas) and launch neither
+CONV_PER_STEP = {"gat": {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 3}}
+# the share of GAT's grid slots kept by the mask in the kernel timings
+GAT_KEEP = 0.9
 
 
 def _card_line() -> str:
@@ -840,14 +883,27 @@ def gws_shapes(b: int, f0: int) -> tuple:
             ("layer1 hop0", b, 10, 128))
 
 
-def time_kernels(torch, gen, shapes, what: str, bf16: tuple = ()) -> list:
+def _weights(torch, gen, n: int, d: int, attention: bool):
+    """Kernel 1's w [n, d]: uniform in [0, 1), or GAT's grid-path weights
+    (`attention`): a softmax over each row of normal logits, masked slots
+    (a share 1 - GAT_KEEP) filled with -1e9 and zeroed after."""
+    dev = torch.device("cuda")
+    if not attention:
+        return torch.rand(n, d, generator=gen, device=dev)
+    keep = torch.rand(n, d, generator=gen, device=dev) < GAT_KEEP
+    logits = torch.where(keep, torch.randn(n, d, generator=gen, device=dev), -1e9)
+    return torch.softmax(logits, dim=1) * keep.float()
+
+
+def time_kernels(torch, gen, shapes, what: str, bf16: tuple = (), attention: bool = False) -> list:
     """gather_weighted_sum, its plain version and embedding_bag at
     `shapes` (gws_shapes), inputs cycled past the L2; `warm_ms` the kernel
     on one input set, left in the L2 by the call before, as the path's
     inputs are (the op before has just written them). The shapes labelled
     in `bf16` take bf16 x, as bf16 convs give layer 1 (the VEC-8 path);
     there embedding_bag, which wants its weights in the table's type,
-    runs in bf16 on w rounded to bf16 (outside the timed window)."""
+    runs in bf16 on w rounded to bf16 (outside the timed window).
+    `attention`: GAT's weights (`_weights`) in place of uniform ones."""
     import torch.nn.functional as F
 
     from euler_tpu_torch.ops import (
@@ -868,7 +924,7 @@ def time_kernels(torch, gen, shapes, what: str, bf16: tuple = ()) -> list:
         for _ in range(copies):
             x = torch.randn(n_src, f, generator=gen, device=dev).to(x_dtype)
             slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
-            w = torch.rand(n, d, generator=gen, device=dev)
+            w = _weights(torch, gen, n, d, attention)
             sets.append((x, slots, w, slots.long(), w.to(x_dtype)))
         x, slots, w, _, _ = sets[0]
         out, ref = gather_weighted_sum(x, slots, w, "cuda"), gather_weighted_sum_ref(x, slots, w)
@@ -915,7 +971,7 @@ def time_kernels(torch, gen, shapes, what: str, bf16: tuple = ()) -> list:
     return rows
 
 
-def time_dx(torch, gen, shapes, what: str, dtype=None) -> list:
+def time_dx(torch, gen, shapes, what: str, dtype=None, attention: bool = False) -> list:
     """gather_weighted_sum's dx at `shapes` (gws_shapes), inputs cycled
     past the L2: the dx kernel with its memset, held bitwise against the
     plain backward (`gather_weighted_sum_dx_ref`) first, the plain backward and
@@ -924,7 +980,7 @@ def time_dx(torch, gen, shapes, what: str, dtype=None) -> list:
     `warm_ms` the kernel on one input set, left in the L2. The bound: g,
     slots and w read once, dx written once. `dtype`: dx's type (f32, or
     bf16 as bf16 convs give layer 1's x; embedding_bag then runs on a
-    bf16 table, weights and g)."""
+    bf16 table, weights and g). `attention`: GAT's weights (`_weights`)."""
     import torch.nn.functional as F
 
     from euler_tpu_torch.ops import (
@@ -945,7 +1001,7 @@ def time_dx(torch, gen, shapes, what: str, dtype=None) -> list:
         for _ in range(copies):
             g = torch.randn(n, f, generator=gen, device=dev)
             slots = torch.arange(n_src, device=dev, dtype=torch.int32).reshape(n, d)
-            w = torch.rand(n, d, generator=gen, device=dev)
+            w = _weights(torch, gen, n, d, attention)
             table = torch.randn(n_src, f, generator=gen, device=dev).to(dtype).requires_grad_()
             out = F.embedding_bag(slots.long(), table, per_sample_weights=w.to(dtype),
                                   mode="sum")
@@ -2657,26 +2713,43 @@ def _split_equals_straight(straight: str, split: str, rep_resumed: dict, what: s
     return want
 
 
+def _split_runs(data: str, straight: str, split: str, *extra) -> tuple:
+    """The straight run and the first half of the split run at once, then
+    the resumed half: (the three reports, seconds of the pair, seconds of
+    the resumed half)."""
+    what = " ".join(extra + ("run",))
+    t0 = time.perf_counter()
+    procs = (_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl", *extra)),
+             _trainer(_cli_args(data, split, CLI_STEPS // 2, split + ".jsonl", *extra)))
+    try:
+        reps = [_finish(proc, 0, f"{half} of the {what}")
+                for proc, half in zip(procs, ("straight", "first half"))]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    resumed = _finish(_trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume",
+                                         *extra)), 0, f"resumed half of the {what}")
+    return (*reps, resumed, pair_s, time.perf_counter() - t0)
+
+
 def train_cli(torch, data: str, tmp: str) -> dict:
     """Phase 8: the trainer CLI on the card over the graph dir `data`, as
     subprocesses: 40 steps straight against 20 then a fresh --resume
-    process up to 40 (bitwise), and a SIGTERM run; the same split against
-    straight again with --native (the straight run and the first half at
-    once, then the resumed half); then the CLI's trainer in process, its
-    launches counted."""
+    process up to 40 (bitwise; the straight run and the first half at
+    once, then the resumed half), and a SIGTERM run; the same split
+    against straight again with --native; then the CLI's trainer in
+    process, its launches counted."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.tools.train import build_parser, build_trainer
     from euler_tpu_torch.training import CheckpointStore
 
     straight, split, term = (os.path.join(tmp, n) for n in ("cli_a", "cli_b", "cli_c"))
-    t0 = time.perf_counter()
-    rep_a = _finish(_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl")), 0,
-                    "straight run")
-    rep_b1 = _finish(_trainer(_cli_args(data, split, CLI_STEPS // 2, split + ".jsonl")), 0,
-                     "first half")
-    rep_b2 = _finish(_trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume")),
-                     0, "resumed half")
-    runs_s = time.perf_counter() - t0
+    rep_a, rep_b1, rep_b2, pair_s, resume_s = _split_runs(data, straight, split)
+    runs_s = pair_s + resume_s
     want = _split_equals_straight(straight, split, rep_b2, "the trainer CLI")
 
     # SIGTERM once the first checkpoint is committed: exit 3, a final
@@ -2703,25 +2776,11 @@ def train_cli(torch, data: str, tmp: str) -> dict:
     # --native: the straight run and the first half at once, then the
     # resumed half
     n_straight, n_split = (os.path.join(tmp, n) for n in ("cli_na", "cli_nb"))
-    t0 = time.perf_counter()
-    procs = (_trainer(_cli_args(data, n_straight, CLI_STEPS, n_straight + ".jsonl", "--native")),
-             _trainer(_cli_args(data, n_split, CLI_STEPS // 2, n_split + ".jsonl", "--native")))
-    try:
-        rep_na = _finish(procs[0], 0, "native straight run")
-        _finish(procs[1], 0, "native first half")
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    pair_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    rep_nb2 = _finish(_trainer(_cli_args(data, n_split, CLI_STEPS, n_split + ".jsonl", "--resume",
-                                         "--native")), 0, "native resumed half")
+    rep_na, _, rep_nb2, n_pair_s, n_resume_s = _split_runs(data, n_straight, n_split, "--native")
     native_losses = _split_equals_straight(n_straight, n_split, rep_nb2, "the trainer CLI --native")
     native = {"split_resume_bitwise": True, "final_checkpoint_bitwise": True,
               "losses": [native_losses[s] for s in sorted(native_losses)],
-              "straight_and_first_half_s": pair_s, "resumed_half_s": time.perf_counter() - t0,
+              "straight_and_first_half_s": n_pair_s, "resumed_half_s": n_resume_s,
               "telemetry": rep_na["telemetry"]}
 
     # the same trainer in process: its launches a step
@@ -4458,9 +4517,9 @@ def kg_retrieve(torch, trained: dict, card: str) -> dict:
 def run_model_cli(torch, tmp: str, card: str) -> dict:
     """Phase 20: `python -m euler_tpu_torch.examples.run_model` as
     processes, on the card, on --synthetic data (cora for
-    graphsage_unsup / deepwalk / line, fb15k for transe, converted once
-    beforehand): train with and without --device-flow (8 processes at
-    once), then --mode evaluate (transe) and infer (deepwalk, line,
+    graphsage_unsup / deepwalk / line / gcn / gat, fb15k for transe,
+    converted once beforehand): train with and without --device-flow (12
+    processes at once), then --mode evaluate (transe) and infer (deepwalk, line,
     graphsage_unsup) on the device-flow runs' dirs (4 at once): every one
     exits 0 with its result line."""
     from euler_tpu_torch.datasets import get_dataset
@@ -4511,6 +4570,179 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
                                   ("graphsage_unsup", "infer"))])
     res = {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
            "evaluate_infer": later, "seconds": time.perf_counter() - t0}
+    _emit(res)
+    return res
+
+
+def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 21: the conv zoo's first half on phase 5's paged device lane
+    (skewed_weighted_graph 200 000 nodes, bf16 weight plane,
+    DeviceSageFlow(fanouts 10,10, batch 1024, paged, P = 16)), each conv
+    through SuperviseModel at dims 128,128, adam lr 0.01: 20 steps in mode
+    auto with exactly CONV_PER_STEP launches a step (2 paged_sample_hop,
+    and for GAT 3 of kernel 1 and 3 of its dx; none of kernels 2-4);
+    the first 3 steps again in mode ref on the card (bitwise batches,
+    losses within 1e-4 relative) and 2 on the CPU from the card's draws
+    (bitwise batches, losses within 1e-4); for GCN and GAT 20 steps at
+    K = 16 (replays, the same launches, losses within 1e-4 of K = 1's);
+    calls of CONV_K steps timed at K = 1 (and K = 16)."""
+    from euler_tpu_torch.dataflow import DeviceSageFlow
+    from euler_tpu_torch.datasets import skewed_weighted_graph
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+    from euler_tpu_torch.nn import SuperviseModel
+
+    t0 = time.perf_counter()
+    g = skewed_weighted_graph(TRAIN_NODES, TRAIN_GRAPH_SEED)
+    prev_dtype = os.environ.get("EULER_TPU_PAGE_DTYPE")
+    os.environ["EULER_TPU_PAGE_DTYPE"] = "bf16"
+    try:
+        def lane(device: str):
+            return (DeviceSageFlow(g, fanouts=TRAIN_FANOUTS, batch_size=TRAIN_BATCH,
+                                   label_feature="label", layout="paged", page_size=PAGE_SIZE,
+                                   device=device),
+                    DeviceFeatureCache(g, ["feat"], device=device))
+
+        flow, cache = lane("cuda")
+        flow_cpu, cache_cpu = lane("cpu")
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev_dtype
+    if not flow._page_w_packed:
+        raise AssertionError("the conv lane did not stage a packed weight plane")
+    setup_s = time.perf_counter() - t0
+
+    def estimator(conv: str, f, fc, device: str, name: str, k: int = 1):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"conv_{name}"), learning_rate=0.01,
+                              optimizer="adam", log_steps=10**9, seed=seed, steps_per_call=k)
+        model = SuperviseModel(TRAIN_FEAT, conv, TRAIN_DIMS, 2, conv_kwargs=CONV_KWARGS.get(conv))
+        return Estimator(model, f, cfg, feature_cache=fc, device=device)
+
+    convs = {}
+    for conv in CONV_NAMES:
+        t = time.perf_counter()
+        per_step = CONV_PER_STEP.get(conv, {HOP_KERNEL: 2})
+        want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
+        # (a) the main path, mode auto
+        est = estimator(conv, flow, cache, "cuda", conv)
+        tap = _Tap(flow, REF_STEPS)
+        losses, launches, _ = _run_counted(torch, est, TRAIN_STEPS)
+        tap.close()
+        _expect_launches(launches, want, f"{conv} on the paged device lane")
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"{conv} losses not finite: {losses}")
+        # (b) mode ref on the card: the plain versions, the same batches
+        tap_ref = _Tap(flow, REF_STEPS)
+        losses_ref, launches_ref, _ = _run_counted(
+            torch, estimator(conv, flow, cache, "cuda", f"{conv}_ref"), REF_STEPS, "ref")
+        tap_ref.close()
+        if any(launches_ref.values()):
+            raise AssertionError(f"{conv}: mode ref launched kernels: {launches_ref}")
+        same_ref = _same_nests(torch, tap_ref.batches, tap.batches, f"{conv} auto vs ref")
+        err_ref = _assert_close(losses_ref, losses[:REF_STEPS], f"{conv} auto vs ref")
+        # (c) the port on the CPU, from the card's draws
+        draws = iter([_to_cpu(torch, d) for d in tap.draws[:CPU_STEPS]])
+        flow_cpu.draw_inputs = lambda gen: next(draws)
+        tap_cpu = _Tap(flow_cpu, CPU_STEPS)
+        try:
+            losses_cpu = estimator(conv, flow_cpu, cache_cpu, "cpu", f"{conv}_cpu").train(
+                CPU_STEPS, log=False, save=False)
+        finally:
+            tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
+        same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:CPU_STEPS],
+                               f"{conv} card vs CPU")
+        err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], f"{conv} card vs CPU")
+        row = {"losses": losses, "launches": launches, "launches_per_step": per_step,
+               "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref,
+                               "max_rel_err": err_ref},
+               "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu,
+                               "max_rel_err": err_cpu},
+               "params": sum(p.numel() for p in est.model.parameters()),
+               "timing_k1": _call_window(torch, est, CONV_K, CONV_CALLS, card,
+                                         f"{conv} K = 1", per_step)}
+        # (d) K = 16: the captured step replayed
+        if conv in CONV_GROUPED:
+            est16 = estimator(conv, flow, cache, "cuda", f"{conv}_k16", k=GROUP_K)
+            losses16, launches16, _ = _run_counted(torch, est16, TRAIN_STEPS)
+            _expect_launches(launches16, want, f"{conv} on the paged device lane at K = {GROUP_K}")
+            replays = _replay_launches(est16, launches16,
+                                       {k: n * est16.captures for k, n in per_step.items()})
+            row["k16"] = {"losses": losses16, "launches": launches16, "captures": est16.captures,
+                          "max_rel_err": _assert_close(losses16, losses,
+                                                       f"{conv} K = {GROUP_K} vs K = 1"),
+                          **replays}
+            row[f"timing_k{GROUP_K}"] = _call_window(torch, est16, CONV_K, CONV_CALLS, card,
+                                                     f"{conv} K = {GROUP_K}", per_step)
+            del est16
+        row["seconds"] = time.perf_counter() - t
+        convs[conv] = row
+        del est
+        torch.cuda.empty_cache()
+    res = {"phase": "conv_train", "card": card, "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
+           "fanouts": TRAIN_FANOUTS, "dims": TRAIN_DIMS, "layout": "paged",
+           "page_size": PAGE_SIZE, "steps": TRAIN_STEPS, "conv_kwargs": CONV_KWARGS,
+           "convs": convs, "setup_s": setup_s, "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"launches": {c: r["launches"] for c, r in convs.items()},
+            "launches_k16": {c: convs[c]["k16"]["launches"] for c in CONV_GROUPED},
+            "result": res}
+
+
+def conv_quality_bands(torch, card: str) -> dict:
+    """Phase 22: the JAX package's full-graph quality recipes on the card
+    (`examples/conv_quality.py`: FullGraphFlow(gcn_norm=True) on cora_like
+    at its full size, 200 steps, the 140-label split; GAT also at the
+    640-label pool, 300 steps), each model from the JAX test's init
+    (`params.flax_init`): the F1 of seed 0, the JAX tests' seed, in its
+    band. The whole-graph block has no
+    grid, so no kernel of the port launches."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.examples.conv_quality import RECIPES, conv_quality, cora_like
+
+    t0 = time.perf_counter()
+    data = cora_like()
+    ops.reset_launch_counts()
+    recipes = {}
+    for name in RECIPES:
+        t = time.perf_counter()
+        recipes[name] = {**conv_quality(name, "cuda", data), "seconds": time.perf_counter() - t}
+    launches = ops.launch_counts()
+    res = {"phase": "conv_quality", "card": card, "recipes": recipes, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    _emit(res)
+    out = {name: r["f1"] for name, r in recipes.items() if not r["in_band"]}
+    if out:
+        raise AssertionError(f"conv quality out of its band: {out}")
+    _expect_launches(launches, {}, "the full-graph recipes")
+    return res
+
+
+def check_gat_dx(torch, gen) -> dict:
+    """Kernel 1's dx at GAT's shapes (a step's three launches, F = 128)
+    with GAT's weights and slots that repeat: within rtol = atol = 1e-5
+    of the plain backward's f32 sum (the grid's own slots, which never
+    repeat, are held bitwise in `time_dx`)."""
+    from euler_tpu_torch.ops import gather_weighted_sum_dx, gather_weighted_sum_dx_ref
+
+    dev = torch.device("cuda")
+    max_err = 0.0
+    for label, n, d, f in gws_shapes(TRAIN_BATCH, TRAIN_DIMS[0]):
+        n_src = n * d
+        slots = torch.randint(0, n_src // 4, (n, d), generator=gen, device=dev, dtype=torch.int32)
+        w = _weights(torch, gen, n, d, True)
+        g = torch.randn(n, f, generator=gen, device=dev)
+        got = gather_weighted_sum_dx(w, g, slots, n_src, torch.float32, "cuda")
+        want = gather_weighted_sum_dx_ref(w, g, slots, n_src, torch.float32)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        max_err = max(max_err, err)
+        if not torch.allclose(got, want, rtol=KERNEL_TOL, atol=KERNEL_TOL):
+            raise AssertionError(f"gather_weighted_sum_dx at GAT's {label} with repeated slots: "
+                                 f"max abs err {err}")
+    res = {"phase": "kernel_check", "kernel": "gather_weighted_sum_dx",
+           "what": "GAT step shapes, repeated slots", "max_abs_err": max_err,
+           "rtol": KERNEL_TOL, "atol": KERNEL_TOL}
     _emit(res)
     return res
 
@@ -4636,6 +4868,13 @@ def main(argv=None) -> int:
         del kg
         torch.cuda.empty_cache()
         run_model_cli(torch, tmp, card)
+
+        # 21-22. the conv zoo's first half: each conv on the paged device
+        # lane, then the JAX quality tests' full-graph recipes on the card
+        convs = conv_train(torch, tmp, args.seed, card)
+        torch.cuda.empty_cache()
+        conv_quality_bands(torch, card)
+        torch.cuda.empty_cache()
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -4661,6 +4900,12 @@ def main(argv=None) -> int:
                             for s in gws_shapes(UNSUP_BATCH * UNSUP_NEGS, TRAIN_FEAT)))
     unsup_rows = time_kernels(torch, gen, unsup_shapes, "unsup step")
     unsup_dx_rows = time_dx(torch, gen, unsup_shapes[2::3], "unsup step")
+    # GAT's step (phase 21): every call gathers h_src = W·x (F = 128) with
+    # attention weights, and each call's dx runs (h_src carries a gradient)
+    gat_shapes = gws_shapes(TRAIN_BATCH, TRAIN_DIMS[0])
+    gat_rows = time_kernels(torch, gen, gat_shapes, "gat step", attention=True)
+    gat_dx_rows = time_dx(torch, gen, gat_shapes, "gat step", attention=True)
+    gat_dx_check = check_gat_dx(torch, gen)
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -4689,7 +4934,10 @@ def main(argv=None) -> int:
         "train_host_native": host_native["launches"]["gather_weighted_sum"],
         "host_headline": host_head["launches"]["gather_weighted_sum"],
         **{path: r["gather_weighted_sum"] for path, r in served_paths.items()},
-        **{path: unsup[key]["gather_weighted_sum"] for path, key in UNSUP_PATHS}}
+        **{path: unsup[key]["gather_weighted_sum"] for path, key in UNSUP_PATHS},
+        **{f"conv_train_{c}": n["gather_weighted_sum"] for c, n in convs["launches"].items()},
+        **{f"conv_train_{c}_k16": n["gather_weighted_sum"]
+           for c, n in convs["launches_k16"].items()}}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -4699,7 +4947,11 @@ def main(argv=None) -> int:
                         "host_headline": host_head["launches"]["gather_weighted_sum_dx"],
                         **{path: r["gather_weighted_sum_dx"] for path, r in served_paths.items()},
                         **{path: unsup[key]["gather_weighted_sum_dx"]
-                           for path, key in UNSUP_PATHS}}
+                           for path, key in UNSUP_PATHS},
+                        **{f"conv_train_{c}": n["gather_weighted_sum_dx"]
+                           for c, n in convs["launches"].items()},
+                        **{f"conv_train_{c}_k16": n["gather_weighted_sum_dx"]
+                           for c, n in convs["launches_k16"].items()}}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -4738,6 +4990,9 @@ def main(argv=None) -> int:
                             for r in head_rows],
         "unsup_step": unsup_step(unsup_rows),
         "unsup_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in unsup_rows],
+        "gat_step": {k: total(gat_rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                     "bound_ms")},
+        "gat_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in gat_rows],
     }, {
         "name": "gather_weighted_sum_dx",
         "route": "cuda",
@@ -4750,7 +5005,7 @@ def main(argv=None) -> int:
         "launches_by_path": {"serve": served["launches_dx"],
                              "train": train_launches["gather_weighted_sum_dx"],
                              **host_dx_launches},
-        "max_abs_err": dx_check["max_abs_err"],
+        "max_abs_err": max(dx_check["max_abs_err"], gat_dx_check["max_abs_err"]),
         "check": "bitwise for unique slots, rtol = atol = 1e-5 for repeats",
         "ms": dx_path["ms"],
         "plain_ms": dx_path["plain_ms"],
@@ -4765,6 +5020,9 @@ def main(argv=None) -> int:
                             for r in head_dx_rows],
         "unsup_step": unsup_step(unsup_dx_rows),
         "unsup_shapes": [{k: r[k] for k in shape_keys} for r in unsup_dx_rows],
+        "gat_step": {k: total(gat_dx_rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms")},
+        "gat_shapes": [{k: r[k] for k in shape_keys} for r in gat_dx_rows],
     }]
     # the hop kernel: the sums over the two hops of one train step
     kernels.append({
@@ -4775,11 +5033,17 @@ def main(argv=None) -> int:
                     "(paged_page_search), as euler_tpu/dataflow/device.py:922-975 "
                     "composes them",
         "launches": (train_launches[HOP_KERNEL] + grouped["launches"][HOP_KERNEL]
-                     + unsup["launches"][HOP_KERNEL] + unsup["launches_k16"][HOP_KERNEL]),
+                     + unsup["launches"][HOP_KERNEL] + unsup["launches_k16"][HOP_KERNEL]
+                     + sum(n[HOP_KERNEL] for n in convs["launches"].values())
+                     + sum(n[HOP_KERNEL] for n in convs["launches_k16"].values())),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
                              "train_grouped": grouped["launches"][HOP_KERNEL],
                              "unsup_train": unsup["launches"][HOP_KERNEL],
-                             "unsup_train_k16": unsup["launches_k16"][HOP_KERNEL]},
+                             "unsup_train_k16": unsup["launches_k16"][HOP_KERNEL],
+                             **{f"conv_train_{c}": n[HOP_KERNEL]
+                                for c, n in convs["launches"].items()},
+                             **{f"conv_train_{c}_k16": n[HOP_KERNEL]
+                                for c, n in convs["launches_k16"].items()}},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],
@@ -4809,9 +5073,11 @@ def main(argv=None) -> int:
             "route": "cuda",
             "source": f"euler_tpu_torch/ops/csrc/{src}",
             "replaces": f"euler_tpu/ops/pallas_kernels.py:{line}",
-            "launches": train_launches[name] + unsup["launches"][name],
+            "launches": (train_launches[name] + unsup["launches"][name]
+                         + sum(n[name] for n in convs["launches"].values())),
             "launches_by_path": {"train": train_launches[name],
-                                 "unsup_train": unsup["launches"][name]},
+                                 "unsup_train": unsup["launches"][name],
+                                 "conv_train": sum(n[name] for n in convs["launches"].values())},
             "max_abs_err": paged_check["max_abs_err"],
             "check": "bitwise",
             "ms": total(rows, "ms"),

@@ -18,3 +18,4 @@ from euler_tpu_torch.dataflow.device import (  # noqa: F401
     DeviceWalkFlow,
 )
 from euler_tpu_torch.dataflow.walk import gen_pair  # noqa: F401
+from euler_tpu_torch.dataflow.whole import FullGraphFlow  # noqa: F401

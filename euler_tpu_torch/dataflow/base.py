@@ -38,6 +38,11 @@ class Block:
     # >0 when edges are grid-structured (dst row i owns slots
     # [i*grid, (i+1)*grid)); unlocks the fused gather_weighted_sum path
     grid: int = 0
+    # the true graph degrees (f32, self loop not included) of the src and
+    # dst hop's nodes, attached by the full-neighbor and whole-graph flows
+    # under gcn_norm=True for GCNConv's exact symmetric normalization
+    src_deg: np.ndarray | torch.Tensor | None = None  # f32[n_src]
+    dst_deg: np.ndarray | torch.Tensor | None = None  # f32[n_dst]
 
 
 @dataclasses.dataclass
@@ -51,6 +56,9 @@ class MiniBatch:
     root_idx  — int32[B] root node ids
     labels    — optional f32[B, L] supervised targets
     hop_ids   — optional int32 per-hop node ids (host only)
+    target_idx — whole-graph flows: the hop-0 rows that carry the loss and
+                the metric (labels then has one row a target); None means
+                every hop-0 row is a target
     """
 
     feats: tuple
@@ -59,6 +67,7 @@ class MiniBatch:
     root_idx: np.ndarray | torch.Tensor
     labels: np.ndarray | torch.Tensor | None = None
     hop_ids: tuple | None = None
+    target_idx: np.ndarray | torch.Tensor | None = None
 
 
 def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor | None:
@@ -80,15 +89,23 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     """The batch with every array as a tensor on `device` (the port's
     counterpart of the JAX `Estimator._put` + `hydrate_blocks`); arrays
     that already are tensors are moved, or kept where they are. hop_ids
-    stay on the host: no model of the port reads them on the device.
-    pinned=True stages each host array in page-locked memory and copies
-    it without blocking: the caller must order its use after the current
+    stay on the host: no model of the port reads them on the device; the
+    true degrees and target_idx of the full-graph flows move with the
+    rest, and an array the batch holds more than once (the full-graph
+    flow's one node table and block) is moved once. pinned=True stages
+    each host array in page-locked memory and copies it without
+    blocking: the caller must order its use after the current
     stream's copies (the Prefetcher records an event). A lean batch's
     missing leaves stay None, and its bf16 edge weights stay bf16."""
     device = torch.device(device)
+    moved = {}  # one copy of an array the batch holds more than once
 
     def put(a):
-        return _tensor(a, device, pinned)
+        if a is None:
+            return None
+        if id(a) not in moved:
+            moved[id(a)] = (a, _tensor(a, device, pinned))
+        return moved[id(a)][1]
 
     blocks = tuple(
         dataclasses.replace(
@@ -97,6 +114,8 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
             edge_dst=put(b.edge_dst),
             edge_w=put(b.edge_w),
             mask=put(b.mask),
+            src_deg=put(b.src_deg),
+            dst_deg=put(b.dst_deg),
         )
         for b in batch.blocks
     )
@@ -107,6 +126,7 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
         root_idx=put(batch.root_idx),
         labels=None if batch.labels is None else put(batch.labels),
         hop_ids=batch.hop_ids,
+        target_idx=put(batch.target_idx),
     )
 
 

@@ -4,6 +4,8 @@ dense and rows feature modes, the lean wire)."""
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
@@ -146,10 +148,11 @@ class FullNeighborDataFlow(DataFlow):
 
     Every hop expands each node to its neighbor list in storage order,
     cut at `max_degree` and padded to it, so the shapes are static and a
-    root set always gives the same batch. Not ported yet: the remote
-    planner (`_query_plan`, which waits for the distributed client) and
-    `gcn_norm` (the true degrees GCNConv reads); asking for either
-    raises.
+    root set always gives the same batch. gcn_norm=True attaches each
+    hop's true graph degrees to the blocks (`src_deg` / `dst_deg`), so
+    GCNConv runs the exact symmetric normalization. Not ported yet: the
+    remote planner (`_query_plan`, which waits for the distributed
+    client); asking for it raises.
     """
 
     def __init__(
@@ -165,11 +168,6 @@ class FullNeighborDataFlow(DataFlow):
         feature_mode="dense",
         gcn_norm: bool = False,
     ):
-        if gcn_norm:
-            raise NotImplementedError(
-                "FullNeighborDataFlow(gcn_norm=True) is not ported yet: it "
-                "feeds GCNConv, which the port does not have"
-            )
         shards = getattr(graph, "shards", None)
         if shards and all(hasattr(sh, "call") for sh in shards):
             # a graph of wire shards (euler_tpu/query/plan.py:665-667)
@@ -181,6 +179,7 @@ class FullNeighborDataFlow(DataFlow):
         self.edge_types = edge_types
         self.num_hops = num_hops
         self.max_degree = max_degree
+        self.gcn_norm = gcn_norm
 
     def query(self, roots: np.ndarray) -> MiniBatch:
         roots = np.asarray(roots, dtype=np.uint64)
@@ -196,6 +195,16 @@ class FullNeighborDataFlow(DataFlow):
             cur = nbr.reshape(-1)
             hop_ids.append(cur)
             hop_masks.append(mask.reshape(-1))
+        if self.gcn_norm:
+            # every hop cites its parents again: fetch each id's degree once
+            degs = gather_unique(
+                hop_ids,
+                lambda u: np.asarray(self.graph.degree_sum(u, self.edge_types), np.float32),
+            )
+            blocks = [
+                dataclasses.replace(b, dst_deg=degs[h], src_deg=degs[h + 1])
+                for h, b in enumerate(blocks)
+            ]
         return MiniBatch(
             feats=self.node_feats_hops(hop_ids),
             masks=tuple(hop_masks),

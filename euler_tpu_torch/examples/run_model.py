@@ -5,20 +5,25 @@
         --synthetic --device-flow
     python -m euler_tpu_torch.examples.run_model --model graphsage_unsup --synthetic \\
         --device cpu
+    python -m euler_tpu_torch.examples.run_model --model gat --dataset cora --synthetic \
+        --device-flow
 
 The JAX runner's flags and defaults, plus `--device` (the CUDA card
 unless `--device cpu`; `--platform cpu` means the same). The families the
 port runs:
-  supervised conv:   sage graphsage (SuperviseModel(conv="sage"))
+  supervised conv:   gcn sage graphsage gat appnp arma sgcn tagcn graph
+                     (SuperviseModel over the conv of that name; gat with
+                     improved=True, as the JAX runner builds it)
   conv unsupervised: graphsage_unsup
   embeddings:        deepwalk node2vec line
   knowledge graph:   transe transh transr transd distmult rotate
 each on the host flow and, with `--device-flow`, on the device flow.
 Modes, as the JAX runner runs them: train for every family; evaluate
-for the KG family (`kg_rank_eval`) and sage; infer for the embedding
-family (writes embedding_0.npy and ids_0.npy), sage and graphsage_unsup;
-train_and_evaluate for sage. The runner refuses the other modes of the
-embedding and KG families, and so does the port; graphsage_unsup's
+for the KG family (`kg_rank_eval`) and the supervised convs; infer for
+the embedding family (writes embedding_0.npy and ids_0.npy), the
+supervised convs and graphsage_unsup; train_and_evaluate for the
+supervised convs. The runner refuses the other modes of the embedding
+and KG families, and so does the port; graphsage_unsup's
 evaluate and train_and_evaluate, which raise a TypeError in the JAX
 runner (it feeds the triple model one MiniBatch), are refused too.
 Every other model of the JAX zoo exits with a message naming its
@@ -37,12 +42,15 @@ import numpy as np
 
 KG_MODELS = {"transe", "transh", "transr", "transd", "distmult", "rotate"}
 EMBEDDING_MODELS = ("deepwalk", "node2vec", "line")
-SUPERVISED_SAGE = ("sage", "graphsage")
+# the supervised conv models and the conv each runs (the JAX runner's
+# CONV_MODELS, those of its convs the port has)
+CONV_MODELS = {"gcn": "gcn", "graphsage": "sage", "sage": "sage", "gat": "gat",
+               "appnp": "appnp", "arma": "arma", "sgcn": "sgcn", "tagcn": "tagcn",
+               "graph": "graph"}
 # the JAX zoo's other models and the ROADMAP item each waits for
 NOT_PORTED = {
-    **{m: "ROADMAP queue 1 item 4 (the conv zoo)" for m in (
-        "gcn", "gat", "agnn", "appnp", "arma", "sgcn", "tagcn", "dna", "gated",
-        "geniepath", "graph", "lgcn")},
+    **{m: "ROADMAP queue 1 item 4 (the conv zoo's second half)" for m in (
+        "agnn", "dna", "gated", "geniepath", "lgcn")},
     **{m: "ROADMAP queue 1 item 4 (graph classification; needs item 3's whole-graph flow)"
        for m in ("gin", "set2set", "gated_graph", "graphgcn")},
     **{m: "ROADMAP queue 1 item 4 (GAE/DGI)" for m in ("gae", "vgae", "dgi")},
@@ -82,7 +90,7 @@ def build_parser():
     ap.add_argument("--data-parallel", type=int, default=0,
                     help="devices for a data-parallel mesh (0 = single; not ported yet)")
     ap.add_argument("--device-flow", action="store_true",
-                    help="sample batches on the device (graphsage_unsup, sage, "
+                    help="sample batches on the device (graphsage_unsup, the supervised convs, "
                          "deepwalk/node2vec/line and the TransX family; local graphs only)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize conv layers on backward (not ported yet)")
@@ -104,7 +112,7 @@ def _require_checkpoint(est):
 def _refuse(name: str) -> None:
     if name in NOT_PORTED:
         raise SystemExit(f"model {name!r} is not ported to euler_tpu_torch yet: {NOT_PORTED[name]}")
-    known = sorted(KG_MODELS) + list(EMBEDDING_MODELS) + ["graphsage_unsup"] + list(SUPERVISED_SAGE)
+    known = sorted(KG_MODELS) + list(EMBEDDING_MODELS) + ["graphsage_unsup"] + list(CONV_MODELS)
     if name not in known:
         raise SystemExit(f"unknown model {name!r}")
 
@@ -210,13 +218,17 @@ def main(argv=None):
                                          num_negs=args.num_negs, rng=rng),
                     cfg, device=device,
                 )
-        else:  # the supervised sage branch
+        else:  # the supervised conv branch
             from euler_tpu_torch.nn import SuperviseModel
 
             flow = SageDataFlow(graph, [feature], fanouts=fanouts, label_feature="label",
                                 rng=rng)
-            model = SuperviseModel(in_dim, conv="sage", dims=dims, label_dim=label_dim,
-                                   remat=args.remat)
+            conv = CONV_MODELS[name]
+            # the JAX runner's GAT (the reference's run_gat.py default):
+            # without `improved`, roots with no valid neighbour embed as 0
+            conv_kwargs = {"improved": True} if conv == "gat" else None
+            model = SuperviseModel(in_dim, conv=conv, dims=dims, label_dim=label_dim,
+                                   conv_kwargs=conv_kwargs, remat=args.remat)
             if args.device_flow:
                 from euler_tpu_torch.dataflow import DeviceSageFlow
 

@@ -58,7 +58,7 @@ class GraphSAGESupervised(nn.Module):
                 "GraphSAGESupervised(encoder_dim=, max_id=, remat=True) is not ported yet"
             )
         self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
-        self.out = nn.Linear(list(dims)[-1], label_dim)
+        self.out = nn.Linear(self.net.gnn.out_dim, label_dim)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
         return self.net(batch)

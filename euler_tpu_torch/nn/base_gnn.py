@@ -26,6 +26,10 @@ class GNNNet(nn.Module):
     dims: output width per layer; len(dims) must equal len(batch.blocks)
     conv_kwargs: passed to every conv (e.g. {"dtype": torch.bfloat16})
     remat (rematerialised layers) is not ported yet.
+
+    Each conv gets the width its predecessor outputs (flax infers it):
+    a weightless conv (APPNP, SGCN) passes its input width on, not its
+    `dims` entry. `out_dim` is the width of the embeddings.
     """
 
     def __init__(
@@ -41,11 +45,13 @@ class GNNNet(nn.Module):
         if remat:
             raise NotImplementedError("GNNNet(remat=True) is not ported yet")
         cls = get_conv(conv)
-        widths = [in_dim] + list(dims)
         kwargs = dict(conv_kwargs or {})
-        self.convs = nn.ModuleList(
-            cls(widths[i], widths[i + 1], **kwargs) for i in range(len(dims))
-        )
+        convs, width = [], in_dim
+        for d in dims:
+            convs.append(cls(width, d, **kwargs))
+            width = convs[-1].out_width
+        self.convs = nn.ModuleList(convs)
+        self.out_dim = width
         self.dims = list(dims)
         self.activation = activation
 

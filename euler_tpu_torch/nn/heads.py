@@ -5,9 +5,9 @@ A model call returns (embedding, loss, metric_name, metric), as in the
 JAX package. `SuperviseModel` is sigmoid cross-entropy + micro-F1;
 `UnsuperviseModel` embeds (src, pos, negs) with one shared GNN and
 optimizes the sampled-softmax cross-entropy with the positive in column
-0, reporting MRR. `conv="sage"` is the only conv ported; the other convs
-wait for ROADMAP queue 1 item 4, and `batch.target_idx` (whole-graph
-flows) for item 3.
+0, reporting MRR. The convs of `layers.CONVS` are ported; the others wait
+for ROADMAP queue 1 item 4. A whole-graph batch's `target_idx` picks the
+rows that carry the loss and the metric.
 """
 
 from __future__ import annotations
@@ -19,16 +19,17 @@ from torch import nn
 from torch.nn import functional as F
 
 from euler_tpu_torch.dataflow.base import MiniBatch
+from euler_tpu_torch.layers import CONVS
 from euler_tpu_torch.nn.base_gnn import GNNNet
 from euler_tpu_torch.nn.metrics import micro_f1, mrr
 
 
 def check_conv(conv: str, remat: bool = False) -> None:
     """Refuse what the port's heads cannot run yet, naming its ROADMAP item."""
-    if conv != "sage":
+    if conv not in CONVS:
         raise NotImplementedError(
-            f"conv {conv!r} is not ported yet (ROADMAP queue 1 item 4: the conv zoo); "
-            "the port has conv='sage'"
+            f"conv {conv!r} is not ported yet (ROADMAP queue 1 item 4: the conv zoo's "
+            f"second half); the port has {sorted(CONVS)}"
         )
     if remat:
         raise NotImplementedError("remat=True is not ported yet (ROADMAP queue 1 item 2)")
@@ -66,13 +67,16 @@ class SuperviseModel(nn.Module):
         super().__init__()
         check_conv(conv, remat)
         self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
-        self.out = nn.Linear(list(dims)[-1], label_dim)
+        self.out = nn.Linear(self.gnn.out_dim, label_dim)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
         return self.gnn(batch)
 
     def forward(self, batch: MiniBatch):
         emb = self.embed(batch)
+        if batch.target_idx is not None:
+            # whole-graph flows: only the target rows carry loss and metric
+            emb = emb[batch.target_idx.long()]
         logits = self.out(emb.float())
         labels = batch.labels.float()
         loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")

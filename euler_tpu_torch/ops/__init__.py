@@ -22,7 +22,14 @@ from euler_tpu_torch.ops.gather_weighted_sum import (  # noqa: F401
     gather_weighted_sum_ref,
     launch_geometry,
 )
-from euler_tpu_torch.ops.mp_ops import gather, scatter_add  # noqa: F401
+from euler_tpu_torch.ops.mp_ops import (  # noqa: F401
+    gather,
+    scatter,
+    scatter_add,
+    scatter_max,
+    scatter_mean,
+    scatter_softmax,
+)
 from euler_tpu_torch.ops.paged import (  # noqa: F401
     PAGE_LANES,
     HopTables,

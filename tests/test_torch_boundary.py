@@ -51,6 +51,8 @@ PORTED = [
     "euler_tpu_torch.tools.serve",
     "euler_tpu_torch.retrieval.router", "euler_tpu_torch.retrieval.client",
     "euler_tpu_torch.tools.retrieve",
+    "euler_tpu_torch.ops.mp_ops", "euler_tpu_torch.layers.conv",
+    "euler_tpu_torch.dataflow.whole", "euler_tpu_torch.examples.conv_quality",
 ]
 
 

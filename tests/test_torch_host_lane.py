@@ -132,8 +132,15 @@ def test_full_neighbor_query_matches_jax(tmp_path):
     jb, pb = jflow.query(roots), pflow.query(roots)
     assert pb.blocks[1].n_src == len(roots) * 16
     _assert_batches_equal(jb, pb)
-    with pytest.raises(NotImplementedError, match="gcn_norm"):
-        FullNeighborDataFlow(pg, ["feat"], gcn_norm=True)
+    # gcn_norm=True: the same batch, each block with its hops' true degrees
+    jb = JaxFullFlow(jg, ["feat"], gcn_norm=True, **kw).query(roots)
+    pb = FullNeighborDataFlow(pg, ["feat"], gcn_norm=True, **kw).query(roots)
+    _assert_batches_equal(jb, pb)
+    for a, b in zip(jb.blocks, pb.blocks):
+        for name in ("src_deg", "dst_deg"):
+            x, y = np.asarray(getattr(a, name)), getattr(b, name)
+            assert x.dtype == y.dtype == np.float32
+            np.testing.assert_array_equal(y, x, err_msg=name)
 
 
 def test_node_batches_and_id_batches_match_jax(graphs):

@@ -1,6 +1,7 @@
 """The port's `run_model` CLI on the CPU (`--device cpu`): the JAX runner's
-flags and defaults; every family the port runs trains on the host flow
-and on the device flow (`--device-flow`); train_and_evaluate and evaluate
+flags and defaults; every family the port runs (of the supervised
+convs: sage, gcn and gat) trains on the host flow and on the device flow
+(`--device-flow`); train_and_evaluate and evaluate
 for sage, evaluate for the KG family, infer for the embedding family,
 sage and graphsage_unsup, each exiting 0 on `--synthetic` data; the
 modes the JAX runner refuses (or cannot run) and the models the port
@@ -48,7 +49,8 @@ def test_flags_and_defaults_follow_the_jax_runner():
     assert got == want
 
 
-FAMILIES = ["graphsage_unsup", "deepwalk", "node2vec", "line", "sage", *sorted(KG_MODELS)]
+FAMILIES = ["graphsage_unsup", "deepwalk", "node2vec", "line", "sage", "gcn", "gat",
+            *sorted(KG_MODELS)]
 
 
 @pytest.mark.parametrize("flow", ["host", "device"])
@@ -106,6 +108,9 @@ def test_refusals(cache, tmp_path):
         with pytest.raises(SystemExit, match="ROADMAP queue 1 item") as e:
             _run(cache, model)
         assert item in str(e.value)
+    for model in ("agnn", "dna", "gated", "geniepath", "lgcn"):
+        with pytest.raises(SystemExit, match="item 4 .the conv zoo's second half"):
+            _run(cache, model)
     with pytest.raises(SystemExit, match="unknown model"):
         _run(cache, "nope")
     with pytest.raises(SystemExit, match="item 6"):

@@ -33,7 +33,15 @@ from euler_tpu.graph import Graph as JaxGraph
 from euler_tpu.graph.builder import build_from_json as jax_build_from_json
 from euler_tpu.graph.builder import convert_json as jax_convert_json
 from euler_tpu.graph.native import NativeGraphStore as JaxNativeGraphStore
+from euler_tpu.dataflow import FullGraphFlow as JaxFullGraphFlow
+from euler_tpu.layers import APPNPConv as JaxAPPNPConv
+from euler_tpu.layers import ARMAConv as JaxARMAConv
+from euler_tpu.layers import GATConv as JaxGATConv
+from euler_tpu.layers import GCNConv as JaxGCNConv
+from euler_tpu.layers import GraphConv as JaxGraphConv
 from euler_tpu.layers import SAGEConv as JaxSAGEConv
+from euler_tpu.layers import SGCNConv as JaxSGCNConv
+from euler_tpu.layers import TAGConv as JaxTAGConv
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGESupervised
 from euler_tpu.models import GraphSAGEUnsupervised as JaxGraphSAGEUnsupervised
 from euler_tpu.models import SkipGramModel as JaxSkipGramModel
@@ -60,6 +68,7 @@ from euler_tpu_torch.dataflow import (
     DeviceSageFlow,
     DeviceUnsupSageFlow,
     DeviceWalkFlow,
+    FullGraphFlow,
     FullNeighborDataFlow,
     SageDataFlow,
     gen_pair,
@@ -70,7 +79,16 @@ from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator
 from euler_tpu_torch.estimator import edge_batches, unsupervised_batches
 from euler_tpu_torch.graph import Graph, build_from_json, convert_json
 from euler_tpu_torch.graph.native import NativeGraphStore
-from euler_tpu_torch.layers import SAGEConv
+from euler_tpu_torch.layers import (
+    APPNPConv,
+    ARMAConv,
+    GATConv,
+    GCNConv,
+    GraphConv,
+    SAGEConv,
+    SGCNConv,
+    TAGConv,
+)
 from euler_tpu_torch.models import (
     GraphSAGESupervised,
     GraphSAGEUnsupervised,
@@ -110,6 +128,14 @@ PAIRS = [
     (DeviceFeatureCache, JaxDeviceFeatureCache),
     (DeviceSageFlow, JaxDeviceSageFlow),
     (SAGEConv, JaxSAGEConv),
+    (GCNConv, JaxGCNConv),
+    (GATConv, JaxGATConv),
+    (GraphConv, JaxGraphConv),
+    (APPNPConv, JaxAPPNPConv),
+    (SGCNConv, JaxSGCNConv),
+    (TAGConv, JaxTAGConv),
+    (ARMAConv, JaxARMAConv),
+    (FullGraphFlow, JaxFullGraphFlow),
     (GNNNet, JaxGNNNet),
     (GraphSAGESupervised, JaxGraphSAGESupervised),
     (Graph.load, JaxGraph.load),
@@ -143,7 +169,8 @@ PAIRS = [
     (fb15k_like, jax_fb15k_like),
 ]
 # the torch modules' input width, which flax infers at init
-IN_DIM_FIRST = (SAGEConv, GNNNet, GraphSAGESupervised, SuperviseModel, UnsuperviseModel,
+IN_DIM_FIRST = (SAGEConv, GCNConv, GATConv, GraphConv, APPNPConv, SGCNConv, TAGConv, ARMAConv,
+                GNNNet, GraphSAGESupervised, SuperviseModel, UnsuperviseModel,
                 GraphSAGEUnsupervised)
 # flax.linen.Module's own dataclass fields
 FLAX_FIELDS = ("parent", "name")

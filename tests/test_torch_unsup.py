@@ -182,7 +182,7 @@ def test_unported_options_raise(graphs):
     with pytest.raises(NotImplementedError, match="item 4"):
         GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=10)
     with pytest.raises(NotImplementedError, match="item 4"):
-        SuperviseModel(FEAT, "gcn", DIMS, 2)
+        SuperviseModel(FEAT, "agnn", DIMS, 2)
     with pytest.raises(NotImplementedError, match="remat"):
         UnsuperviseModel(FEAT, "sage", DIMS, remat=True)
 
