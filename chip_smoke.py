@@ -152,8 +152,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      the final checkpoint bitwise equal; a SIGTERM after the first
      committed checkpoint gives exit 3 and a checkpoint at the preempted
      step; the split against the straight run again with --native (the
-     engine's draws), bitwise; then the same trainer in process, 3 + 1
-     launches a step;
+     engine's draws), bitwise (the straight runs, the first halves and
+     the SIGTERM run at once, then both resumed halves); then the same
+     trainer in process, 3 + 1 launches a step;
   9. on the CLI's checkpoint, `Estimator.infer` in chunks of 128 against
      `InferenceRuntime.predict` at bucket 128, both over
      FullNeighborDataFlow, 1 000 test ids: bitwise equal, 3 launches a
@@ -164,7 +165,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      10,10, batch 1024, layout auto: dense), DeviceFeatureCache, dims
      128,128, adam lr 0.01 — at steps_per_call 1 and 64, f32 and bf16
      convs: 128 warm-up steps (K = 64's losses within 1e-4 of K = 1's),
-     then 30 calls of 64 steps with exactly 3 gather_weighted_sum and 1
+     then 15 calls of 64 steps with exactly 3 gather_weighted_sum and 1
      gather_weighted_sum_dx launches a step (one capture at K = 64, whose
      launches times its replays are the counts), and
      graphsage_sampled_edges_per_sec_per_chip (bench.py:350-355's 112 640
@@ -264,13 +265,14 @@ Phases, each of which raises (exit code != 0) when it fails:
      buckets 1, 4 and 16, k 10: answers bitwise numpy_topk_oracle's, one
      paged_topk_score and one paged_topk_select launch a search;
  20. `run_model_cli`, `python -m euler_tpu_torch.examples.run_model` for
-     graphsage_unsup, deepwalk, line, transe, gcn and gat on --synthetic
-     data with and without --device-flow (12 processes at once), then
-     evaluate (transe) and infer (deepwalk, line, graphsage_unsup) on the
-     device-flow runs (4 at once): each exits 0;
- 21. `conv_train`, the conv zoo's first half (GCN, GAT as run_model builds
-     it — improved, one head —, GraphConv, APPNP, SGCN, TAGCN, ARMA)
-     through SuperviseModel on phase 5's paged device lane (bf16 weight
+     graphsage_unsup, deepwalk, line, transe, gcn, gat, agnn and gin
+     (mutag) on --synthetic data with and without --device-flow (16
+     processes at once), then evaluate (transe) and infer (deepwalk, line,
+     graphsage_unsup) on the device-flow runs (4 at once): each exits 0;
+ 21. `conv_train`, the conv zoo (GCN, GAT as run_model builds it —
+     improved, one head —, GraphConv, APPNP, SGCN, TAGCN, ARMA, AGNN, DNA,
+     GatedGraph, GeniePath, LGCN) through SuperviseModel on phase 5's
+     paged device lane (bf16 weight
      plane, DeviceSageFlow(fanouts 10,10, batch 1024, paged, P = 16)),
      dims 128,128, adam lr 0.01: 20 steps each in mode auto with exactly 2
      paged_sample_hop launches a step, GAT also 3 gather_weighted_sum and
@@ -278,20 +280,38 @@ Phases, each of which raises (exit code != 0) when it fails:
      = W·x_src with its softmax weights, and h_src carries a gradient in
      every conv call), the other convs none; the first 3 steps in mode
      ref on the card and 2 on the CPU from the card's draws (bitwise
-     batches, losses within 1e-4 relative); GCN and GAT at steps_per_call
-     16 (replays, the same launches, losses within 1e-4 of K = 1's); calls
-     of 8 steps timed (median step, device ms, idle share, the port's
-     kernels on the card a step) at K = 1, and at K = 16 for GCN and GAT;
- 22. `conv_quality`, the JAX package's full-graph quality recipes
-     (tests/test_quality.py:82-96, :136-170, :244-263, :306-320) through
-     `examples/conv_quality.py` on the card: FullGraphFlow(gcn_norm=True)
-     on cora_like, 200 adam steps at lr 0.01 on the 140-label split from
-     the JAX test's init (`params.flax_init`, seed 0), F1 on the 1 000
-     test nodes in the JAX tests' bands — GCN [16, 16] (0.79, 0.88),
-     APPNP (0.78, 0.90), GAT [64, 64] 4 heads improved (0.70, 0.86), SGCN
-     (0.79, 0.92), TAGCN (0.70, 0.86), ARMA (0.65, 0.82) — and GAT at the
-     640-label pool after 300 steps in (0.86, 0.97); no kernel of the
-     port launches (the whole-graph block has no grid).
+     batches, losses within 1e-4 relative); GCN, GAT, GeniePath and LGCN
+     at steps_per_call 16 (replays, the same launches, losses within 1e-4
+     of K = 1's); calls of 8 steps timed (median step, device ms, idle
+     share, the port's kernels on the card a step) at K = 1, and at K =
+     16 for those four;
+ 22. `conv_quality`, the JAX package's conv quality recipes
+     (tests/test_quality.py:82-96, :136-170, :244-320, :871-908) through
+     `examples/conv_quality.py` on the card, each from the JAX test's
+     init (`params.flax_init`, seed 0): FullGraphFlow(gcn_norm=True) on
+     cora_like, 200 adam steps at lr 0.01 on the 140-label split, F1 on
+     the 1 000 test nodes in the JAX tests' bands — GCN [16, 16] (0.79,
+     0.88), APPNP (0.78, 0.90), GAT [64, 64] 4 heads improved (0.70,
+     0.86), SGCN (0.79, 0.92), TAGCN (0.70, 0.86), ARMA (0.65, 0.82), AGNN
+     (0.72, 0.86) —; at the 640-label pool GAT after 300 steps in (0.86,
+     0.97), and DNA (0.75, 0.90), GeniePath (0.70, 0.88) and ARMA (0.86,
+     0.98) at [32, 32] after 300 steps at lr 0.02; LGCN, one layer [64]
+     over SageDataFlow(fanouts [10]) with 32 roots a step from the
+     640-label pool, 200 steps, in (0.70, 0.86); no kernel of the port
+     launches (the whole-graph block has no grid; LGCN's top k is a sort);
+ 23. `graph_clf`, graph classification on mutag_like (188 graphs,
+     tests/test_quality.py:556-660) through
+     `examples/graph_clf_quality.py`: GraphClassifier [32, 32] over
+     WholeGraphDataFlow(max_nodes 24, max_degree 12), 300 adam steps at lr
+     0.01 on batches of 16 of the 80 % split from the JAX test's init,
+     accuracy on the rest in (lo, hi] — GIN + add (0.85, 1.0], GIN +
+     set2set (0.85, 0.97], GatedGraph + mean (0.82, 0.95], GCN +
+     attention (0.85, 0.97]; then GIN + add through DeviceWholeGraphFlow
+     (batch 16), trained by sgd, for 20 steps at K = 1 and at K = 16 (the
+     same draws and batches bitwise, losses within 1e-4 relative), its
+     first 2 steps on the CPU from the card's draws (bitwise batches,
+     losses within 1e-4), calls of 8 steps timed; the same pair under
+     adam run and its drift reported; no kernel of the port launches.
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
@@ -418,12 +438,12 @@ HOST_SHAPES = (("ns layer0 hop0", 128, 10, 100), ("ns layer0 hop1", 1280, 5, 100
 # headline cell, bench.py's accelerator training leg (bench.py:1774-1804,
 # :1832-1870): random_graph 200 000 nodes, out-degree 15, 64-wide features
 # (seed 0), DeviceSageFlow(fanouts 10,10, batch 1024, layout auto -> dense),
-# DeviceFeatureCache, dims 128,128, adam lr 0.01, 2K warm-up steps then 30
+# DeviceFeatureCache, dims 128,128, adam lr 0.01, 2K warm-up steps then 15
 # calls of K = 64, at K 1 and 64, f32 and bf16 convs
 GROUP_K, GROUP_CALLS = 16, 10
 HEAD_NODES, HEAD_DEGREE, HEAD_FEAT, HEAD_SEED = 200_000, 15, 64, 0
 HEAD_BATCH, HEAD_FANOUTS, HEAD_DIMS, HEAD_K = 1024, [10, 10], [128, 128], 64
-HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 30
+HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 15
 # the host headline cell, bench.py's host training leg (bench.py:1806-1870
 # with the device flow off, :293-364): the headline's graph written to a
 # graph dir and served by the native engine, SageDataFlow(fanouts 10,10,
@@ -473,26 +493,34 @@ N2V_P, N2V_Q = 0.5, 2.0
 KG_ENT, KG_REL, KG_TRIPLES, KG_SEED = 14_951, 1_345, 483_142, 5
 KG_DIM, KG_BATCH, KG_NEGS, KG_STEPS, KG_CPU_STEPS = 100, 512, 8, 20, 2
 KGR_QUERIES, KGR_K, KGR_BUCKETS = 16, 10, (1, 4, 16)
-CLI_RM_MODELS, CLI_RM_STEPS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat"), 20
+CLI_RM_MODELS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat", "agnn", "gin")
+CLI_RM_STEPS = 20
+# the dataset each CLI model trains on (cora otherwise)
+CLI_RM_DATASETS = {"transe": "fb15k", "gin": "mutag"}
 # the kernels line's paths of phase 16 and the launch counts each reads
 UNSUP_PATHS = (("unsup_train", "launches"), ("unsup_train_k16", "launches_k16"),
                ("unsup_host", "launches_host"))
-# the conv zoo's first half (phases 21-22): each conv through SuperviseModel
-# on phase 5's paged device lane (GAT as run_model builds it: improved, one
-# head, so its grid path runs kernel 1), GCN and GAT also at K = 16; then
-# the JAX quality tests' full-graph recipes on cora_like
-CONV_NAMES = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma")
+# the conv zoo (phases 21-22): each conv through SuperviseModel on phase
+# 5's paged device lane (GAT as run_model builds it: improved, one head, so
+# its grid path runs kernel 1), GCN, GAT, GeniePath and LGCN also at K = 16;
+# then the JAX quality tests' recipes on cora_like
+CONV_NAMES = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma",
+              "agnn", "dna", "gated", "geniepath", "lgcn")
 CONV_KWARGS = {"gat": {"improved": True}}
-CONV_GROUPED = ("gcn", "gat")
+CONV_GROUPED = ("gcn", "gat", "geniepath", "lgcn")
 CONV_K, CONV_CALLS = 8, 5
 # a GAT step launches kernel 1 once a conv call (layer 0 over hops 0 and 1,
 # layer 1 over hop 0) and its dx as often: h_src = W·x_src carries a
 # gradient in every call, where SAGE's layer-0 x are features; the other
-# convs gather and scatter with index_select / index_add_ (XLA ops in the
-# JAX package, never Pallas) and launch neither
+# convs gather and scatter with index_select / index_add_, LGCN's top k is
+# a sort and GatedGraph's and GeniePath's cells are Linears (XLA ops in
+# the JAX package, never Pallas): they launch neither
 CONV_PER_STEP = {"gat": {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 3}}
 # the share of GAT's grid slots kept by the mask in the kernel timings
 GAT_KEEP = 0.9
+# graph classification (phase 23): GIN + add through DeviceWholeGraphFlow
+# on the mutag stand-in, the quality recipe's batch and padding
+GCLF_BATCH, GCLF_STEPS, GCLF_K, GCLF_CALLS = 16, 20, 8, 5
 
 
 def _card_line() -> str:
@@ -2713,74 +2741,89 @@ def _split_equals_straight(straight: str, split: str, rep_resumed: dict, what: s
     return want
 
 
-def _split_runs(data: str, straight: str, split: str, *extra) -> tuple:
-    """The straight run and the first half of the split run at once, then
-    the resumed half: (the three reports, seconds of the pair, seconds of
-    the resumed half)."""
-    what = " ".join(extra + ("run",))
+def _kill(procs) -> None:
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def _split_runs(data: str, runs: dict, while_first=None) -> tuple:
+    """For each of `runs` ({name: (straight dir, split dir, extra args)})
+    the straight run and the first half of the split run, all at once
+    (`while_first()` runs while they do), then every resumed half at
+    once: ({name: (straight, first half, resumed half reports)}, seconds
+    of the first wave, seconds of the second)."""
     t0 = time.perf_counter()
-    procs = (_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl", *extra)),
-             _trainer(_cli_args(data, split, CLI_STEPS // 2, split + ".jsonl", *extra)))
+    procs = {name: (_trainer(_cli_args(data, straight, CLI_STEPS, straight + ".jsonl", *extra)),
+                    _trainer(_cli_args(data, split, CLI_STEPS // 2, split + ".jsonl", *extra)))
+             for name, (straight, split, extra) in runs.items()}
     try:
-        reps = [_finish(proc, 0, f"{half} of the {what}")
-                for proc, half in zip(procs, ("straight", "first half"))]
+        if while_first is not None:
+            while_first()
+        reps = {name: [_finish(proc, 0, f"{half} of the {name} run")
+                       for proc, half in zip(pair, ("straight", "first half"))]
+                for name, pair in procs.items()}
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    pair_s = time.perf_counter() - t0
+        _kill(p for pair in procs.values() for p in pair)
+    first_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    resumed = _finish(_trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume",
-                                         *extra)), 0, f"resumed half of the {what}")
-    return (*reps, resumed, pair_s, time.perf_counter() - t0)
+    resumed = {name: _trainer(_cli_args(data, split, CLI_STEPS, split + ".jsonl", "--resume",
+                                        *extra))
+               for name, (_, split, extra) in runs.items()}
+    try:
+        for name, proc in resumed.items():
+            reps[name].append(_finish(proc, 0, f"resumed half of the {name} run"))
+    finally:
+        _kill(resumed.values())
+    return reps, first_s, time.perf_counter() - t0
 
 
 def train_cli(torch, data: str, tmp: str) -> dict:
     """Phase 8: the trainer CLI on the card over the graph dir `data`, as
     subprocesses: 40 steps straight against 20 then a fresh --resume
-    process up to 40 (bitwise; the straight run and the first half at
-    once, then the resumed half), and a SIGTERM run; the same split
-    against straight again with --native; then the CLI's trainer in
+    process up to 40 (bitwise), with the numpy store and with --native,
+    and a SIGTERM run; the straight runs, the first halves and the SIGTERM
+    run at once, then both resumed halves; then the CLI's trainer in
     process, its launches counted."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.tools.train import build_parser, build_trainer
     from euler_tpu_torch.training import CheckpointStore
 
     straight, split, term = (os.path.join(tmp, n) for n in ("cli_a", "cli_b", "cli_c"))
-    rep_a, rep_b1, rep_b2, pair_s, resume_s = _split_runs(data, straight, split)
-    runs_s = pair_s + resume_s
-    want = _split_equals_straight(straight, split, rep_b2, "the trainer CLI")
-
+    n_straight, n_split = (os.path.join(tmp, n) for n in ("cli_na", "cli_nb"))
     # SIGTERM once the first checkpoint is committed: exit 3, a final
     # checkpoint at the preempted step
-    proc = _trainer(_cli_args(data, term, 100_000, term + ".jsonl"))
+    term_proc = _trainer(_cli_args(data, term, 100_000, term + ".jsonl"))
     store = CheckpointStore(term)
-    try:
+
+    def preempt():
         deadline = time.monotonic() + CLI_WAIT_S
-        while time.monotonic() < deadline and not store.steps() and proc.poll() is None:
+        while time.monotonic() < deadline and not store.steps() and term_proc.poll() is None:
             time.sleep(0.05)
         if not store.steps():
             raise AssertionError("the SIGTERM run never committed a checkpoint")
-        proc.send_signal(signal.SIGTERM)
-    except BaseException:
-        proc.kill()
-        proc.communicate()
-        raise
-    rep_c = _finish(proc, 3, "SIGTERM run")
+        term_proc.send_signal(signal.SIGTERM)
+
+    try:
+        reps, first_s, resume_s = _split_runs(
+            data, {"trainer CLI": (straight, split, ()),
+                   "trainer CLI --native": (n_straight, n_split, ("--native",))}, preempt)
+        rep_c = _finish(term_proc, 3, "SIGTERM run")
+    finally:
+        _kill([term_proc])
     if not rep_c["preempted"] or store.latest_step() != rep_c["step"]:
         raise AssertionError(f"SIGTERM: report {rep_c}, latest checkpoint {store.latest_step()}")
     if sorted(_losses_by_step(term + ".jsonl")) != list(range(1, rep_c["step"] + 1)):
         raise AssertionError("SIGTERM run lost losses")
-
-    # --native: the straight run and the first half at once, then the
-    # resumed half
-    n_straight, n_split = (os.path.join(tmp, n) for n in ("cli_na", "cli_nb"))
-    rep_na, _, rep_nb2, n_pair_s, n_resume_s = _split_runs(data, n_straight, n_split, "--native")
+    rep_a, rep_b1, rep_b2 = reps["trainer CLI"]
+    runs_s = first_s + resume_s
+    want = _split_equals_straight(straight, split, rep_b2, "the trainer CLI")
+    rep_na, _, rep_nb2 = reps["trainer CLI --native"]
     native_losses = _split_equals_straight(n_straight, n_split, rep_nb2, "the trainer CLI --native")
     native = {"split_resume_bitwise": True, "final_checkpoint_bitwise": True,
               "losses": [native_losses[s] for s in sorted(native_losses)],
-              "straight_and_first_half_s": n_pair_s, "resumed_half_s": n_resume_s,
+              "straight_and_first_half_s": first_s, "resumed_half_s": resume_s,
               "telemetry": rep_na["telemetry"]}
 
     # the same trainer in process: its launches a step
@@ -2852,12 +2895,12 @@ def headline(torch, tmp: str, seed: int, card: str) -> dict:
     """Phase 10: bench.py's headline training leg on the port (the cell
     above HEAD_*), at K = 1 and K = 64, f32 and bf16 convs, in this order.
     Each run: 2K warm-up steps (fresh estimator, the same init and draws),
-    then 30 calls of 64 steps with the launch counts reset just before: 3
+    then HEAD_CALLS calls of 64 steps with the launch counts reset just before: 3
     gather_weighted_sum and 1 gather_weighted_sum_dx a step, exactly; at K
     = 64 one capture, and the counts equal the captured launches times the
     replays. The K = 64 warm-up losses lie within TRAIN_TOL of K = 1's of
     the same dtype. Reported: graphsage_sampled_edges_per_sec_per_chip
-    (bench.py:350-355's edges a step over the 30 calls' host-clock time),
+    (bench.py:350-355's edges a step over the calls' host-clock time),
     then `_call_window`'s median step, device time, idle share and
     kernels on the card a step."""
     from euler_tpu_torch import ops
@@ -4517,18 +4560,18 @@ def kg_retrieve(torch, trained: dict, card: str) -> dict:
 def run_model_cli(torch, tmp: str, card: str) -> dict:
     """Phase 20: `python -m euler_tpu_torch.examples.run_model` as
     processes, on the card, on --synthetic data (cora for
-    graphsage_unsup / deepwalk / line / gcn / gat, fb15k for transe,
-    converted once beforehand): train with and without --device-flow (12
-    processes at once), then --mode evaluate (transe) and infer (deepwalk, line,
-    graphsage_unsup) on the device-flow runs' dirs (4 at once): every one
-    exits 0 with its result line."""
+    graphsage_unsup / deepwalk / line / gcn / gat / agnn, fb15k for
+    transe, mutag for gin, converted once beforehand): train with and
+    without --device-flow (16 processes at once), then --mode evaluate
+    (transe) and infer (deepwalk, line, graphsage_unsup) on the device-flow
+    runs' dirs (4 at once): every one exits 0 with its result line."""
     from euler_tpu_torch.datasets import get_dataset
 
     env = dict(os.environ, EULER_TPU_DATA=os.path.join(tmp, "cli_data"))
     prev = os.environ.get("EULER_TPU_DATA")
     os.environ["EULER_TPU_DATA"] = env["EULER_TPU_DATA"]
     try:
-        for name in ("cora", "fb15k"):
+        for name in ("cora", "fb15k", "mutag"):
             get_dataset(name).load_graph(synthetic=True)
     finally:
         if prev is None:
@@ -4538,22 +4581,23 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
 
     def cmd(model, flow, mode):
         return [sys.executable, "-m", "euler_tpu_torch.examples.run_model", "--model", model,
-                "--dataset", "fb15k" if model == "transe" else "cora", "--synthetic",
+                "--dataset", CLI_RM_DATASETS.get(model, "cora"), "--synthetic",
                 "--mode", mode, "--total-steps", str(CLI_RM_STEPS),
                 "--model-dir", os.path.join(tmp, f"cli_runs_{flow}")] + (
                     ["--device-flow"] if flow == "device" else [])
 
-    def wave(jobs):
+    started = []
+
+    def start(jobs):
         procs = [(job, subprocess.Popen(cmd(*job), env=env, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True)) for job in jobs]
+        started.extend(p for _, p in procs)
+        return procs
+
+    def finish(procs):
         out = {}
         for job, p in procs:
-            try:
-                text, _ = p.communicate(timeout=CLI_WAIT_S)
-            except subprocess.TimeoutExpired:
-                p.kill()
-                p.communicate()
-                raise
+            text, _ = p.communicate(timeout=CLI_WAIT_S)
             last = text.strip().splitlines()[-1] if text.strip() else ""
             if p.returncode != 0:
                 raise AssertionError(f"run_model {' '.join(job)} exited {p.returncode}:\n{text}")
@@ -4561,13 +4605,26 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
         return out
 
     t0 = time.perf_counter()
-    flows = ("host", "device")
-    trained = wave([(m, f, "train") for m in CLI_RM_MODELS for f in flows])
+    later_jobs = [(m, "device", mode) for m, mode in (
+        ("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer"),
+        ("graphsage_unsup", "infer"))]
+    # the trainings the evaluate and infer runs read first, the others
+    # meanwhile; the evaluate and infer runs as soon as theirs are done
+    first = [(m, f, "train") for m, f, _ in later_jobs]
+    rest = [(m, f, "train") for m in CLI_RM_MODELS for f in ("host", "device")
+            if (m, f, "train") not in first]
+    try:
+        pending = start(rest)
+        trained = finish(start(first))
+        later = finish(start(later_jobs))
+        trained.update(finish(pending))
+    finally:
+        for p in started:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     if not all("trained" in v for v in trained.values()):
         raise AssertionError(f"run_model train runs: {trained}")
-    later = wave([(m, "device", mode)
-                  for m, mode in (("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer"),
-                                  ("graphsage_unsup", "infer"))])
     res = {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
            "evaluate_infer": later, "seconds": time.perf_counter() - t0}
     _emit(res)
@@ -4575,7 +4632,7 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
 
 
 def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
-    """Phase 21: the conv zoo's first half on phase 5's paged device lane
+    """Phase 21: the conv zoo on phase 5's paged device lane
     (skewed_weighted_graph 200 000 nodes, bf16 weight plane,
     DeviceSageFlow(fanouts 10,10, batch 1024, paged, P = 16)), each conv
     through SuperviseModel at dims 128,128, adam lr 0.01: 20 steps in mode
@@ -4583,9 +4640,9 @@ def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
     and for GAT 3 of kernel 1 and 3 of its dx; none of kernels 2-4);
     the first 3 steps again in mode ref on the card (bitwise batches,
     losses within 1e-4 relative) and 2 on the CPU from the card's draws
-    (bitwise batches, losses within 1e-4); for GCN and GAT 20 steps at
-    K = 16 (replays, the same launches, losses within 1e-4 of K = 1's);
-    calls of CONV_K steps timed at K = 1 (and K = 16)."""
+    (bitwise batches, losses within 1e-4); for the CONV_GROUPED convs 20
+    steps at K = 16 (replays, the same launches, losses within 1e-4 of K
+    = 1's); calls of CONV_K steps timed at K = 1 (and K = 16)."""
     from euler_tpu_torch.dataflow import DeviceSageFlow
     from euler_tpu_torch.datasets import skewed_weighted_graph
     from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
@@ -4690,13 +4747,13 @@ def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
 
 
 def conv_quality_bands(torch, card: str) -> dict:
-    """Phase 22: the JAX package's full-graph quality recipes on the card
+    """Phase 22: the JAX package's conv quality recipes on the card
     (`examples/conv_quality.py`: FullGraphFlow(gcn_norm=True) on cora_like
-    at its full size, 200 steps, the 140-label split; GAT also at the
-    640-label pool, 300 steps), each model from the JAX test's init
+    at its full size on the 140- or the 640-label split; LGCN one layer
+    over SageDataFlow(fanouts [10])), each model from the JAX test's init
     (`params.flax_init`): the F1 of seed 0, the JAX tests' seed, in its
-    band. The whole-graph block has no
-    grid, so no kernel of the port launches."""
+    band. The whole-graph block has no grid, and no conv but GAT's grid
+    path runs kernel 1, so no kernel of the port launches."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.examples.conv_quality import RECIPES, conv_quality, cora_like
 
@@ -4716,6 +4773,104 @@ def conv_quality_bands(torch, card: str) -> dict:
         raise AssertionError(f"conv quality out of its band: {out}")
     _expect_launches(launches, {}, "the full-graph recipes")
     return res
+
+
+def graph_clf(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 23: graph classification. The four mutag recipes
+    (`examples/graph_clf_quality.py`) on the card from the JAX test's
+    init, each accuracy in its band; then GIN + add through
+    DeviceWholeGraphFlow on the same stand-in (batch GCLF_BATCH, the
+    recipe's padding), trained by sgd: GCLF_STEPS steps at K = 1 and at K
+    = 16 (the same draws, and K = 16's batches rebuilt from its draws
+    equal to K = 1's, bitwise; losses within 1e-4 relative), its first
+    CPU_STEPS on the CPU from the card's draws (bitwise batches, losses
+    within 1e-4), calls of GCLF_K steps timed at K = 1 and K = 16. The
+    same pair under adam is run and its drift reported, not held: adam
+    divides each update by the root of its second moment, so a gradient
+    entry that `index_add_`'s atomics sum to ~1e-9 in one run and to 0 in
+    another moves a weight by a whole learning rate in one run only. No
+    kernel of the port launches in any of it."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import DeviceWholeGraphFlow, WholeGraphDataFlow
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.examples.graph_clf_quality import (DIMS, LR, MAX_DEGREE, MAX_NODES,
+                                                            RECIPES, graph_clf_quality,
+                                                            mutag_like)
+    from euler_tpu_torch.models import GraphClassifier
+    from euler_tpu_torch.params import flax_init
+
+    t0 = time.perf_counter()
+    g = mutag_like()
+    ops.reset_launch_counts()
+    recipes = {}
+    for name in RECIPES:
+        t = time.perf_counter()
+        recipes[name] = {**graph_clf_quality(name, "cuda", g, seed=0),
+                         "seconds": time.perf_counter() - t}
+    quality_launches = ops.launch_counts()
+    out = {name: r["acc"] for name, r in recipes.items() if not r["in_band"]}
+    if out:
+        raise AssertionError(f"graph classification out of its band: {out}")
+    _expect_launches(quality_launches, {}, "the graph-classification recipes")
+
+    host = WholeGraphDataFlow(g, ["feature"], max_nodes=MAX_NODES, max_degree=MAX_DEGREE)
+
+    def flow(device: str):
+        return DeviceWholeGraphFlow(g, ["feature"], GCLF_BATCH, host_flow=host, device=device)
+
+    def estimator(f, device: str, name: str, k: int = 1, optimizer: str = "sgd"):
+        model = GraphClassifier(g.meta.feature_spec("feature").dim, "gin", DIMS, 2, "add")
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"gclf_{name}"), learning_rate=LR,
+                              optimizer=optimizer, log_steps=10**9, seed=seed,
+                              steps_per_call=k)
+        return Estimator(model, f, cfg, init_params=flax_init(model, 0), device=device)
+
+    card_flow = flow("cuda")
+    # (a) K = 1, the main run
+    est = estimator(card_flow, "cuda", "k1")
+    tap = _Tap(card_flow, GCLF_STEPS)
+    losses, launches, _ = _run_counted(torch, est, GCLF_STEPS)
+    tap.close()
+    _expect_launches(launches, {}, "GIN through DeviceWholeGraphFlow")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"graph-classification losses not finite: {losses}")
+    # (b) K = 16: the same draws, the batches rebuilt from them, the losses
+    est16 = estimator(card_flow, "cuda", "k16", k=GROUP_K)
+    tap16 = _Tap(card_flow, GCLF_STEPS)
+    losses16, launches16, _ = _run_counted(torch, est16, GCLF_STEPS)
+    tap16.close()
+    _expect_launches(launches16, {}, f"GIN through DeviceWholeGraphFlow at K = {GROUP_K}")
+    same_draws = _same_nests(torch, tap16.draws, tap.draws, "graph-clf draws K = 16 vs K = 1")
+    same_batches = _same_nests(torch, [card_flow.make_batch(*d) for d in tap16.draws],
+                               tap.batches, "graph-clf batches K = 16 vs K = 1")
+    err16 = _assert_close(losses16, losses, f"graph clf K = {GROUP_K} vs K = 1")
+    # (c) the port on the CPU from the card's draws
+    cpu = _card_vs_cpu(torch, lambda f, device: estimator(f, device, f"cpu_{device}"),
+                       card_flow, flow("cpu"), CPU_STEPS, "graph clf")
+    # (d) adam's drift between K = 1 and K = 16, reported
+    adam = [estimator(card_flow, "cuda", f"adam_k{k}", k=k, optimizer="adam").train(
+        GCLF_STEPS, log=False, save=False) for k in (1, GROUP_K)]
+    adam_err = np.abs(np.subtract(*adam)) / np.maximum(np.abs(adam[0]), 1e-12)
+    # (e) timing
+    k1 = _call_window(torch, est, GCLF_K, GCLF_CALLS, card, "graph clf K = 1", {})
+    k16 = _call_window(torch, est16, GCLF_K, GCLF_CALLS, card, f"graph clf K = {GROUP_K}", {})
+    res = {"phase": "graph_clf", "card": card, "recipes": recipes,
+           "quality_launches": quality_launches, "graphs": len(g.meta.graph_labels),
+           "batch": GCLF_BATCH, "max_nodes": MAX_NODES, "max_degree": MAX_DEGREE,
+           "dims": list(DIMS), "optimizer": "sgd", "lr": LR, "steps": GCLF_STEPS,
+           "losses": losses, "launches": launches,
+           "k16": {"losses": losses16, "launches": launches16, "captures": est16.captures,
+                   "draws_equal": same_draws, "batches_equal": same_batches,
+                   "max_rel_err": err16},
+           "port_on_cpu": cpu, "adam": {"losses_k1": adam[0], f"losses_k{GROUP_K}": adam[1],
+                                        "max_rel_err": float(adam_err.max()),
+                                        "first_step_differing": int(np.argmax(adam_err > 0))},
+           "timing_k1": k1, f"timing_k{GROUP_K}": k16,
+           "seconds": time.perf_counter() - t0, "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"launches": {name: quality_launches.get(name, 0) + launches.get(name, 0)
+                         + launches16.get(name, 0) for name in launches},
+            "result": res}
 
 
 def check_gat_dx(torch, gen) -> dict:
@@ -4869,11 +5024,13 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         run_model_cli(torch, tmp, card)
 
-        # 21-22. the conv zoo's first half: each conv on the paged device
-        # lane, then the JAX quality tests' full-graph recipes on the card
+        # 21-23. the conv zoo: each conv on the paged device lane, then the
+        # JAX quality tests' conv recipes on the card; graph classification
         convs = conv_train(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
         conv_quality_bands(torch, card)
+        torch.cuda.empty_cache()
+        gclf = graph_clf(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
@@ -4937,7 +5094,8 @@ def main(argv=None) -> int:
         **{path: unsup[key]["gather_weighted_sum"] for path, key in UNSUP_PATHS},
         **{f"conv_train_{c}": n["gather_weighted_sum"] for c, n in convs["launches"].items()},
         **{f"conv_train_{c}_k16": n["gather_weighted_sum"]
-           for c, n in convs["launches_k16"].items()}}
+           for c, n in convs["launches_k16"].items()},
+        "graph_clf": gclf["launches"]["gather_weighted_sum"]}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -4951,7 +5109,8 @@ def main(argv=None) -> int:
                         **{f"conv_train_{c}": n["gather_weighted_sum_dx"]
                            for c, n in convs["launches"].items()},
                         **{f"conv_train_{c}_k16": n["gather_weighted_sum_dx"]
-                           for c, n in convs["launches_k16"].items()}}
+                           for c, n in convs["launches_k16"].items()},
+                        "graph_clf": gclf["launches"]["gather_weighted_sum_dx"]}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -5035,7 +5194,8 @@ def main(argv=None) -> int:
         "launches": (train_launches[HOP_KERNEL] + grouped["launches"][HOP_KERNEL]
                      + unsup["launches"][HOP_KERNEL] + unsup["launches_k16"][HOP_KERNEL]
                      + sum(n[HOP_KERNEL] for n in convs["launches"].values())
-                     + sum(n[HOP_KERNEL] for n in convs["launches_k16"].values())),
+                     + sum(n[HOP_KERNEL] for n in convs["launches_k16"].values())
+                     + gclf["launches"][HOP_KERNEL]),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
                              "train_grouped": grouped["launches"][HOP_KERNEL],
                              "unsup_train": unsup["launches"][HOP_KERNEL],
@@ -5043,7 +5203,8 @@ def main(argv=None) -> int:
                              **{f"conv_train_{c}": n[HOP_KERNEL]
                                 for c, n in convs["launches"].items()},
                              **{f"conv_train_{c}_k16": n[HOP_KERNEL]
-                                for c, n in convs["launches_k16"].items()}},
+                                for c, n in convs["launches_k16"].items()},
+                             "graph_clf": gclf["launches"][HOP_KERNEL]},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],
@@ -5074,10 +5235,12 @@ def main(argv=None) -> int:
             "source": f"euler_tpu_torch/ops/csrc/{src}",
             "replaces": f"euler_tpu/ops/pallas_kernels.py:{line}",
             "launches": (train_launches[name] + unsup["launches"][name]
-                         + sum(n[name] for n in convs["launches"].values())),
+                         + sum(n[name] for n in convs["launches"].values())
+                         + gclf["launches"][name]),
             "launches_by_path": {"train": train_launches[name],
                                  "unsup_train": unsup["launches"][name],
-                                 "conv_train": sum(n[name] for n in convs["launches"].values())},
+                                 "conv_train": sum(n[name] for n in convs["launches"].values()),
+                                 "graph_clf": gclf["launches"][name]},
             "max_abs_err": paged_check["max_abs_err"],
             "check": "bitwise",
             "ms": total(rows, "ms"),

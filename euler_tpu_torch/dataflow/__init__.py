@@ -16,6 +16,12 @@ from euler_tpu_torch.dataflow.device import (  # noqa: F401
     DeviceSageFlow,
     DeviceUnsupSageFlow,
     DeviceWalkFlow,
+    DeviceWholeGraphFlow,
 )
 from euler_tpu_torch.dataflow.walk import gen_pair  # noqa: F401
-from euler_tpu_torch.dataflow.whole import FullGraphFlow  # noqa: F401
+from euler_tpu_torch.dataflow.whole import (  # noqa: F401
+    FullGraphFlow,
+    GraphBatch,
+    WholeGraphDataFlow,
+    graph_label_batches,
+)

@@ -4,8 +4,9 @@ on the card and every training step draws its batch there
 978-1338): the GraphSAGE fanout (`DeviceSageFlow`), its unsupervised
 (src, pos, negs) triple (`DeviceUnsupSageFlow`), DeepWalk / node2vec
 walks and skip-gram pairs (`DeviceWalkFlow`), LINE's edges
-(`DeviceEdgeFlow`) and the TransX family's corrupted triples
-(`DeviceKGFlow`).
+(`DeviceEdgeFlow`), the TransX family's corrupted triples
+(`DeviceKGFlow`) and graph classification's whole graphs
+(`DeviceWholeGraphFlow`).
 
 Staging (once, on the host, numpy) is the JAX package's, step for step,
 so both packages stage the same integers: the compacted neighbour rows
@@ -41,7 +42,7 @@ tests/test_torch_skipgram.py, tests/test_torch_kg.py).
 
 Not ported yet: `refresh_rows` (ROADMAP queue 1 item 8), `mesh` (item
 6), `with_hop_ids` (item 2), remote-shard staging (item 8), and the
-typed, layerwise, whole-graph and frontier flows (items 3-5).
+typed, layerwise and frontier flows (items 3-5).
 """
 
 from __future__ import annotations
@@ -808,3 +809,101 @@ class DeviceKGFlow(_FlatEdgeFlow):
             "neg_h": negs[0],
             "neg_t": negs[1],
         }
+
+
+class DeviceWholeGraphFlow(DeviceGraphTables):
+    """Graph-classification batches drawn on the device (counterpart:
+    euler_tpu/dataflow/device.py:1612-1708; host parity
+    `WholeGraphDataFlow` + `graph_label_batches`).
+
+    A graph-classification dataset is small, so every labelled graph,
+    padded to max_nodes × max_degree, is staged on the device once from
+    one host query: per-graph features, node masks, edges (localised to
+    the graph's own slots; a masked edge's src to slot 0), edge weights,
+    labels and node ids, stacked along a leading graph axis.
+    `draw_inputs` draws the [B] labels uniformly; `make_batch` gathers
+    them and offsets each graph's edges to its place in the batch."""
+
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        batch_size: int,
+        max_nodes: int = 32,
+        max_degree: int = 8,
+        edge_types=None,
+        mesh=None,
+        host_flow=None,
+        *,
+        device=None,
+    ):
+        """host_flow: a WholeGraphDataFlow to stage from (its max_nodes and
+        max_degree then govern the padding); built here otherwise. On the
+        CUDA card unless device="cpu"."""
+        from euler_tpu_torch.dataflow.whole import WholeGraphDataFlow
+
+        _refuse_mesh(type(self).__name__, mesh)
+        self.device = resolve_device(device)
+        self.batch_size = int(batch_size)
+        host = host_flow or WholeGraphDataFlow(
+            graph, feature_names, max_nodes=max_nodes, max_degree=max_degree,
+            edge_types=edge_types,
+        )
+        if host.num_labels == 0:
+            raise ValueError("graph has no graph labels to sample")
+        self.num_classes = host.num_classes
+        ng, nmax = host.num_labels, host.max_nodes
+        all_b = host.query(np.arange(ng))
+        self.grid = int(all_b.block.grid)
+        e = nmax * self.grid
+        local = np.arange(ng, dtype=np.int32)[:, None] * nmax
+        emask = np.asarray(all_b.block.mask).reshape(ng, e)
+        self.gfeats = self._put(np.asarray(all_b.feats).reshape(ng, nmax, -1))
+        self.gmask = self._put(np.asarray(all_b.node_mask).reshape(ng, nmax))
+        # a masked edge's src is slot 0 of the host table; localised to 0
+        # (not -i*nmax), the batch offset added back keeps it in range
+        self.gesrc = self._put(np.where(
+            emask, np.asarray(all_b.block.edge_src).reshape(ng, e) - local, 0).astype(np.int32))
+        self.gedst = self._put(
+            (np.asarray(all_b.block.edge_dst).reshape(ng, e) - local).astype(np.int32))
+        self.gew = self._put(np.asarray(all_b.block.edge_w).reshape(ng, e))
+        self.gemask = self._put(emask)
+        self.glabels = self._put(np.asarray(all_b.labels))
+        self.ghop = self._put(np.asarray(all_b.hop_ids).reshape(ng, nmax))
+        self.nmax = nmax
+        self.num_graphs = ng
+        b = self.batch_size
+        self._offsets = self._put((np.arange(b, dtype=np.int32) * nmax)[:, None])
+        self._graph_ids = self._put(np.repeat(np.arange(b, dtype=np.int32), nmax))
+
+    def draw_inputs(self, generator: torch.Generator):
+        """([B] graph labels, int64), drawn uniformly."""
+        return (torch.randint(0, self.num_graphs, (self.batch_size,), generator=generator,
+                              device=self.device),)
+
+    def make_batch(self, pick: torch.Tensor):
+        """The GraphBatch of the drawn labels `pick`."""
+        from euler_tpu_torch.dataflow.whole import GraphBatch
+
+        b, nmax = self.batch_size, self.nmax
+        block = Block(
+            edge_src=(self.gesrc[pick] + self._offsets).reshape(-1),
+            edge_dst=(self.gedst[pick] + self._offsets).reshape(-1),
+            edge_w=self.gew[pick].reshape(-1),
+            mask=self.gemask[pick].reshape(-1),
+            n_src=b * nmax,
+            n_dst=b * nmax,
+            grid=self.grid,
+        )
+        return GraphBatch(
+            feats=self.gfeats[pick].reshape(b * nmax, -1),
+            node_mask=self.gmask[pick].reshape(-1),
+            block=block,
+            graph_ids=self._graph_ids,
+            labels=self.glabels[pick],
+            hop_ids=self.ghop[pick].reshape(-1),
+            n_graphs=b,
+        )
+
+    def sample(self, generator: torch.Generator):
+        return self.make_batch(*self.draw_inputs(generator))

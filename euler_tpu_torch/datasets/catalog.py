@@ -1,7 +1,8 @@
 """Dataset catalog (counterpart: euler_tpu/datasets/catalog.py): cora,
-citeseer, pubmed (Planetoid) and fb15k / fb15k237 / wn18 (KG triples).
-The other datasets of the JAX catalog (ppi, reddit, mutag, ml_1m) are
-not ported yet (ROADMAP queue 1 item 4) and raise NotImplementedError.
+citeseer, pubmed (Planetoid), mutag (TU graph classification) and fb15k
+/ fb15k237 / wn18 (KG triples). The other datasets of the JAX catalog
+(ppi, reddit, ml_1m) are not ported yet (ROADMAP queue 1 item 4) and
+raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -181,16 +182,79 @@ class KGDataset(Dataset):
         return {"nodes": nodes, "edges": edges}
 
 
+class TUDataset(Dataset):
+    """mutag-style graph classification from the TU files (DS_A,
+    DS_graph_indicator, DS_graph_labels, DS_node_labels): one-hot node
+    labels as `feature`, each node's graph label `g<graph>_c<class>`."""
+
+    def __init__(self, name: str = "mutag", **kw):
+        self.name = name
+        self.feature_dim = 8
+        self.num_classes = 2
+        super().__init__(**kw)
+
+    def raw_files(self):
+        up = self.name.upper()
+        return [f"{up}_A.txt", f"{up}_graph_indicator.txt", f"{up}_graph_labels.txt",
+                f"{up}_node_labels.txt"]
+
+    def build_json(self) -> dict:
+        up = self.name.upper()
+
+        def load(part, **kw):
+            return np.loadtxt(os.path.join(self.root, f"{up}_{part}.txt"), dtype=np.int64, **kw)
+
+        edges_raw = load("A", delimiter=",")
+        gi, gl, nl = load("graph_indicator"), load("graph_labels"), load("node_labels")
+        eye = np.eye(int(nl.max()) + 1)
+        nodes = [
+            {"id": i + 1, "type": 0, "weight": 1.0, "features": [
+                {"name": "feature", "type": "dense", "value": eye[nl[i]].tolist()},
+                {"name": "graph_label", "type": "binary",
+                 "value": f"g{gi[i]}_c{gl[gi[i] - 1]}"},
+            ]}
+            for i in range(len(gi))
+        ]
+        edges = [{"src": int(s), "dst": int(d), "type": 0, "weight": 1.0, "features": []}
+                 for s, d in edges_raw]
+        return {"nodes": nodes, "edges": edges}
+
+    def synthetic_json(self, seed: int = 0) -> dict:
+        """24 graphs of 5-8 nodes, alternating classes: class 0 a clique of
+        features around +2, class 1 a path of features around -2."""
+        rng = np.random.default_rng(seed)
+        nodes, edges = [], []
+        nid = 1
+        for gidx in range(24):
+            cls = gidx % 2
+            size = int(rng.integers(5, 9))
+            ids = list(range(nid, nid + size))
+            nid += size
+            for i in ids:
+                nodes.append({"id": i, "type": 0, "weight": 1.0, "features": [
+                    {"name": "feature", "type": "dense",
+                     "value": rng.normal(2.0 * (1 - 2 * cls), 1, 8).tolist()},
+                    {"name": "graph_label", "type": "binary", "value": f"g{gidx}_c{cls}"},
+                ]})
+            for i in ids:
+                for j in ids:
+                    if i != j and (cls == 0 or abs(i - j) <= 1):
+                        edges.append({"src": i, "dst": j, "type": 0, "weight": 1.0,
+                                      "features": []})
+        return {"nodes": nodes, "edges": edges}
+
+
 DATASETS = {
     "cora": lambda **kw: PlanetoidDataset("cora", **kw),
     "citeseer": lambda **kw: PlanetoidDataset("citeseer", **kw),
     "pubmed": lambda **kw: PlanetoidDataset("pubmed", **kw),
+    "mutag": lambda **kw: TUDataset("mutag", **kw),
     "fb15k": lambda **kw: KGDataset("fb15k", **kw),
     "fb15k237": lambda **kw: KGDataset("fb15k237", **kw),
     "wn18": lambda **kw: KGDataset("wn18", **kw),
 }
 # the JAX catalog's other names, which the port does not load yet
-NOT_PORTED = ("ppi", "reddit", "mutag", "ml_1m")
+NOT_PORTED = ("ppi", "reddit", "ml_1m")
 
 
 def get_dataset(name: str, **kw) -> Dataset:

@@ -1,11 +1,12 @@
 """Calibrated quality stand-ins, numpy only
-(counterpart: euler_tpu/datasets/quality.py:53-185, 217-308, 384-480).
+(counterpart: euler_tpu/datasets/quality.py:53-185, 217-480).
 
 `products_like_graph` is the ogbn-products-shaped graph of the JAX
 package's north-star quality config: the same seed gives the same
 arrays, built into the port's `Graph`. `cora_like_json` (the skip-gram
-bands) and `fb15k_like` (the TransX bands) give the JAX package's
-graph.json for the same arguments.
+and conv bands), `fb15k_like` (the TransX bands) and `mutag_like_json`
+(the graph-classification bands) give the JAX package's graph.json for
+the same arguments.
 """
 
 from __future__ import annotations
@@ -221,6 +222,52 @@ def fb15k_like(
         [test[:, 0] + 1, test[:, 1], test[:, 2] + 1], axis=1
     ).astype(np.int32)
     return {"nodes": nodes, "edges": edges}, test32
+
+
+def mutag_like_json(
+    n_graphs: int = 188,
+    n_node_labels: int = 7,
+    n_pendants: int = 10,
+    label_noise: float = 0.05,
+    seed: int = 0,
+) -> dict:
+    """The graph-classification stand-in of MUTAG's size (188 graphs):
+    class membership is purely relational. Both classes are 6-cycles over
+    the node-label multiset {0,0,1,1,2,2} (the same degrees and label
+    histogram); class 0 orders the labels 0,1,2,0,1,2 around the ring
+    (every edge joins two different labels), class 1 0,0,1,1,2,2 (half
+    the edges join equal labels). So a label-histogram readout is at
+    chance and one message-passing round sees the signal. Pendant nodes
+    with random labels hang off random ring nodes as noise, and
+    `label_noise` flips that share of the graph labels."""
+    rng = np.random.default_rng(seed)
+    nodes, edges = [], []
+    nid = 1
+    for gi in range(n_graphs):
+        cls = gi % 2
+        shown = cls if rng.random() >= label_noise else 1 - cls
+        core = list(range(nid, nid + 6))
+        nid += 6
+        core_pairs = [(core[k], core[(k + 1) % 6]) for k in range(6)]
+        core_labels = [0, 1, 2, 0, 1, 2] if cls == 0 else [0, 0, 1, 1, 2, 2]
+        n_pend = int(rng.integers(max(1, n_pendants - 3), n_pendants + 4))
+        pend = list(range(nid, nid + n_pend))
+        nid += n_pend
+        pend_labels = rng.integers(0, n_node_labels, n_pend).tolist()
+        for i, lab in zip(core + pend, core_labels + pend_labels):
+            feat = np.zeros(n_node_labels, dtype=np.float32)
+            feat[lab] = 1.0
+            nodes.append({"id": i, "type": 0, "weight": 1.0, "features": [
+                {"name": "feature", "type": "dense", "value": feat.tolist()},
+                {"name": "graph_label", "type": "binary", "value": f"g{gi}_c{shown}"},
+            ]})
+        pairs = list(core_pairs)
+        for p in pend:  # each pendant hangs off a random ring node
+            pairs.append((p, core[int(rng.integers(6))]))
+        for a, b in pairs:
+            for s, d in ((a, b), (b, a)):
+                edges.append({"src": s, "dst": d, "type": 0, "weight": 1.0, "features": []})
+    return {"nodes": nodes, "edges": edges}
 
 
 def cora_like_json(

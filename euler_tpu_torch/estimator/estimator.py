@@ -8,15 +8,17 @@ returns (embedding, loss, metric_name, metric). Two lanes feed it:
   numpy `MiniBatch`es (`node_batches`, `unsupervised_batches`'s (src,
   pos, negs), a `ResumableSource` or a `Prefetcher`), which go through
   `to_device` → `hydrate_blocks` → the feature cache, or dicts of numpy
-  arrays (the skip-gram and KG sources), whose arrays are moved as they
-  are (int32 ids stay int32);
+  arrays (the skip-gram and KG sources) and `GraphBatch`es
+  (`graph_label_batches`), whose arrays are moved as they are (int32 ids
+  stay int32);
 - a device flow (`DeviceSageFlow`, `DeviceUnsupSageFlow`,
-  `DeviceWalkFlow`, `DeviceEdgeFlow`, `DeviceKGFlow`): each step draws its
+  `DeviceWalkFlow`, `DeviceEdgeFlow`, `DeviceKGFlow`,
+  `DeviceWholeGraphFlow`): each step draws its
   batch on the device from a generator seeded from (cfg.seed + 2, global
   step), so the batch stream is a function of the global step, as JAX's
   `fold_in` makes it; the draws go through the flow's one `draw_inputs`
   method and its deterministic `make_batch`, which returns a MiniBatch,
-  a tuple of them (the model's args) or a dict.
+  a tuple of them (the model's args), a dict or a GraphBatch.
 
 `EstimatorConfig.steps_per_call` = K > 1 groups the steps into calls of
 K, as JAX's lax.scan does (`_train_scan`): the host lane then takes one
@@ -527,20 +529,17 @@ def as_args(batch) -> tuple:
 
 
 def args_to_device(args: tuple, device) -> tuple:
-    """Model args on `device`: MiniBatches through `to_device`, dicts with
-    each array or tensor moved (dtypes kept), anything else as it is."""
+    """Model args on `device`: MiniBatches through `to_device`; in a dict
+    or a dataclass (a GraphBatch) each array or tensor moved, dtypes
+    kept; anything else as it is."""
 
     def put(v):
         if isinstance(v, np.ndarray):
             v = torch.from_numpy(np.ascontiguousarray(v))
         return v.to(device) if isinstance(v, torch.Tensor) else v
 
-    return tuple(
-        to_device(b, device) if isinstance(b, MiniBatch)
-        else {k: put(v) for k, v in b.items()} if isinstance(b, dict)
-        else b
-        for b in args
-    )
+    return tuple(to_device(b, device) if isinstance(b, MiniBatch) else tree_map(put, b)
+                 for b in args)
 
 
 def _drain(history: list) -> list[float]:

@@ -1,17 +1,21 @@
-"""The full-graph quality recipes of the JAX package's tests
-(`tests/test_quality.py:82-96`, `:136-170`, `:244-263`, `:306-320`) on the
-port: each conv trained for 200 steps (GAT at 640 labels: 300) through
-`FullGraphFlow(gcn_norm=True)` on `cora_like`, adam lr 0.01, then micro-F1
-on the 1 000 test nodes against the JAX test's band. The split is the
-published one: the 140 nodes of type 0 train (`pool="140"`), or the 640 of
-types 0 and 1 (`pool="640"`); type 2 is the test set.
+"""The conv quality recipes of the JAX package's tests
+(`tests/test_quality.py:82-96`, `:136-170`, `:244-320`, `:871-908`) on the
+port. Each conv but LGCN trains through `FullGraphFlow(gcn_norm=True)` on
+`cora_like` with adam, then reports micro-F1 on the 1 000 test nodes
+against the JAX test's band. The split is the published one: the 140
+nodes of type 0 train (`pool="140"`), or the 640 of types 0 and 1
+(`pool="640"`); type 2 is the test set. LGCN follows its own JAX test:
+one layer over `SageDataFlow(fanouts=[10])`, 32 train roots a step drawn
+by `rng.choice` from the generator the flow samples with, F1 over five
+sampled batches of 200 test nodes.
 
 A model starts from the params the JAX test's Estimator draws for it
 (`params.flax_init` at the recipe's seed, 0 as in the JAX tests), so a
-recipe is the JAX test: the same graph, init, steps and split. The F1
-moves with the init seed by more than the bands are wide (so it does in
-the JAX package), so the band is held at seed 0, the seed the bands were
-calibrated at; the F1 of other seeds (`--seeds`) is reported beside it.
+recipe is the JAX test: the same graph, init, steps, learning rate and
+split. The F1 moves with the init seed by more than the bands are wide
+(so it does in the JAX package), so the band is held at seed 0, the seed
+the bands were calibrated at; the F1 of other seeds (`--seeds`) is
+reported beside it.
 
     python -m euler_tpu_torch.examples.conv_quality --device cpu [--seeds 0 1 2]
 
@@ -24,22 +28,44 @@ from __future__ import annotations
 import argparse
 import json
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-# (conv, dims, conv_kwargs, train pool, steps, band): the JAX tests' bands
-# around the published cora F1s (examples/<name>/README.md)
+
+class Recipe(NamedTuple):
+    conv: str
+    dims: list
+    kw: dict | None  # conv kwargs
+    pool: str  # the train pool: "140" or "640"
+    steps: int
+    lr: float
+    band: tuple  # the JAX test's open F1 band
+    flow: str = "full"  # "full": FullGraphFlow; "sampled": LGCN's SageDataFlow protocol
+
+
+# the JAX tests' recipes and their bands around the published cora F1s
+# (examples/<name>/README.md)
 RECIPES = {
-    "gcn": ("gcn", [16, 16], None, "140", 200, (0.79, 0.88)),
-    "appnp": ("appnp", [16, 16], None, "140", 200, (0.78, 0.90)),
-    "gat": ("gat", [64, 64], {"heads": 4, "improved": True}, "140", 200, (0.70, 0.86)),
-    "sgcn": ("sgcn", [16, 16], None, "140", 200, (0.79, 0.92)),
-    "tagcn": ("tagcn", [16, 16], None, "140", 200, (0.70, 0.86)),
-    "arma": ("arma", [16, 16], None, "140", 200, (0.65, 0.82)),
-    "gat_640": ("gat", [64, 64], {"heads": 4, "improved": True}, "640", 300, (0.86, 0.97)),
+    "gcn": Recipe("gcn", [16, 16], None, "140", 200, 0.01, (0.79, 0.88)),
+    "appnp": Recipe("appnp", [16, 16], None, "140", 200, 0.01, (0.78, 0.90)),
+    "gat": Recipe("gat", [64, 64], {"heads": 4, "improved": True}, "140", 200, 0.01,
+                  (0.70, 0.86)),
+    "sgcn": Recipe("sgcn", [16, 16], None, "140", 200, 0.01, (0.79, 0.92)),
+    "tagcn": Recipe("tagcn", [16, 16], None, "140", 200, 0.01, (0.70, 0.86)),
+    "arma": Recipe("arma", [16, 16], None, "140", 200, 0.01, (0.65, 0.82)),
+    "agnn": Recipe("agnn", [16, 16], None, "140", 200, 0.01, (0.72, 0.86)),
+    "gat_640": Recipe("gat", [64, 64], {"heads": 4, "improved": True}, "640", 300, 0.01,
+                      (0.86, 0.97)),
+    "dna_640": Recipe("dna", [32, 32], None, "640", 300, 0.02, (0.75, 0.90)),
+    "geniepath_640": Recipe("geniepath", [32, 32], None, "640", 300, 0.02, (0.70, 0.88)),
+    "arma_640": Recipe("arma", [32, 32], None, "640", 300, 0.02, (0.86, 0.98)),
+    "lgcn": Recipe("lgcn", [64], None, "640", 200, 0.01, (0.70, 0.86), flow="sampled"),
 }
 POOLS = {"140": (0,), "640": (0, 1)}
+# LGCN's protocol (tests/test_quality.py:871-908)
+SAMPLED_FANOUTS, SAMPLED_BATCH, SAMPLED_EVAL = [10], 32, 200
 
 
 def cora_like():
@@ -51,37 +77,80 @@ def cora_like():
     return Graph.from_json(j), np.asarray([n["type"] for n in j["nodes"]])
 
 
-def conv_quality(name: str, device=None, data=None, seeds=(0,)) -> dict:
-    """One recipe of RECIPES on `data` (`cora_like()`'s pair, built when
-    None), trained from the JAX init of each seed of `seeds`: {"f1": the
-    first seed's, "in_band": whether it lies in the band, "f1_by_seed",
-    ...}. The train and test batches are moved to the device once: the
+def _splits(types, pool: str):
+    tr = (np.nonzero(np.isin(types, POOLS[pool]))[0] + 1).astype(np.uint64)
+    te = (np.nonzero(types == 2)[0] + 1).astype(np.uint64)
+    return tr, te
+
+
+def _full_graph_run(r: Recipe, g, tr, te, device, seed: int):
+    """(final loss, F1) of one full-graph recipe from the JAX init of
+    `seed`. The train and test batches are moved to the device once: the
     whole-graph batch does not change."""
     from euler_tpu_torch.dataflow import FullGraphFlow, to_device
-    from euler_tpu_torch.device import resolve_device
     from euler_tpu_torch.estimator import Estimator, EstimatorConfig
     from euler_tpu_torch.nn import SuperviseModel
     from euler_tpu_torch.params import flax_init
 
-    conv, dims, kw, pool, steps, band = RECIPES[name]
+    flow = FullGraphFlow(g, ["feature"], "label", num_hops=len(r.dims), gcn_norm=True)
+    train, test = (to_device(flow.query(ids), device) for ids in (tr, te))
+    model = SuperviseModel(g.meta.feature_spec("feature").dim, r.conv, r.dims, 7,
+                           conv_kwargs=r.kw)
+    est = Estimator(model, lambda: (train,),
+                    EstimatorConfig(learning_rate=r.lr, log_steps=10**9, seed=seed),
+                    init_params=flax_init(model, seed), device=device)
+    final = est.train(r.steps, log=False, save=False)[-1]
+    return final, est.evaluate([(test,)])["f1"]
+
+
+def _sampled_run(r: Recipe, g, tr, te, device, seed: int):
+    """(final loss, F1) of LGCN's sampled recipe from the JAX init of
+    `seed`: one generator (default_rng(0)) samples the fanouts and draws
+    the roots, and the first draw is the one the JAX Estimator
+    initialises from."""
+    from euler_tpu_torch.dataflow import SageDataFlow
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.nn import SuperviseModel
+    from euler_tpu_torch.params import flax_init
+
+    rng = np.random.default_rng(0)
+    flow = SageDataFlow(g, ["feature"], fanouts=SAMPLED_FANOUTS, label_feature="label", rng=rng)
+
+    def batch_fn():
+        return (flow.query(rng.choice(tr, size=SAMPLED_BATCH, replace=True)),)
+
+    model = SuperviseModel(g.meta.feature_spec("feature").dim, r.conv, r.dims, 7,
+                           conv_kwargs=r.kw)
+    est = Estimator(model, batch_fn, EstimatorConfig(learning_rate=r.lr, log_steps=10**9,
+                                                     seed=seed),
+                    init_params=flax_init(model, seed), device=device)
+    batch_fn()  # the JAX Estimator's init draw
+    final = est.train(r.steps, log=False, save=False)[-1]
+    evals = [(flow.query(te[i : i + SAMPLED_EVAL]),) for i in range(0, 1000, SAMPLED_EVAL)]
+    return final, est.evaluate(evals)["f1"]
+
+
+def conv_quality(name: str, device=None, data=None, seeds=(0,)) -> dict:
+    """One recipe of RECIPES on `data` (`cora_like()`'s pair, built when
+    None), trained from the JAX init of each seed of `seeds`: {"f1": the
+    first seed's, "in_band": whether it lies in the band, "f1_by_seed",
+    ...}."""
+    from euler_tpu_torch.device import resolve_device
+
+    r = RECIPES[name]
     g, types = data if data is not None else cora_like()
     device = resolve_device(device)
-    tr = (np.nonzero(np.isin(types, POOLS[pool]))[0] + 1).astype(np.uint64)
-    te = (np.nonzero(types == 2)[0] + 1).astype(np.uint64)
-    flow = FullGraphFlow(g, ["feature"], "label", num_hops=len(dims), gcn_norm=True)
-    train, test = (to_device(flow.query(ids), device) for ids in (tr, te))
-    in_dim = g.meta.feature_spec("feature").dim
-    f1s, final = [], []
+    tr, te = _splits(types, r.pool)
+    run = _sampled_run if r.flow == "sampled" else _full_graph_run
+    final, f1s = [], []
     for seed in seeds:
-        model = SuperviseModel(in_dim, conv, dims, 7, conv_kwargs=kw)
-        est = Estimator(model, lambda: (train,),
-                        EstimatorConfig(learning_rate=0.01, log_steps=10**9, seed=seed),
-                        init_params=flax_init(model, seed), device=device)
-        final.append(est.train(steps, log=False, save=False)[-1])
-        f1s.append(est.evaluate([(test,)])["f1"])
-    return {"conv": conv, "dims": dims, "conv_kwargs": kw, "train_labels": len(tr),
-            "steps": steps, "seeds": list(seeds), "final_loss_by_seed": final,
-            "f1_by_seed": f1s, "f1": f1s[0], "band": band, "in_band": band[0] < f1s[0] < band[1]}
+        loss, f1 = run(r, g, tr, te, device, seed)
+        final.append(loss)
+        f1s.append(f1)
+    return {"conv": r.conv, "dims": r.dims, "conv_kwargs": r.kw, "flow": r.flow,
+            "train_labels": len(tr), "steps": r.steps, "lr": r.lr, "seeds": list(seeds),
+            "final_loss_by_seed": final, "f1_by_seed": f1s, "f1": f1s[0], "band": r.band,
+            "in_band": r.band[0] < f1s[0] < r.band[1]}
 
 
 def main(argv=None) -> int:

@@ -7,14 +7,20 @@
         --device cpu
     python -m euler_tpu_torch.examples.run_model --model gat --dataset cora --synthetic \
         --device-flow
+    python -m euler_tpu_torch.examples.run_model --model gin --dataset mutag --synthetic \
+        --device cpu
 
 The JAX runner's flags and defaults, plus `--device` (the CUDA card
 unless `--device cpu`; `--platform cpu` means the same). The families the
 port runs:
-  supervised conv:   gcn sage graphsage gat appnp arma sgcn tagcn graph
-                     (SuperviseModel over the conv of that name; gat with
-                     improved=True, as the JAX runner builds it)
+  supervised conv:   gcn sage graphsage gat agnn appnp arma sgcn tagcn dna
+                     gated geniepath graph lgcn (SuperviseModel over the conv
+                     of that name; gat with improved=True, as the JAX runner
+                     builds it)
   conv unsupervised: graphsage_unsup
+  graph clf:         gin set2set gated_graph graphgcn (GraphClassifier over
+                     WholeGraphDataFlow(max_nodes=16, max_degree=8), or
+                     DeviceWholeGraphFlow staged from it)
   embeddings:        deepwalk node2vec line
   knowledge graph:   transe transh transr transd distmult rotate
 each on the host flow and, with `--device-flow`, on the device flow.
@@ -25,7 +31,9 @@ supervised convs and graphsage_unsup; train_and_evaluate for the
 supervised convs. The runner refuses the other modes of the embedding
 and KG families, and so does the port; graphsage_unsup's
 evaluate and train_and_evaluate, which raise a TypeError in the JAX
-runner (it feeds the triple model one MiniBatch), are refused too.
+runner (it feeds the triple model one MiniBatch), are refused too, and
+so are the graph-classification family's modes but train (the JAX
+runner feeds node ids to the graph-label flow as labels).
 Every other model of the JAX zoo exits with a message naming its
 ROADMAP item.
 
@@ -45,14 +53,14 @@ EMBEDDING_MODELS = ("deepwalk", "node2vec", "line")
 # the supervised conv models and the conv each runs (the JAX runner's
 # CONV_MODELS, those of its convs the port has)
 CONV_MODELS = {"gcn": "gcn", "graphsage": "sage", "sage": "sage", "gat": "gat",
-               "appnp": "appnp", "arma": "arma", "sgcn": "sgcn", "tagcn": "tagcn",
-               "graph": "graph"}
+               "agnn": "agnn", "appnp": "appnp", "arma": "arma", "sgcn": "sgcn",
+               "tagcn": "tagcn", "dna": "dna", "gated": "gated", "geniepath": "geniepath",
+               "graph": "graph", "lgcn": "lgcn"}
+# the graph-classification models: (conv, pool)
+GRAPH_CLF = {"gin": ("gin", "mean"), "set2set": ("gin", "set2set"),
+             "gated_graph": ("gated", "mean"), "graphgcn": ("gcn", "attention")}
 # the JAX zoo's other models and the ROADMAP item each waits for
 NOT_PORTED = {
-    **{m: "ROADMAP queue 1 item 4 (the conv zoo's second half)" for m in (
-        "agnn", "dna", "gated", "geniepath", "lgcn")},
-    **{m: "ROADMAP queue 1 item 4 (graph classification; needs item 3's whole-graph flow)"
-       for m in ("gin", "set2set", "gated_graph", "graphgcn")},
     **{m: "ROADMAP queue 1 item 4 (GAE/DGI)" for m in ("gae", "vgae", "dgi")},
     **{m: "ROADMAP queue 1 items 3-4 (the layerwise flow and its model)"
        for m in ("fastgcn", "adaptivegcn")},
@@ -91,7 +99,8 @@ def build_parser():
                     help="devices for a data-parallel mesh (0 = single; not ported yet)")
     ap.add_argument("--device-flow", action="store_true",
                     help="sample batches on the device (graphsage_unsup, the supervised convs, "
-                         "deepwalk/node2vec/line and the TransX family; local graphs only)")
+                         "graph classification, deepwalk/node2vec/line and the TransX "
+                         "family; local graphs only)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize conv layers on backward (not ported yet)")
     ap.add_argument("--device", default=None,
@@ -112,7 +121,8 @@ def _require_checkpoint(est):
 def _refuse(name: str) -> None:
     if name in NOT_PORTED:
         raise SystemExit(f"model {name!r} is not ported to euler_tpu_torch yet: {NOT_PORTED[name]}")
-    known = sorted(KG_MODELS) + list(EMBEDDING_MODELS) + ["graphsage_unsup"] + list(CONV_MODELS)
+    known = (sorted(KG_MODELS) + list(EMBEDDING_MODELS) + ["graphsage_unsup"]
+             + list(CONV_MODELS) + list(GRAPH_CLF))
     if name not in known:
         raise SystemExit(f"unknown model {name!r}")
 
@@ -189,6 +199,23 @@ def main(argv=None):
                                       args.num_negs, p=p, q=q, rng=rng)
             )
         est = Estimator(model, bf, cfg, device=device)
+    elif name in GRAPH_CLF:
+        from euler_tpu_torch.dataflow import WholeGraphDataFlow, graph_label_batches
+        from euler_tpu_torch.models import GraphClassifier
+
+        conv, pool = GRAPH_CLF[name]
+        flow = WholeGraphDataFlow(graph, [feature], max_nodes=16, max_degree=8, rng=rng)
+        model = GraphClassifier(graph.meta.feature_spec(feature).dim, conv=conv, dims=dims,
+                                num_classes=max(flow.num_classes, 2), pool=pool,
+                                remat=args.remat)
+        if args.device_flow:
+            from euler_tpu_torch.dataflow import DeviceWholeGraphFlow
+
+            bf = DeviceWholeGraphFlow(graph, [feature], batch_size=args.batch_size,
+                                      host_flow=flow, device=device)
+        else:
+            bf = graph_label_batches(graph, flow, args.batch_size, rng=rng)
+        est = Estimator(model, bf, cfg, device=device)
     else:
         from euler_tpu_torch.dataflow import SageDataFlow
         from euler_tpu_torch.estimator import DeviceFeatureCache
@@ -248,7 +275,8 @@ def main(argv=None):
         # reject an unsupported mode before demanding a checkpoint
         kg_eval = name in KG_MODELS and args.mode == "evaluate"
         emb_infer = name in EMBEDDING_MODELS and args.mode == "infer"
-        flow_mode = flow is not None and (name != "graphsage_unsup" or args.mode == "infer")
+        flow_mode = flow is not None and name not in GRAPH_CLF and (
+            name != "graphsage_unsup" or args.mode == "infer")
         if not (kg_eval or emb_infer or flow_mode):
             raise SystemExit(f"mode {args.mode!r} is not supported for model {name!r}")
     if args.mode != "train" and flow is None:

@@ -444,6 +444,19 @@ class GraphStore:
         choice = np.minimum(choice, cap - 1)
         return np.where(ok & (rows >= 0), nbr[np.arange(n), choice], DEFAULT_ID)
 
+    def get_graph_by_label(self, label_ids) -> list[np.ndarray]:
+        """This shard's member nodes of each graph label (an unknown label:
+        none), from the shard's `glabel_indptr` / `glabel_nodes` arrays."""
+        indptr = self.arrays["glabel_indptr"]
+        nodes = self.arrays["glabel_nodes"]
+        out = []
+        for li in np.asarray(label_ids, dtype=np.int64):
+            if 0 <= li < len(indptr) - 1:
+                out.append(np.asarray(nodes[indptr[li] : indptr[li + 1]]))
+            else:
+                out.append(np.zeros(0, dtype=np.uint64))
+        return out
+
     def get_dense_by_rows(self, rows, names) -> np.ndarray:
         """Dense node features by pre-resolved local rows (-1 → zeros)."""
         rows = np.asarray(rows, dtype=np.int64)
@@ -576,6 +589,17 @@ class Graph:
             if sel.any():
                 out[sel] = sh.sample_edge(int(sel.sum()), edge_type, rng)
         return out
+
+    def sample_graph_label(self, count: int, rng=None) -> np.ndarray:
+        """`count` graph labels drawn uniformly (int64 label indices)."""
+        n = len(self.meta.graph_labels)
+        return _rng(rng).integers(0, max(n, 1), size=count)
+
+    def get_graph_by_label(self, label_ids) -> list[np.ndarray]:
+        """The sorted member nodes of each graph label, over every shard."""
+        per_shard = [sh.get_graph_by_label(label_ids) for sh in self.shards]
+        return [np.sort(np.concatenate([ps[i] for ps in per_shard]))
+                for i in range(len(np.asarray(label_ids)))]
 
     def node_type(self, ids) -> np.ndarray:
         return self._scatter_gather(ids, lambda sh, i: sh.node_type(i))

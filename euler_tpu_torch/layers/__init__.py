@@ -1,27 +1,39 @@
 from euler_tpu_torch.layers.conv import (  # noqa: F401
+    AGNNConv,
     APPNPConv,
     ARMAConv,
     Conv,
+    DNAConv,
     GATConv,
+    GatedGraphConv,
     GCNConv,
+    GeniePathConv,
+    GINConv,
     GraphConv,
+    LGCNConv,
     SAGEConv,
     SGCNConv,
     TAGConv,
     degrees,
 )
 
-# the JAX package's names (euler_tpu/layers/__init__.py); the other convs
-# wait for ROADMAP queue 1 item 4's second half
+# the JAX package's names (euler_tpu/layers/__init__.py); RelationConv,
+# which takes per-relation blocks, waits for RGCN
 CONVS = {
-    "sage": SAGEConv,
     "gcn": GCNConv,
+    "sage": SAGEConv,
     "gat": GATConv,
+    "gin": GINConv,
     "graph": GraphConv,
     "appnp": APPNPConv,
     "sgcn": SGCNConv,
     "tagcn": TAGConv,
+    "agnn": AGNNConv,
     "arma": ARMAConv,
+    "dna": DNAConv,
+    "gated": GatedGraphConv,
+    "geniepath": GeniePathConv,
+    "lgcn": LGCNConv,
 }
 
 

@@ -1,15 +1,21 @@
 """Convolution layers over padded Blocks
-(counterpart: euler_tpu/layers/conv.py:23-311): SAGEConv, GCNConv,
-GATConv, GraphConv, APPNPConv, SGCNConv, TAGConv and ARMAConv.
+(counterpart: euler_tpu/layers/conv.py:23-456): SAGEConv, GCNConv,
+GATConv, GINConv, GraphConv, APPNPConv, SGCNConv, TAGConv, AGNNConv,
+ARMAConv, DNAConv, GatedGraphConv, LGCNConv and GeniePathConv
+(RelationConv waits for RGCN).
 
 A conv consumes (x_dst, x_src, block) and produces new dst embeddings.
 flax's Dense infers its input width at init; here each conv is told its
 input width (`in_dim`) and tells its stack its output width
-(`out_width`: APPNP and SGCN only propagate, so theirs is `in_dim`).
-The Linear weight is [out, in] where flax's kernel is [in, out]
-(`params.from_flax` transposes). A conv's flax `Dense_<i>` is its
-`linear` (i = 0) or `linear_<i>`, in the order flax numbers them: the
-order of the calls.
+(`out_width`: APPNP, SGCN and AGNN only propagate, so theirs is
+`in_dim`). The Linear weight is [out, in] where flax's kernel is [in,
+out], and a Conv1d weight [out, in, k] where flax's Conv kernel is [k,
+in, out] (`params.from_flax` reverses the axes). A conv's flax
+`Dense_<i>` is its `linear` (i = 0) or `linear_<i>`, in the order flax
+numbers them: the order of the calls; `Conv_<i>` is its `conv` or
+`conv_<i>`, `LSTMCell_0` its `lstm`, `GRUCell_0` its `gru`, and a
+named flax submodule (GeniePath's `carry_c`) or param (GIN's `eps`,
+AGNN's `beta`) keeps its name.
 
 `dtype` is the compute dtype of the layer's linear, as flax's
 `Dense(dtype=...)`: the params stay f32, and with dtype=torch.bfloat16
@@ -57,6 +63,14 @@ def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator | Non
     return t.clamp_(min=-2 * std, max=2 * std)
 
 
+def dense(linear: nn.Linear, h: torch.Tensor, dtype: torch.dtype | None) -> torch.Tensor:
+    """`linear(h)` in the compute dtype `dtype` (module docstring)."""
+    if dtype is None:
+        return linear(h)
+    y = F.linear(h.to(dtype), linear.weight.to(dtype))
+    return y if linear.bias is None else y + linear.bias.to(dtype)
+
+
 def degrees(block: Block, with_self: bool = True) -> torch.Tensor:
     """deg_dst computed from the block mask (+1 for the self loop)."""
     ones = block.mask.float()
@@ -89,10 +103,7 @@ class Conv(nn.Module):
 
     def dense(self, linear: nn.Linear, h: torch.Tensor) -> torch.Tensor:
         """`linear(h)` in the compute dtype (module docstring)."""
-        if self.dtype is None:
-            return linear(h)
-        y = F.linear(h.to(self.dtype), linear.weight.to(self.dtype))
-        return y if linear.bias is None else y + linear.bias.to(self.dtype)
+        return dense(linear, h, self.dtype)
 
     def msg(self, x_src, block: Block):
         return gather(x_src, block.edge_src)
@@ -325,3 +336,167 @@ class ARMAConv(Conv):
             v = getattr(self, f"linear_{2 * s + 1}")
             outs.append(F.relu(self.dense(w, prop) + self.dense(v, x_dst)))
         return sum(outs) / self.stacks
+
+
+class GINConv(Conv):
+    """GIN: MLP((1 + ε)·x_dst + Σ x_src), ε a learned scalar (from
+    `eps_init`), the MLP a hidden Dense (`hidden_dim`, default out_dim),
+    relu, then the out Dense."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None,
+                 eps_init: float = 0.0, hidden_dim: int = 0):
+        super().__init__(in_dim, out_dim, dtype)
+        self.eps_init = eps_init
+        hidden = hidden_dim or out_dim
+        self.eps = nn.Parameter(torch.full((), float(eps_init)))
+        self.linear = nn.Linear(in_dim, hidden)
+        self.linear_1 = nn.Linear(hidden, out_dim)
+
+    @torch.no_grad()
+    def reset_like_flax(self, generator: torch.Generator | None = None) -> None:
+        self.eps.fill_(self.eps_init)
+
+    def forward(self, x_dst, x_src, block: Block):
+        agg = self.agg_add(self.msg(x_src, block), block)
+        h = (1.0 + self.eps) * x_dst + agg
+        return self.dense(self.linear_1, F.relu(self.dense(self.linear, h)))
+
+
+def _row_norm(x: torch.Tensor) -> torch.Tensor:
+    """The L2 norm of each row, [N, 1]. At a zero row its gradient is 0,
+    the norm's subgradient there; jnp.linalg.norm's is NaN, which a
+    relu or a mask multiply after it cannot stop, so a zero row (a
+    relu-killed or padded node) would turn every param NaN."""
+    return torch.linalg.vector_norm(x, dim=-1, keepdim=True)
+
+
+class AGNNConv(Conv):
+    """Attention over the cosine similarity of dst and src rows with a
+    learned temperature β (one scalar, from 1): Σ softmax(β·cos)·x_src.
+    No weights: the output keeps the input's width."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None):
+        super().__init__(in_dim, out_dim, dtype)
+        self.beta = nn.Parameter(torch.ones(()))
+
+    @property
+    def out_width(self) -> int:
+        return self.in_dim
+
+    @torch.no_grad()
+    def reset_like_flax(self, generator: torch.Generator | None = None) -> None:
+        self.beta.fill_(1.0)
+
+    def forward(self, x_dst, x_src, block: Block):
+        xn_dst = x_dst / (_row_norm(x_dst) + 1e-9)
+        xn_src = x_src / (_row_norm(x_src) + 1e-9)
+        cos = torch.sum(gather(xn_src, block.edge_src) * gather(xn_dst, block.edge_dst), dim=-1)
+        alpha = scatter_softmax(self.beta * cos, block.edge_dst, block.n_dst, mask=block.mask)
+        return self.agg_add(gather(x_src, block.edge_src) * alpha[:, None], block)
+
+
+class DNAConv(Conv):
+    """Dot-product attention: q = Wq·x_dst, keys Wk·x_src and values
+    Wv·x_src (three bias-free Denses, in that order); Σ softmax(k·q /
+    √d)·v + q."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None,
+                 heads: int = 1):
+        super().__init__(in_dim, out_dim, dtype)
+        self.heads = heads
+        self.denses((in_dim, False), (in_dim, False), (in_dim, False))
+
+    def forward(self, x_dst, x_src, block: Block):
+        q = self.dense(self.linear, x_dst)
+        k = self.dense(self.linear_1, x_src)
+        v = self.dense(self.linear_2, x_src)
+        e = torch.sum(gather(k, block.edge_src) * gather(q, block.edge_dst), dim=-1)
+        e = e / math.sqrt(self.out_dim)
+        alpha = scatter_softmax(e, block.edge_dst, block.n_dst, mask=block.mask)
+        return self.agg_add(gather(v, block.edge_src) * alpha[:, None], block) + q
+
+
+class GatedGraphConv(Conv):
+    """A GRU step: the state is x_dst padded with zeros to out_dim (or cut
+    to it), the input Σ W·x_src (the bias-free Dense on each edge's
+    message, then summed)."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None):
+        super().__init__(in_dim, out_dim, dtype)
+        from euler_tpu_torch.nn.cells import GRUCell
+
+        self.denses((in_dim, False))
+        self.gru = GRUCell(out_dim, out_dim, dtype)
+
+    def forward(self, x_dst, x_src, block: Block):
+        d = self.out_dim
+        h = F.pad(x_dst, (0, max(d - x_dst.shape[-1], 0)))[:, :d]
+        m = self.agg_add(self.dense(self.linear, self.msg(x_src, block)), block)
+        return self.gru(h, m)
+
+
+class LGCNConv(Conv):
+    """Learnable graph conv: per channel the k largest of each dst's
+    neighbour rows (padded slots count as zero rows), the dst's own row
+    first, then two VALID 1-D convolutions (width k // 2 + 1, hidden
+    `hidden_dim`) along that length-(k + 1) sequence; the output is the
+    sequence's first position. Needs a grid block of fanout >= k.
+
+    The top k are the first k of a stable descending sort: equal values
+    keep their neighbour order, as `jax.lax.top_k` picks the lower index
+    first, so ties (exact zeros after a relu) route the gradient to the
+    same neighbour as in the JAX package."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None,
+                 k: int = 3, hidden_dim: int = 128):
+        super().__init__(in_dim, out_dim, dtype)
+        self.k = k
+        width = k // 2 + 1
+        self.conv = nn.Conv1d(in_dim, hidden_dim, width)
+        self.conv_1 = nn.Conv1d(hidden_dim, out_dim, width)
+
+    def _conv(self, conv: nn.Conv1d, h: torch.Tensor) -> torch.Tensor:
+        if self.dtype is None:
+            return conv(h)
+        y = F.conv1d(h.to(self.dtype), conv.weight.to(self.dtype))
+        return y + conv.bias.to(self.dtype)[:, None]
+
+    def forward(self, x_dst, x_src, block: Block):
+        d = block.grid
+        if not d:
+            raise ValueError("LGCNConv needs a grid (fixed-fanout) block")
+        if d < self.k:
+            raise ValueError(f"LGCNConv k={self.k} needs fanout >= k, got {d}")
+        feat = x_src[block.edge_src.reshape(-1, d).long()]  # [n_dst, d, F]
+        feat = feat * block.mask.reshape(-1, d)[..., None].to(feat.dtype)
+        top = torch.sort(feat, dim=1, descending=True, stable=True).values[:, : self.k]
+        seq = torch.cat([x_dst[:, None, :], top], dim=1)  # [n_dst, k + 1, F]
+        h = self._conv(self.conv_1, self._conv(self.conv, seq.transpose(1, 2)))
+        return h[:, :, 0]
+
+
+class GeniePathConv(Conv):
+    """GeniePath, lazy variant: GAT-style breadth attention (a shared
+    bias-free Dense on src and dst, tanh logits from a [d, 1] Dense, a
+    segment softmax), then an LSTM depth step whose carry comes from
+    x_dst through the Denses `carry_c` and `carry_h`."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None):
+        super().__init__(in_dim, out_dim, dtype)
+        from euler_tpu_torch.nn.cells import LSTMCell
+
+        self.linear = nn.Linear(in_dim, out_dim, bias=False)
+        self.linear_1 = nn.Linear(out_dim, 1, bias=False)
+        self.lstm = LSTMCell(out_dim, out_dim, dtype)
+        self.carry_c = nn.Linear(in_dim, out_dim)
+        self.carry_h = nn.Linear(in_dim, out_dim)
+
+    def forward(self, x_dst, x_src, block: Block):
+        h_src, h_dst = self.dense(self.linear, x_src), self.dense(self.linear, x_dst)
+        g_src = gather(h_src, block.edge_src)
+        e = torch.tanh(self.dense(self.linear_1, g_src + gather(h_dst, block.edge_dst)))[:, 0]
+        alpha = scatter_softmax(e, block.edge_dst, block.n_dst, mask=block.mask)
+        breadth = self.agg_add(g_src * alpha[:, None], block)
+        carry = (self.dense(self.carry_c, x_dst), self.dense(self.carry_h, x_dst))
+        _, out = self.lstm(carry, breadth)
+        return out

@@ -3,6 +3,7 @@ from euler_tpu_torch.models.embedding_models import (  # noqa: F401
     deepwalk_batches,
     line_batches,
 )
+from euler_tpu_torch.models.graph_clf import GraphClassifier  # noqa: F401
 from euler_tpu_torch.models.graphsage import (  # noqa: F401
     GraphSAGESupervised,
     GraphSAGEUnsupervised,

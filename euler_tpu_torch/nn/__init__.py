@@ -2,3 +2,4 @@ from euler_tpu_torch.nn import metrics  # noqa: F401
 from euler_tpu_torch.nn.base_gnn import GNNNet  # noqa: F401
 from euler_tpu_torch.nn.encoders import Embedding  # noqa: F401
 from euler_tpu_torch.nn.heads import SuperviseModel, UnsuperviseModel  # noqa: F401
+from euler_tpu_torch.nn.pooling import POOLS, AttentionPool, Pooling, Set2SetPool  # noqa: F401

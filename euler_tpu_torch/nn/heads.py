@@ -5,9 +5,9 @@ A model call returns (embedding, loss, metric_name, metric), as in the
 JAX package. `SuperviseModel` is sigmoid cross-entropy + micro-F1;
 `UnsuperviseModel` embeds (src, pos, negs) with one shared GNN and
 optimizes the sampled-softmax cross-entropy with the positive in column
-0, reporting MRR. The convs of `layers.CONVS` are ported; the others wait
-for ROADMAP queue 1 item 4. A whole-graph batch's `target_idx` picks the
-rows that carry the loss and the metric.
+0, reporting MRR. Every conv of the JAX package's `CONVS` is ported
+(`layers.CONVS`). A whole-graph batch's `target_idx` picks the rows that
+carry the loss and the metric.
 """
 
 from __future__ import annotations
@@ -25,22 +25,27 @@ from euler_tpu_torch.nn.metrics import micro_f1, mrr
 
 
 def check_conv(conv: str, remat: bool = False) -> None:
-    """Refuse what the port's heads cannot run yet, naming its ROADMAP item."""
+    """Refuse an unknown conv, and what the port's heads cannot run yet,
+    naming its ROADMAP item."""
     if conv not in CONVS:
-        raise NotImplementedError(
-            f"conv {conv!r} is not ported yet (ROADMAP queue 1 item 4: the conv zoo's "
-            f"second half); the port has {sorted(CONVS)}"
-        )
+        raise KeyError(f"unknown conv {conv!r}; have {sorted(CONVS)}")
     if remat:
         raise NotImplementedError("remat=True is not ported yet (ROADMAP queue 1 item 2)")
 
 
-def softmax_xent_col0(logits: torch.Tensor) -> torch.Tensor:
-    """optax.softmax_cross_entropy_with_integer_labels with every label 0,
-    in optax's log-sum-exp form: logits shifted by their (constant) row
-    max, log Σ exp minus the label's logit. [B, C] → [B]."""
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax.softmax_cross_entropy_with_integer_labels in optax's
+    log-sum-exp form: logits shifted by their (constant) row max, log Σ
+    exp minus the label's logit. [B, C], [B] → [B]."""
     shifted = logits - logits.max(dim=-1, keepdim=True).values.detach()
-    return torch.log(torch.sum(torch.exp(shifted), dim=-1)) - shifted[:, 0]
+    label_logit = torch.gather(shifted, -1, labels.long()[:, None])[:, 0]
+    return torch.log(torch.sum(torch.exp(shifted), dim=-1)) - label_logit
+
+
+def softmax_xent_col0(logits: torch.Tensor) -> torch.Tensor:
+    """`softmax_xent` with every label 0 (the positive's column)."""
+    return softmax_xent(logits, torch.zeros(logits.shape[0], dtype=torch.long,
+                                            device=logits.device))
 
 
 def contrastive_loss(e_src, e_pos, e_neg, temperature: float = 1.0):

@@ -5,10 +5,15 @@ A flax Dense keeps `kernel` [in, out] and `bias` [out]; a torch
 nn.Linear keeps `weight` [out, in] and `bias` [out]. Module paths map
 one to one: `params/net/gnn/convs_<i>/Dense_0/kernel` becomes
 `net.gnn.convs.<i>.linear.weight` (transposed), a conv's `Dense_<j>`
-for j > 0 its `linear_<j>`, `params/out/bias` becomes `out.bias`, and a
-param that is not a Dense's — an `Embedding`'s `params/<name>/table`
-(the skip-gram and KG tables, TransX's projections), GAT's `att_src` /
-`att_dst` — keeps its name and its shape. A checkpoint holds the leaves in flax's tree_flatten order
+for j > 0 its `linear_<j>`, `Conv_<j>` its `conv` / `conv_<j>` (a flax
+Conv kernel [k, in, out] is a Conv1d weight [out, in, k]: the axes
+reversed), `LSTMCell_0` / `GRUCell_0` its `lstm` / `gru` (whose gate
+Denses `ii`, `hr`, ... keep flax's names), `params/out/bias` becomes
+`out.bias`, and every other name — an `Embedding`'s
+`params/<name>/table` (the skip-gram and KG tables, TransX's
+projections), GAT's `att_src` / `att_dst`, GIN's `eps`, AGNN's `beta`,
+GeniePath's `carry_c`, GraphClassifier's `pooler` and `head` — keeps
+its name and its shape. A checkpoint holds the leaves in flax's tree_flatten order
 (sorted keys) and the optimizer state in optax's leaf order, so either
 package restores what the other saved.
 """
@@ -25,20 +30,35 @@ import torch
 from torch import nn
 
 
+# flax's auto-named module types and the port's attribute for each: the
+# first is `<attr>`, the j-th `<attr>_<j>`
+_MODULE_ATTRS = {"Dense": "linear", "Conv": "conv", "LSTMCell": "lstm", "GRUCell": "gru"}
+_ATTR_MODULES = {v: k for k, v in _MODULE_ATTRS.items()}
+
+
 def _torch_key(path: tuple) -> str:
     parts = []
     for p in path:
         m = re.fullmatch(r"convs_(\d+)", p)
-        dense = re.fullmatch(r"Dense_(\d+)", p)
+        auto = re.fullmatch(r"([A-Za-z]+)_(\d+)", p)
         if m:
             parts += ["convs", m.group(1)]
-        elif dense:
-            parts.append("linear" if dense.group(1) == "0" else f"linear_{dense.group(1)}")
+        elif auto and auto.group(1) in _MODULE_ATTRS:
+            attr, j = _MODULE_ATTRS[auto.group(1)], auto.group(2)
+            parts.append(attr if j == "0" else f"{attr}_{j}")
         elif p == "kernel":
             parts.append("weight")
         else:
             parts.append(p)
     return ".".join(parts)
+
+
+def _kernel_to_torch(a: np.ndarray, path) -> np.ndarray:
+    """A flax kernel as the torch weight: [in, out] -> [out, in], [k, in,
+    out] -> [out, in, k] (both the axes reversed)."""
+    if a.ndim not in (2, 3):
+        raise ValueError(f"{'/'.join(path)}: kernel must be 2-D or 3-D, got {a.shape}")
+    return np.ascontiguousarray(a.T)
 
 
 def _leaves(tree, prefix=()):
@@ -61,9 +81,7 @@ def from_flax(tree) -> dict[str, torch.Tensor]:
     for path, leaf in _leaves(tree):
         a = np.array(leaf, dtype=np.float32)  # a writable copy
         if path[-1] == "kernel":
-            if a.ndim != 2:
-                raise ValueError(f"{'/'.join(path)}: kernel must be 2-D, got {a.shape}")
-            a = np.ascontiguousarray(a.T)
+            a = _kernel_to_torch(a, path)
         out[_torch_key(path)] = torch.from_numpy(a)
     return out
 
@@ -101,7 +119,8 @@ def from_checkpoint_leaves(leaves) -> dict[str, torch.Tensor]:
 
 def _flax_path(key: str) -> tuple:
     """The inverse of `_torch_key`: `net.gnn.convs.0.linear.weight` →
-    (net, gnn, convs_0, Dense_0, kernel); `linear_<j>` → `Dense_<j>`."""
+    (net, gnn, convs_0, Dense_0, kernel); `linear_<j>` → `Dense_<j>`,
+    `conv`, `lstm`, `gru` → `Conv_0`, `LSTMCell_0`, `GRUCell_0`."""
     parts = key.split(".")
     out, i = [], 0
     while i < len(parts):
@@ -109,11 +128,11 @@ def _flax_path(key: str) -> tuple:
             out.append(f"convs_{parts[i + 1]}")
             i += 2
             continue
-        m = re.fullmatch(r"linear_(\d+)", parts[i])
-        if m:
-            out.append(f"Dense_{m.group(1)}")
+        m = re.fullmatch(r"([a-z]+)(?:_(\d+))?", parts[i])
+        if m and m.group(1) in _ATTR_MODULES:
+            out.append(f"{_ATTR_MODULES[m.group(1)]}_{m.group(2) or 0}")
         else:
-            out.append({"linear": "Dense_0", "weight": "kernel"}.get(parts[i], parts[i]))
+            out.append("kernel" if parts[i] == "weight" else parts[i])
         i += 1
     return tuple(out)
 
@@ -127,12 +146,14 @@ def to_flax_leaf(key: str, t: torch.Tensor) -> np.ndarray:
     """One state_dict entry (or a tensor shaped like it) as the flax leaf
     (f32 numpy; Linear weights transposed to kernels)."""
     a = t.detach().to("cpu", torch.float32).numpy()
+    # [out, in] -> [in, out]; a Conv1d's [out, in, k] -> [k, in, out]
     return np.ascontiguousarray(a.T) if _flax_path(key)[-1] == "kernel" else a.copy()
 
 
 def from_flax_leaf(key: str, leaf) -> torch.Tensor:
     a = np.array(leaf, dtype=np.float32)
-    return torch.from_numpy(np.ascontiguousarray(a.T) if _flax_path(key)[-1] == "kernel" else a)
+    path = _flax_path(key)
+    return torch.from_numpy(_kernel_to_torch(a, path) if path[-1] == "kernel" else a)
 
 
 def to_checkpoint_leaves(state_dict) -> list[np.ndarray]:
@@ -207,8 +228,9 @@ def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> N
 # param's module path and its creation count in that module,
 # flax/core/scope.py `_fold_in_static`) and lecun_normal's truncated normal
 # (jax._src.random `_truncated_normal`: a uniform mapped through XLA's
-# single-precision erf_inv). numpy rounds XLA's log inside erf_inv to
-# another neighbour now and then, so a value may sit 1 ulp off flax's.
+# single-precision erf_inv). numpy rounds XLA's log1p inside erf_inv to
+# another neighbour now and then (about 1 % of the draws), so a value may
+# sit 1-2 ulp off flax's.
 
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # XLA's ErfInv for f32 (M. Giles, "Approximating the erfinv function"):
@@ -218,8 +240,11 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 # a param's creation count in its flax module (`Scope.make_rng` counts from
-# 1): Dense makes kernel then bias, GATConv att_src then att_dst
-_FLAX_PARAM_COUNT = {"kernel": 1, "bias": 2, "att_src": 1, "att_dst": 2}
+# 1): Dense and Conv make kernel then bias, GATConv att_src then att_dst
+_FLAX_PARAM_COUNT = {"kernel": 1, "bias": 2, "att_src": 1, "att_dst": 2, "eps": 1, "beta": 1}
+# the hidden-state Denses of flax's GRUCell and LSTMCell, whose kernels
+# take `orthogonal()`
+_RECURRENT = {"hr", "hz", "hn", "hi", "hf", "hg", "ho"}
 
 
 def _threefry2x32(key, x0, x1):
@@ -266,7 +291,9 @@ def _fma32(a, b, c) -> np.ndarray:
 
 
 def _erfinv32(x: np.ndarray) -> np.ndarray:
-    w = (-np.log(((np.float32(1) - x) * (np.float32(1) + x)).astype(np.float64))).astype(np.float32)
+    # XLA's w = -log1p(-x·x), the square rounded to f32 first
+    xx = (x * x).astype(np.float32)
+    w = (-np.log1p(-xx.astype(np.float64))).astype(np.float32)
     lt = w < np.float32(5)
     w = np.where(lt, w - np.float32(2.5), np.sqrt(w) - np.float32(3)).astype(np.float32)
     p = np.where(lt, np.float32(_ERFINV_LT5[0]), np.float32(_ERFINV_GE5[0]))
@@ -275,40 +302,76 @@ def _erfinv32(x: np.ndarray) -> np.ndarray:
     return (p * x).astype(np.float32)
 
 
-def _truncated_normal(key, shape) -> np.ndarray:
-    """jax.random.truncated_normal(key, -2, 2, shape, float32)."""
+def _uniform(key, shape, lo, hi) -> np.ndarray:
+    """jax.random.uniform(key, shape, float32, lo, hi)."""
     n = int(np.prod(shape))
     b0, b1 = _key_words(key, n)
     bits = (b0 ^ b1).reshape(shape)
+    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
+    return np.maximum(lo, _fma32(floats, hi - lo, lo))
+
+
+def _truncated_normal(key, shape) -> np.ndarray:
+    """jax.random.truncated_normal(key, -2, 2, shape, float32)."""
     sqrt2 = np.float32(math.sqrt(2))
     lo = np.float32(math.erf(float(np.float32(-2) / sqrt2)))
     hi = np.float32(math.erf(float(np.float32(2) / sqrt2)))
-    floats = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32) - np.float32(1)
-    u = np.maximum(lo, _fma32(floats, hi - lo, lo))
-    out = (sqrt2 * _erfinv32(u)).astype(np.float32)
+    out = (sqrt2 * _erfinv32(_uniform(key, shape, lo, hi))).astype(np.float32)
     return np.clip(out, np.nextafter(np.float32(-2), np.float32(np.inf)),
                    np.nextafter(np.float32(2), np.float32(-np.inf)))
 
 
+def _normal(key, shape) -> np.ndarray:
+    """jax.random.normal(key, shape, float32): a uniform on (-1, 1) through
+    erf_inv."""
+    lo = np.nextafter(np.float32(-1), np.float32(0))
+    u = _uniform(key, shape, lo, np.float32(1))
+    return (np.float32(math.sqrt(2)) * _erfinv32(u)).astype(np.float32)
+
+
+def _orthogonal(key, shape) -> np.ndarray:
+    """jax.nn.initializers.orthogonal()(key, shape) for a 2-D kernel:
+    jax.random.orthogonal's normal draw, its QR and the signs of R's
+    diagonal. numpy factors in f64 where XLA factors in f32, so a value
+    may differ from flax's by the f32 QR's rounding."""
+    rows, cols = shape
+    z = _normal(key, (max(rows, cols), min(rows, cols)))
+    q, r = np.linalg.qr(z.astype(np.float64))
+    q = (q * np.sign(np.diagonal(r))[None, :]).astype(np.float32)
+    return q.T if rows < cols else q
+
+
 def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """The state_dict of the params the JAX package's Estimator draws for
-    the flax twin of `model` at `seed` (see the note above): every weight
-    and GAT attention vector from lecun_normal (fan_in = the flax shape's
-    second-last axis), every bias 0. For models of Linears and GAT's
-    attention vectors; raises on any other param."""
+    the flax twin of `model` at `seed` (see the note above): every weight,
+    Conv kernel and GAT attention vector from lecun_normal (fan_in = the
+    product of the flax shape's axes but the last: a Conv's k·in), the
+    hidden-state kernels of the recurrent cells from `orthogonal()`, GIN's
+    `eps` its owner's `eps_init`, AGNN's `beta` 1, every bias 0. Raises on
+    any other param."""
     k0, k1 = _key_words((np.uint32(0), np.uint32(seed)), 1)
     key = (k0[0], k1[0])
     out = {}
     for name, t in model.state_dict().items():
         path = _flax_path(name)
-        if path[-1] not in _FLAX_PARAM_COUNT:
+        kind = path[-1]
+        if kind not in _FLAX_PARAM_COUNT:
             raise NotImplementedError(f"flax_init: no flax initializer known for {name}")
-        shape = tuple(t.shape[::-1]) if path[-1] == "kernel" else tuple(t.shape)
-        if path[-1] == "bias":
+        shape = tuple(t.shape[::-1]) if kind == "kernel" else tuple(t.shape)
+        pkey = _fold_in_path(key, path[:-1] + (_FLAX_PARAM_COUNT[kind],))
+        if kind == "bias":
             leaf = np.zeros(shape, np.float32)
+        elif kind == "eps":
+            owner = model.get_submodule(name.rpartition(".")[0])
+            leaf = np.full(shape, owner.eps_init, np.float32)
+        elif kind == "beta":
+            leaf = np.ones(shape, np.float32)
+        elif kind == "kernel" and len(path) > 2 and path[-2] in _RECURRENT \
+                and path[-3].split("_")[0] in ("LSTMCell", "GRUCell"):
+            leaf = _orthogonal(pkey, shape)
         else:
-            std = np.sqrt(np.float32(1.0 / shape[-2])) / np.float32(0.87962566103423978)
-            pkey = _fold_in_path(key, path[:-1] + (_FLAX_PARAM_COUNT[path[-1]],))
+            fan_in = int(np.prod(shape[:-1]))
+            std = np.sqrt(np.float32(1.0 / fan_in)) / np.float32(0.87962566103423978)
             leaf = (_truncated_normal(pkey, shape) * std).astype(np.float32)
         out[name] = from_flax_leaf(name, leaf)
     return out
@@ -318,21 +381,29 @@ def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> dict[str, torch.Tensor]:
     """Re-initialise every nn.Linear of `model` the way flax's Dense does
     by default (lecun_normal kernel: truncated normal at ±2σ, σ =
-    sqrt(1/fan_in)/0.8796…; zero bias), every `Embedding` table from its
-    row init (normal(0.02), or the KG projections' identity and zeros)
+    sqrt(1/fan_in)/0.8796…; zero bias), every Conv1d as flax's Conv
+    (lecun_normal, fan_in = k·in; zero bias), every `Embedding` table from
+    its row init (normal(0.02), or the KG projections' identity and zeros)
     and every module's own flax-initialised params (`reset_like_flax`:
-    GAT's attention vectors), drawing from `generator` in module order.
-    Returns the model's state_dict."""
+    GAT's attention vectors, GIN's eps, AGNN's beta, a recurrent cell's
+    whole tree), drawing from `generator` in module order. Returns the
+    model's state_dict."""
     from euler_tpu_torch.layers.conv import lecun_normal_
     from euler_tpu_torch.nn.encoders import Embedding
 
+    owned = set()  # the submodules of a cell, which its reset_like_flax drew
     for m in model.modules():
+        if id(m) in owned:
+            continue
         if isinstance(m, Embedding):
             m.reset_parameters(generator)
-        elif isinstance(m, nn.Linear):
-            lecun_normal_(m.weight, m.in_features, generator)
+        elif isinstance(m, (nn.Linear, nn.Conv1d)):
+            fan_in = m.in_features if isinstance(m, nn.Linear) else m.in_channels * m.kernel_size[0]
+            lecun_normal_(m.weight, fan_in, generator)
             if m.bias is not None:
                 m.bias.zero_()
         elif hasattr(m, "reset_like_flax"):
             m.reset_like_flax(generator)
+            if getattr(m, "resets_subtree", False):
+                owned.update(id(c) for c in m.modules())
     return model.state_dict()

@@ -53,6 +53,8 @@ PORTED = [
     "euler_tpu_torch.tools.retrieve",
     "euler_tpu_torch.ops.mp_ops", "euler_tpu_torch.layers.conv",
     "euler_tpu_torch.dataflow.whole", "euler_tpu_torch.examples.conv_quality",
+    "euler_tpu_torch.nn.cells", "euler_tpu_torch.nn.pooling",
+    "euler_tpu_torch.models.graph_clf", "euler_tpu_torch.examples.graph_clf_quality",
 ]
 
 

@@ -1,7 +1,9 @@
-"""The conv zoo's first half on the port against the JAX package: GCN, GAT,
-APPNP, SGCN, TAGCN, ARMA and GraphConv (forward and grads of params and
-inputs, fed the flax conv's params through `params.from_flax`, on a grid
-block and a non-grid block), the message-passing ops behind them
+"""The conv zoo on the port against the JAX package: GCN, GAT, APPNP, SGCN,
+TAGCN, ARMA, GraphConv, GIN, AGNN, DNA, GatedGraph, GeniePath and LGCN
+(forward and grads of params and inputs, fed the flax conv's params
+through `params.from_flax`, on a grid block and a non-grid block; LGCN,
+which needs a grid, on the grid block and on a block of tied values),
+the message-passing ops behind them
 (scatter_mean, scatter_max with ties, scatter_softmax with an empty
 segment), FullNeighborDataFlow(gcn_norm=True) and FullGraphFlow bitwise on
 the numpy and the native store, 3-step SuperviseModel trainings of GCN
@@ -57,7 +59,8 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 # roots of the sampled batches: 10**9 is not in the graph (every slot of
 # its row is masked), 7 repeats
 ROOTS = np.asarray([1, 7, 7, 150, 10**9, 33], np.uint64)
-PORTED = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma")
+PORTED = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma",
+          "gin", "agnn", "dna", "gated", "geniepath", "lgcn")
 
 
 @pytest.fixture(scope="module")
@@ -115,8 +118,11 @@ def _random_params(module, seed, *args):
 
 # (conv, kwargs, block): "grid" is hop 0 of the sampled batch, "scatter"
 # the same block with its grid cleared (the segment-op path), "degrees"
-# hop 0 of the full-neighbor batch (GCN's true-degree branch)
-CASES = [(c, {}, b) for c in PORTED if c != "gat" for b in ("grid", "scatter")] + [
+# hop 0 of the full-neighbor batch (GCN's true-degree branch), "ties" the
+# grid block over relu'd inputs whose rows repeat (LGCN's top-k ties); an
+# `out_dim` kwarg sets the conv's width (GatedGraph pads x_dst to it when
+# it is wider than the input, cuts x_dst to it otherwise)
+CASES = [(c, {}, b) for c in PORTED if c not in ("gat", "lgcn") for b in ("grid", "scatter")] + [
     ("gcn", {}, "degrees"),
     ("gat", {}, "grid"),
     ("gat", {}, "scatter"),
@@ -124,6 +130,12 @@ CASES = [(c, {}, b) for c in PORTED if c != "gat" for b in ("grid", "scatter")] 
     ("gat", {"heads": 4}, "grid"),
     ("gat", {"heads": 4, "concat": False, "improved": True}, "grid"),
     ("gat", {"heads": 4, "concat": False}, "scatter"),
+    ("gin", {"eps_init": 0.3, "hidden_dim": 12}, "grid"),
+    ("gated", {"out_dim": 24}, "grid"),
+    ("gated", {"out_dim": 24}, "scatter"),
+    ("lgcn", {}, "grid"),
+    ("lgcn", {"k": 2, "hidden_dim": 16}, "ties"),
+    ("agnn", {}, "ties"),
 ]
 OUT = 8
 
@@ -138,7 +150,21 @@ def _block_pair(batches, kind):
     jblk, pblk = jb.blocks[0], pb.blocks[0]
     if kind == "scatter":
         jblk, pblk = jblk.replace(grid=0), dataclasses.replace(pblk, grid=0)
-    return (jb.feats[0], jb.feats[1], jblk), (pb.feats[0], pb.feats[1], pblk)
+    xd, xs = np.asarray(jb.feats[0]), np.asarray(jb.feats[1])
+    if kind == "ties":
+        # relu'd rows (exact zeros tie in every channel), each src row
+        # repeated by its neighbour slot's successor: every dst row holds
+        # equal values in the same channel at several slots
+        xd, xs = np.maximum(xd, 0), np.maximum(xs, 0)
+        xs[1::2] = xs[0::2]
+        xs[:, ::3] = 0
+    return (xd, xs, jblk), (torch.from_numpy(xd), torch.from_numpy(xs), pblk)
+
+
+def _split(kw):
+    """(conv kwargs, output width) of a case."""
+    kw = dict(kw)
+    return kw, kw.pop("out_dim", OUT)
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +181,8 @@ def flax_convs(batches):
         if key in memo:
             return memo[key]
         (jxd, jxs, jblk), _ = _block_pair(batches, kind)
-        module = getattr(jax_layers, CONVS[conv].__name__)(out_dim=OUT, **kw)
+        kw, out = _split(kw)
+        module = getattr(jax_layers, CONVS[conv].__name__)(out_dim=out, **kw)
         with _JaxMode():
             params = _random_params(module, 5, jxd, jxs, jblk).get("params", {})
             width = jax.eval_shape(module.apply, {"params": params}, jxd, jxs, jblk).shape[1]
@@ -182,15 +209,26 @@ def test_conv_forward_and_grads_match_flax(case, batches, flax_convs):
     params, cot, want, (gp, gxd, gxs) = flax_convs(conv, kw, kind)
     width = cot.shape[1]
 
-    port = CONVS[conv](FEAT, OUT, **kw)
+    ckw, out = _split(kw)
+    port = CONVS[conv](FEAT, out, **ckw)
     assert port.out_width == width
     port.load_state_dict(from_flax({"params": params}))
     xd, xs = pxd.clone().requires_grad_(), pxs.clone().requires_grad_()
     got = port(xd, xs, pblk)
     got.backward(torch.from_numpy(cot))
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), **TOL)
-    np.testing.assert_allclose(xd.grad.numpy(), np.asarray(gxd), **TOL)
-    np.testing.assert_allclose(xs.grad.numpy(), np.asarray(gxs), **TOL)
+    gxd, gxs = np.asarray(gxd), np.asarray(gxs)
+    if conv == "agnn":
+        # jnp.linalg.norm's gradient at a zero row is NaN (the absent root's
+        # features, relu-killed rows); the port's is the subgradient 0,
+        # which leaves d(x / (|x| + 1e-9))/dx = 1e9·I there
+        zero_d, zero_s = ~pxd.numpy().any(axis=1), ~pxs.numpy().any(axis=1)
+        assert zero_d.any() and np.isnan(gxd[zero_d]).all() and np.isnan(gxs[zero_s]).all()
+        assert np.isfinite(xd.grad.numpy()).all() and np.isfinite(xs.grad.numpy()).all()
+        gxd = np.where(zero_d[:, None], xd.grad.numpy(), gxd)
+        gxs = np.where(zero_s[:, None], xs.grad.numpy(), gxs)
+    np.testing.assert_allclose(xd.grad.numpy(), gxd, **TOL)
+    np.testing.assert_allclose(xs.grad.numpy(), gxs, **TOL)
     want_p = from_flax({"params": gp})
     assert sorted(want_p) == sorted(n for n, _ in port.named_parameters())
     for name, p in port.named_parameters():
@@ -317,13 +355,14 @@ def _jax_init(conv, kw, dims, jb):
         return model, _random_params(model, 2, jb)
 
 
-MODEL_KW = {"gat": {"heads": 2, "improved": True}, "arma": {"stacks": 3}}
+MODEL_KW = {"gat": {"heads": 2, "improved": True}, "arma": {"stacks": 3},
+            "gin": {"eps_init": 0.25}, "lgcn": {"k": 2, "hidden_dim": 16}}
 
 
 @pytest.mark.parametrize("conv", PORTED)
 def test_param_trees_map_both_ways(conv, batches):
     """The flax SuperviseModel tree of each conv loads into the port's
-    SuperviseModel (the width chain: APPNP and SGCN pass their input
+    SuperviseModel (the width chain: APPNP, SGCN and AGNN pass their input
     width on) and comes back as the same leaves in the same order,
     bitwise; the port's flax-like init draws a tree of the same shapes."""
     jb, _ = batches["sampled"]
@@ -343,18 +382,53 @@ def test_param_trees_map_both_ways(conv, batches):
     if conv == "gat":  # lecun_normal over [heads, per]: fan_in = heads
         att = torch.cat([init[k].reshape(-1) for k in init if "att_" in k])
         assert 0 < att.std() < 2 * (1 / 2) ** 0.5
+    for k, v in init.items():
+        if k.endswith(".eps"):
+            assert float(v) == 0.25
+        if k.endswith(".beta"):
+            assert float(v) == 1.0
+        if "." + k.split(".")[-2] in (".hr", ".hz", ".hn", ".hi", ".hf", ".hg", ".ho") \
+                and k.endswith("weight"):  # orthogonal
+            torch.testing.assert_close(v @ v.T, torch.eye(v.shape[0]), rtol=0, atol=1e-5)
+    if conv == "lgcn":
+        with pytest.raises(ValueError, match="needs a grid"):
+            _, (pxd, pxs, pblk) = _block_pair(batches, "scatter")
+            model.gnn.convs[0](pxd, pxs, pblk)
 
 
-@pytest.mark.parametrize("conv", ["gat"])
-def test_flax_init_draws_the_jax_init(conv, batches):
+# orthogonal kernels (the recurrent cells' hidden Denses): numpy factors
+# the normal draw in f64, XLA in f32
+ORTHO_ATOL = 5e-6
+
+
+def _assert_flax_init(got, want, conv):
+    """Every lecun_normal leaf within 2 ulp (numpy's log1p inside XLA's
+    erf_inv rounds to the other neighbour now and then), every
+    orthogonal one within ORTHO_ATOL."""
+    assert sorted(got) == sorted(want)
+    differ = ortho = 0
+    for k in got:
+        if k.split(".")[-2:-1] in (["hr"], ["hz"], ["hn"], ["hi"], ["hf"], ["hg"], ["ho"]) \
+                and k.endswith("weight"):
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=0, atol=ORTHO_ATOL,
+                                       err_msg=k)
+            ortho += 1
+            continue
+        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=2.5e-7, atol=0,
+                                   err_msg=k)
+        differ += int((got[k] != want[k]).sum())
+    assert differ <= 0.05 * sum(v.numel() for v in got.values())
+    assert ortho == {"gated": 3, "geniepath": 4}.get(conv, 0)
+
+
+def test_flax_init_draws_the_jax_init(batches):
     """`params.flax_init` against the params the JAX Estimator draws
-    (`model.init` under split(PRNGKey(seed), 1)[0]) for GAT, whose tree
-    holds every kind of param the recipes have (kernels with and without
-    a bias, the attention vectors; the other convs' Dense_<j> paths are
-    `test_param_trees_map_both_ways`'s): every leaf within 2 ulp (numpy's
-    log inside XLA's erf_inv rounds to the other neighbour now and then)."""
+    (`model.init` under split(PRNGKey(seed), 1)[0]) for GAT's
+    SuperviseModel, whose tree holds the Dense kernels with and without a
+    bias and the attention vectors under `gnn/convs_<l>` and the head;
+    the other convs' Dense_<j> paths are `test_param_trees_map_both_ways`'s."""
     jb, _ = batches["sampled"]
-    model, _ = _jax_init(conv, MODEL_KW.get(conv), [8, 8], jb)
+    model, _ = _jax_init("gat", MODEL_KW["gat"], [8, 8], jb)
     seed = 3
     with _JaxMode():
         key = jax.random.split(jax.random.PRNGKey(seed), 1)[0]
@@ -363,15 +437,28 @@ def test_flax_init_draws_the_jax_init(conv, batches):
             lambda a: jax.ShapeDtypeStruct(np.shape(a), np.asarray(a).dtype), jb)
         want = from_flax(jax.tree_util.tree_map(np.asarray,
                                                 model.lazy_init({"params": key}, shapes)))
-    got = flax_init(SuperviseModel(FEAT, conv, [8, 8], CLASSES, conv_kwargs=MODEL_KW.get(conv)),
+    got = flax_init(SuperviseModel(FEAT, "gat", [8, 8], CLASSES, conv_kwargs=MODEL_KW["gat"]),
                     seed)
-    assert sorted(got) == sorted(want)
-    differ = 0
-    for k in got:
-        np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), rtol=2.5e-7, atol=0,
-                                   err_msg=k)
-        differ += int((got[k] != want[k]).sum())
-    assert differ <= 0.15 * sum(v.numel() for v in got.values())
+    _assert_flax_init(got, want, "gat")
+
+
+@pytest.mark.parametrize("conv", ["gin", "gated", "geniepath", "lgcn", "agnn"])
+def test_flax_init_draws_the_jax_conv_init(conv, batches):
+    """`params.flax_init` of a bare conv against flax's init of its flax
+    twin under one key: GIN's tree holds its `eps`, GatedGraph's and
+    GeniePath's the recurrent cells (input kernels lecun_normal, hidden
+    ones orthogonal), LGCN's the Conv kernels (fan_in = k·in), AGNN's its
+    `beta`."""
+    (jxd, jxs, jblk), _ = _block_pair(batches, "grid")
+    kw = MODEL_KW.get(conv, {})
+    module = getattr(jax_layers, CONVS[conv].__name__)(out_dim=OUT, **kw)
+    seed = 4
+    with _JaxMode():
+        key = jax.random.split(jax.random.PRNGKey(seed), 1)[0]
+        want = from_flax(jax.tree_util.tree_map(
+            np.asarray, jax.jit(lambda k, a, b: module.init({"params": k}, a, b, jblk))(
+                key, jxd, jxs)))
+    _assert_flax_init(flax_init(CONVS[conv](FEAT, OUT, **kw), seed), want, conv)
 
 
 def _pair(kind, data, tmp, optimizer="adam"):

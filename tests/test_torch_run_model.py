@@ -1,6 +1,7 @@
 """The port's `run_model` CLI on the CPU (`--device cpu`): the JAX runner's
 flags and defaults; every family the port runs (of the supervised
-convs: sage, gcn and gat) trains on the host flow and on the device flow
+convs: sage, gcn, gat and agnn; of graph classification: gin on the
+mutag stand-in) trains on the host flow and on the device flow
 (`--device-flow`); train_and_evaluate and evaluate
 for sage, evaluate for the KG family, infer for the embedding family,
 sage and graphsage_unsup, each exiting 0 on `--synthetic` data; the
@@ -15,7 +16,13 @@ import pytest
 import torch
 
 from euler_tpu.examples.run_model import build_parser as jax_build_parser
-from euler_tpu_torch.examples.run_model import KG_MODELS, NOT_PORTED, build_parser, main
+from euler_tpu_torch.examples.run_model import (
+    GRAPH_CLF,
+    KG_MODELS,
+    NOT_PORTED,
+    build_parser,
+    main,
+)
 
 torch.set_num_threads(1)
 
@@ -33,8 +40,12 @@ def cache(tmp_path_factory):
         yield str(root / "runs")
 
 
+def _dataset(model):
+    return "fb15k" if model in KG_MODELS else "mutag" if model in GRAPH_CLF else "cora"
+
+
 def _run(cache, model, *extra, mode="train"):
-    dataset = "fb15k" if model in KG_MODELS else "cora"
+    dataset = _dataset(model)
     return main(["--model", model, "--dataset", dataset, "--mode", mode, "--model-dir", cache,
                  *STEPS, *extra])
 
@@ -49,8 +60,8 @@ def test_flags_and_defaults_follow_the_jax_runner():
     assert got == want
 
 
-FAMILIES = ["graphsage_unsup", "deepwalk", "node2vec", "line", "sage", "gcn", "gat",
-            *sorted(KG_MODELS)]
+FAMILIES = ["graphsage_unsup", "deepwalk", "node2vec", "line", "sage", "gcn", "gat", "agnn",
+            "gin", *sorted(KG_MODELS)]
 
 
 @pytest.mark.parametrize("flow", ["host", "device"])
@@ -92,11 +103,12 @@ def test_evaluate_and_infer_exit_zero(cache, capsys):
 @pytest.mark.parametrize("model, mode", [
     ("graphsage_unsup", "evaluate"), ("graphsage_unsup", "train_and_evaluate"),
     ("deepwalk", "evaluate"), ("deepwalk", "train_and_evaluate"),
-    ("line", "train_and_evaluate"), ("transe", "train_and_evaluate"), ("transe", "infer")])
+    ("line", "train_and_evaluate"), ("transe", "train_and_evaluate"), ("transe", "infer"),
+    ("gin", "evaluate"), ("set2set", "infer")])
 def test_modes_the_jax_runner_refuses_exit_with_a_message(cache, tmp_path, model, mode):
     """Refused before a checkpoint is asked for: the model dir is empty."""
     with pytest.raises(SystemExit, match=f"mode '{mode}' is not supported for model '{model}'"):
-        main(["--model", model, "--dataset", "fb15k" if model in KG_MODELS else "cora",
+        main(["--model", model, "--dataset", _dataset(model),
               "--mode", mode, "--model-dir", str(tmp_path), *STEPS])
 
 
@@ -108,9 +120,10 @@ def test_refusals(cache, tmp_path):
         with pytest.raises(SystemExit, match="ROADMAP queue 1 item") as e:
             _run(cache, model)
         assert item in str(e.value)
-    for model in ("agnn", "dna", "gated", "geniepath", "lgcn"):
-        with pytest.raises(SystemExit, match="item 4 .the conv zoo's second half"):
-            _run(cache, model)
+    with pytest.raises(SystemExit, match="item 4 .GAE/DGI"):
+        _run(cache, "gae")
+    assert not {"agnn", "dna", "gated", "geniepath", "lgcn", "gin", "set2set",
+                "gated_graph", "graphgcn"} & set(NOT_PORTED)
     with pytest.raises(SystemExit, match="unknown model"):
         _run(cache, "nope")
     with pytest.raises(SystemExit, match="item 6"):

@@ -1,6 +1,7 @@
 """euler_tpu_torch constructors (and `Graph.load`, `InferenceRuntime.swap`
 and the batch sources, walks, KG evaluations and graph builders of the
-link-prediction families) take the JAX package's parameters in its order
+link-prediction families, the graph-label queries and the mutag
+stand-in) take the JAX package's parameters in its order
 and under its names, so a caller's positional arguments mean the
 same thing in both packages. Port-only parameters (`device`) are
 keyword-only. The one deliberate difference: the torch modules take their
@@ -34,14 +35,29 @@ from euler_tpu.graph.builder import build_from_json as jax_build_from_json
 from euler_tpu.graph.builder import convert_json as jax_convert_json
 from euler_tpu.graph.native import NativeGraphStore as JaxNativeGraphStore
 from euler_tpu.dataflow import FullGraphFlow as JaxFullGraphFlow
+from euler_tpu.dataflow import DeviceWholeGraphFlow as JaxDeviceWholeGraphFlow
+from euler_tpu.dataflow import WholeGraphDataFlow as JaxWholeGraphDataFlow
+from euler_tpu.dataflow import graph_label_batches as jax_graph_label_batches
+from euler_tpu.dataflow.whole import GraphBatch as JaxGraphBatch
+from euler_tpu.datasets.quality import mutag_like_json as jax_mutag_like_json
+from euler_tpu.layers import AGNNConv as JaxAGNNConv
 from euler_tpu.layers import APPNPConv as JaxAPPNPConv
 from euler_tpu.layers import ARMAConv as JaxARMAConv
+from euler_tpu.layers import DNAConv as JaxDNAConv
 from euler_tpu.layers import GATConv as JaxGATConv
+from euler_tpu.layers import GatedGraphConv as JaxGatedGraphConv
 from euler_tpu.layers import GCNConv as JaxGCNConv
+from euler_tpu.layers import GeniePathConv as JaxGeniePathConv
+from euler_tpu.layers import GINConv as JaxGINConv
 from euler_tpu.layers import GraphConv as JaxGraphConv
+from euler_tpu.layers import LGCNConv as JaxLGCNConv
 from euler_tpu.layers import SAGEConv as JaxSAGEConv
 from euler_tpu.layers import SGCNConv as JaxSGCNConv
 from euler_tpu.layers import TAGConv as JaxTAGConv
+from euler_tpu.models import GraphClassifier as JaxGraphClassifier
+from euler_tpu.nn.pooling import AttentionPool as JaxAttentionPool
+from euler_tpu.nn.pooling import Pooling as JaxPooling
+from euler_tpu.nn.pooling import Set2SetPool as JaxSet2SetPool
 from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGESupervised
 from euler_tpu.models import GraphSAGEUnsupervised as JaxGraphSAGEUnsupervised
 from euler_tpu.models import SkipGramModel as JaxSkipGramModel
@@ -68,28 +84,39 @@ from euler_tpu_torch.dataflow import (
     DeviceSageFlow,
     DeviceUnsupSageFlow,
     DeviceWalkFlow,
+    DeviceWholeGraphFlow,
     FullGraphFlow,
     FullNeighborDataFlow,
+    GraphBatch,
     SageDataFlow,
+    WholeGraphDataFlow,
     gen_pair,
+    graph_label_batches,
 )
-from euler_tpu_torch.datasets import cora_like_json, fb15k_like, get_dataset
+from euler_tpu_torch.datasets import cora_like_json, fb15k_like, get_dataset, mutag_like_json
 from euler_tpu_torch.dataflow.base import DataFlow
 from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator
 from euler_tpu_torch.estimator import edge_batches, unsupervised_batches
 from euler_tpu_torch.graph import Graph, build_from_json, convert_json
 from euler_tpu_torch.graph.native import NativeGraphStore
 from euler_tpu_torch.layers import (
+    AGNNConv,
     APPNPConv,
     ARMAConv,
+    DNAConv,
     GATConv,
+    GatedGraphConv,
     GCNConv,
+    GeniePathConv,
+    GINConv,
     GraphConv,
+    LGCNConv,
     SAGEConv,
     SGCNConv,
     TAGConv,
 )
 from euler_tpu_torch.models import (
+    GraphClassifier,
     GraphSAGESupervised,
     GraphSAGEUnsupervised,
     SkipGramModel,
@@ -101,7 +128,15 @@ from euler_tpu_torch.models import (
     line_batches,
     transx_warm_start,
 )
-from euler_tpu_torch.nn import Embedding, GNNNet, SuperviseModel, UnsuperviseModel
+from euler_tpu_torch.nn import (
+    AttentionPool,
+    Embedding,
+    GNNNet,
+    Pooling,
+    Set2SetPool,
+    SuperviseModel,
+    UnsuperviseModel,
+)
 from euler_tpu_torch.serving import (
     InferenceRuntime,
     MicroBatcher,
@@ -135,6 +170,23 @@ PAIRS = [
     (SGCNConv, JaxSGCNConv),
     (TAGConv, JaxTAGConv),
     (ARMAConv, JaxARMAConv),
+    (GINConv, JaxGINConv),
+    (AGNNConv, JaxAGNNConv),
+    (DNAConv, JaxDNAConv),
+    (GatedGraphConv, JaxGatedGraphConv),
+    (GeniePathConv, JaxGeniePathConv),
+    (LGCNConv, JaxLGCNConv),
+    (Pooling, JaxPooling),
+    (AttentionPool, JaxAttentionPool),
+    (Set2SetPool, JaxSet2SetPool),
+    (GraphClassifier, JaxGraphClassifier),
+    (GraphBatch, JaxGraphBatch),
+    (WholeGraphDataFlow, JaxWholeGraphDataFlow),
+    (DeviceWholeGraphFlow, JaxDeviceWholeGraphFlow),
+    (graph_label_batches, jax_graph_label_batches),
+    (Graph.sample_graph_label, JaxGraph.sample_graph_label),
+    (Graph.get_graph_by_label, JaxGraph.get_graph_by_label),
+    (mutag_like_json, jax_mutag_like_json),
     (FullGraphFlow, JaxFullGraphFlow),
     (GNNNet, JaxGNNNet),
     (GraphSAGESupervised, JaxGraphSAGESupervised),
@@ -170,6 +222,8 @@ PAIRS = [
 ]
 # the torch modules' input width, which flax infers at init
 IN_DIM_FIRST = (SAGEConv, GCNConv, GATConv, GraphConv, APPNPConv, SGCNConv, TAGConv, ARMAConv,
+                GINConv, AGNNConv, DNAConv, GatedGraphConv, GeniePathConv, LGCNConv,
+                Pooling, AttentionPool, Set2SetPool, GraphClassifier,
                 GNNNet, GraphSAGESupervised, SuperviseModel, UnsuperviseModel,
                 GraphSAGEUnsupervised)
 # flax.linen.Module's own dataclass fields

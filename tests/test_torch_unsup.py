@@ -181,8 +181,8 @@ def test_unported_options_raise(graphs):
         DeviceUnsupSageFlow(pg, FANOUTS, BATCH, mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="item 4"):
         GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=10)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        SuperviseModel(FEAT, "agnn", DIMS, 2)
+    with pytest.raises(KeyError, match="unknown conv"):
+        SuperviseModel(FEAT, "relation", DIMS, 2)
     with pytest.raises(NotImplementedError, match="remat"):
         UnsuperviseModel(FEAT, "sage", DIMS, remat=True)
 
