@@ -265,10 +265,13 @@ Phases, each of which raises (exit code != 0) when it fails:
      buckets 1, 4 and 16, k 10: answers bitwise numpy_topk_oracle's, one
      paged_topk_score and one paged_topk_select launch a search;
  20. `run_model_cli`, `python -m euler_tpu_torch.examples.run_model` for
-     graphsage_unsup, deepwalk, line, transe, gcn, gat, agnn and gin
-     (mutag) on --synthetic data with and without --device-flow (16
-     processes at once), then evaluate (transe) and infer (deepwalk, line,
-     graphsage_unsup) on the device-flow runs (4 at once): each exits 0;
+     graphsage_unsup, deepwalk, line, transe, gcn, gat, agnn, gin (mutag)
+     and phase 26's six on --synthetic data with and without
+     --device-flow (28 processes at once), then evaluate (transe, rgcn,
+     fastgcn) and infer (deepwalk, line, graphsage_unsup, gae, dgi,
+     adaptivegcn) on the device-flow runs: each exits 0. A thread waits on
+     the processes while phases 22 and 25 (quality bands, no timing) run
+     in the script's own process; 21, 23 and 24 follow;
  21. `conv_train`, the conv zoo (GCN, GAT as run_model builds it —
      improved, one head —, GraphConv, APPNP, SGCN, TAGCN, ARMA, AGNN, DNA,
      GatedGraph, GeniePath, LGCN) through SuperviseModel on phase 5's
@@ -311,7 +314,39 @@ Phases, each of which raises (exit code != 0) when it fails:
      same draws and batches bitwise, losses within 1e-4 relative), its
      first 2 steps on the CPU from the card's draws (bitwise batches,
      losses within 1e-4), calls of 8 steps timed; the same pair under
-     adam run and its drift reported; no kernel of the port launches.
+     adam run and its drift reported; no kernel of the port launches;
+ 24. `zoo_rest_train`, the rest of the sampled zoo at full width. On
+     phase 5's paged lane (skewed_weighted_graph 200 000 nodes, bf16
+     weight plane, P = 16): GAE, VGAE and DGI at dims [128] through
+     DeviceGaeFlow / DeviceDgiFlow(fanouts [10], batch 1024, paged), adam
+     lr 0.01: 20 steps each in mode auto with exactly 4 paged_sample_hop
+     launches a GAE / VGAE step (the dst draw, then one hop of each of the
+     src, dst and neg fanouts) and 1 a DGI step, none of kernels 1 / 1b /
+     2-5; finite, falling losses; the first 3 steps in mode ref on the card
+     (bitwise batches, losses within 1e-4 relative) and 2 on the CPU from
+     the card's draws and VGAE noise (bitwise batches, losses within
+     1e-4); GAE and DGI at steps_per_call 16 (replays, the same launches,
+     losses within 1e-4 of K = 1's); calls of 8 steps timed (median step,
+     device ms, idle share, the port's kernels on the card a step). On a
+     typed graph built from phase 4's recipe (random_graph 200 000 nodes,
+     out-degree 10, 64-wide features, each edge one of 4 relation types by
+     a seeded draw; unit weights), dense layout: RGCNSupervised(dims
+     128,128, 4 bases) on DeviceRelationFlow(fanout 5, 2 hops, batch 512)
+     and LayerwiseGCN(dims 128,128) on DeviceLayerwiseFlow(batch 512,
+     layer_sizes 256,256), the same checks but K = 16, no kernel
+     launching (the typed draw, the layer scatter and the dense adjacency
+     products are plain PyTorch, as they are XLA ops in the JAX package);
+ 25. `zoo_rest_quality`, the JAX quality tests' recipes on the card from
+     the JAX test's init (seed 0): GAE AUC in (0.74, 0.92) and VGAE in
+     (0.70, 0.90) on cora_like (`examples/link_quality.py`,
+     tests/test_quality.py:909-947), FastGCN F1 in (0.74, 0.88) and
+     AdaptiveGCN in (0.74, 0.88) (`examples/conv_quality.py`, :817-862);
+     no kernel of the port launches;
+ 26. the run_model CLI of gae, vgae, dgi, rgcn, fastgcn and adaptivegcn
+     with and without --device-flow, then evaluate (rgcn, fastgcn) and
+     infer (gae, dgi, adaptivegcn): each exits 0. Its processes run
+     among phase 20's, all started together (one wave of 28 trainings
+     instead of two).
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
@@ -339,6 +374,7 @@ The line before the last is the `kernels` JSON line; the last line is
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import itertools
 import json
 import math
@@ -493,7 +529,8 @@ N2V_P, N2V_Q = 0.5, 2.0
 KG_ENT, KG_REL, KG_TRIPLES, KG_SEED = 14_951, 1_345, 483_142, 5
 KG_DIM, KG_BATCH, KG_NEGS, KG_STEPS, KG_CPU_STEPS = 100, 512, 8, 20, 2
 KGR_QUERIES, KGR_K, KGR_BUCKETS = 16, 10, (1, 4, 16)
-CLI_RM_MODELS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat", "agnn", "gin")
+CLI_RM_MODELS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat", "agnn", "gin",
+                 "gae", "vgae", "dgi", "rgcn", "fastgcn", "adaptivegcn")
 CLI_RM_STEPS = 20
 # the dataset each CLI model trains on (cora otherwise)
 CLI_RM_DATASETS = {"transe": "fb15k", "gin": "mutag"}
@@ -521,6 +558,20 @@ GAT_KEEP = 0.9
 # graph classification (phase 23): GIN + add through DeviceWholeGraphFlow
 # on the mutag stand-in, the quality recipe's batch and padding
 GCLF_BATCH, GCLF_STEPS, GCLF_K, GCLF_CALLS = 16, 20, 8, 5
+# the rest of the sampled zoo (phases 24-26): GAE / VGAE / DGI on phase 5's
+# paged lane, RGCN and LayerwiseGCN on a typed copy of phase 4's graph
+ZOO_FANOUTS, ZOO_BATCH, ZOO_DIMS, ZOO_STEPS, ZOO_K, ZOO_CALLS = [10], 1024, [128], 20, 8, 5
+TYPED_TYPES, TYPED_SEED = 4, 7
+REL_BATCH, REL_FANOUT, REL_HOPS, REL_BASES = 512, 5, 2, 4
+LW_BATCH, LW_SIZES, TYPED_DIMS = 512, [256, 256], [128, 128]
+# launches a step: a GAE step draws dst once (a k = 1 hop) and one hop of
+# each of its three fanouts; DGI draws its one fanout once (the corrupted
+# batch permutes the same rows); the typed and layer-wise draws are plain
+# PyTorch on the dense planes
+ZOO_PER_STEP = {"gae": {HOP_KERNEL: 1 + 3 * len(ZOO_FANOUTS)},
+                "vgae": {HOP_KERNEL: 1 + 3 * len(ZOO_FANOUTS)},
+                "dgi": {HOP_KERNEL: len(ZOO_FANOUTS)}, "rgcn": {}, "fastgcn": {}}
+ZOO_GROUPED = ("gae", "dgi")
 
 
 def _card_line() -> str:
@@ -4557,27 +4608,30 @@ def kg_retrieve(torch, trained: dict, card: str) -> dict:
     return {"launches": launches, "result": res}
 
 
+# the evaluate and infer runs of phase 20, each on its model's device-flow run
+CLI_RM_LATER = (("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer"),
+                ("graphsage_unsup", "infer"), ("rgcn", "evaluate"), ("fastgcn", "evaluate"),
+                ("gae", "infer"), ("dgi", "infer"), ("adaptivegcn", "infer"))
+
+
 def run_model_cli(torch, tmp: str, card: str) -> dict:
-    """Phase 20: `python -m euler_tpu_torch.examples.run_model` as
-    processes, on the card, on --synthetic data (cora for
-    graphsage_unsup / deepwalk / line / gcn / gat / agnn, fb15k for
-    transe, mutag for gin, converted once beforehand): train with and
-    without --device-flow (16 processes at once), then --mode evaluate
-    (transe) and infer (deepwalk, line, graphsage_unsup) on the device-flow
-    runs' dirs (4 at once): every one exits 0 with its result line."""
+    """Phases 20 and 26 (the six families of the rest of the zoo): `python -m
+    euler_tpu_torch.examples.run_model` as processes, on the card, on
+    --synthetic data (cora, fb15k for transe, mutag for gin, converted
+    once beforehand): each of CLI_RM_MODELS trained with and without
+    --device-flow (all at once), then the CLI_RM_LATER (model, mode) runs —
+    evaluate transe, rgcn and fastgcn, infer deepwalk, line,
+    graphsage_unsup, gae, dgi and adaptivegcn — on the device-flow runs'
+    dirs, each as soon as its training ends: every one exits 0 with its
+    result line. Returns the phase's line for the caller to emit: the
+    script runs it in a thread beside the quality phases (it only waits
+    on its processes), and one thread prints."""
     from euler_tpu_torch.datasets import get_dataset
 
-    env = dict(os.environ, EULER_TPU_DATA=os.path.join(tmp, "cli_data"))
-    prev = os.environ.get("EULER_TPU_DATA")
-    os.environ["EULER_TPU_DATA"] = env["EULER_TPU_DATA"]
-    try:
-        for name in ("cora", "fb15k", "mutag"):
-            get_dataset(name).load_graph(synthetic=True)
-    finally:
-        if prev is None:
-            os.environ.pop("EULER_TPU_DATA", None)
-        else:
-            os.environ["EULER_TPU_DATA"] = prev
+    data = os.path.join(tmp, "cli_data")
+    env = dict(os.environ, EULER_TPU_DATA=data)
+    for name in ("cora", "fb15k", "mutag"):
+        get_dataset(name, root=os.path.join(data, name)).load_graph(synthetic=True)
 
     def cmd(model, flow, mode):
         return [sys.executable, "-m", "euler_tpu_torch.examples.run_model", "--model", model,
@@ -4605,9 +4659,7 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
         return out
 
     t0 = time.perf_counter()
-    later_jobs = [(m, "device", mode) for m, mode in (
-        ("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer"),
-        ("graphsage_unsup", "infer"))]
+    later_jobs = [(m, "device", mode) for m, mode in CLI_RM_LATER]
     # the trainings the evaluate and infer runs read first, the others
     # meanwhile; the evaluate and infer runs as soon as theirs are done
     first = [(m, f, "train") for m, f, _ in later_jobs]
@@ -4616,7 +4668,7 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
     try:
         pending = start(rest)
         trained = finish(start(first))
-        later = finish(start(later_jobs))
+        later_out = finish(start(later_jobs))
         trained.update(finish(pending))
     finally:
         for p in started:
@@ -4625,10 +4677,8 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
                 p.communicate()
     if not all("trained" in v for v in trained.values()):
         raise AssertionError(f"run_model train runs: {trained}")
-    res = {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
-           "evaluate_infer": later, "seconds": time.perf_counter() - t0}
-    _emit(res)
-    return res
+    return {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
+            "evaluate_infer": later_out, "seconds": time.perf_counter() - t0}
 
 
 def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
@@ -4645,7 +4695,7 @@ def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
     = 1's); calls of CONV_K steps timed at K = 1 (and K = 16)."""
     from euler_tpu_torch.dataflow import DeviceSageFlow
     from euler_tpu_torch.datasets import skewed_weighted_graph
-    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+    from euler_tpu_torch.estimator import DeviceFeatureCache
     from euler_tpu_torch.nn import SuperviseModel
 
     t0 = time.perf_counter()
@@ -4670,72 +4720,17 @@ def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
         raise AssertionError("the conv lane did not stage a packed weight plane")
     setup_s = time.perf_counter() - t0
 
-    def estimator(conv: str, f, fc, device: str, name: str, k: int = 1):
-        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"conv_{name}"), learning_rate=0.01,
-                              optimizer="adam", log_steps=10**9, seed=seed, steps_per_call=k)
-        model = SuperviseModel(TRAIN_FEAT, conv, TRAIN_DIMS, 2, conv_kwargs=CONV_KWARGS.get(conv))
-        return Estimator(model, f, cfg, feature_cache=fc, device=device)
-
+    flows, caches = {"cuda": flow, "cpu": flow_cpu}, {"cuda": cache, "cpu": cache_cpu}
     convs = {}
     for conv in CONV_NAMES:
-        t = time.perf_counter()
-        per_step = CONV_PER_STEP.get(conv, {HOP_KERNEL: 2})
-        want = {k: n * TRAIN_STEPS for k, n in per_step.items()}
-        # (a) the main path, mode auto
-        est = estimator(conv, flow, cache, "cuda", conv)
-        tap = _Tap(flow, REF_STEPS)
-        losses, launches, _ = _run_counted(torch, est, TRAIN_STEPS)
-        tap.close()
-        _expect_launches(launches, want, f"{conv} on the paged device lane")
-        if not np.isfinite(losses).all():
-            raise AssertionError(f"{conv} losses not finite: {losses}")
-        # (b) mode ref on the card: the plain versions, the same batches
-        tap_ref = _Tap(flow, REF_STEPS)
-        losses_ref, launches_ref, _ = _run_counted(
-            torch, estimator(conv, flow, cache, "cuda", f"{conv}_ref"), REF_STEPS, "ref")
-        tap_ref.close()
-        if any(launches_ref.values()):
-            raise AssertionError(f"{conv}: mode ref launched kernels: {launches_ref}")
-        same_ref = _same_nests(torch, tap_ref.batches, tap.batches, f"{conv} auto vs ref")
-        err_ref = _assert_close(losses_ref, losses[:REF_STEPS], f"{conv} auto vs ref")
-        # (c) the port on the CPU, from the card's draws
-        draws = iter([_to_cpu(torch, d) for d in tap.draws[:CPU_STEPS]])
-        flow_cpu.draw_inputs = lambda gen: next(draws)
-        tap_cpu = _Tap(flow_cpu, CPU_STEPS)
-        try:
-            losses_cpu = estimator(conv, flow_cpu, cache_cpu, "cpu", f"{conv}_cpu").train(
-                CPU_STEPS, log=False, save=False)
-        finally:
-            tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
-        same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:CPU_STEPS],
-                               f"{conv} card vs CPU")
-        err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], f"{conv} card vs CPU")
-        row = {"losses": losses, "launches": launches, "launches_per_step": per_step,
-               "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref,
-                               "max_rel_err": err_ref},
-               "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu,
-                               "max_rel_err": err_cpu},
-               "params": sum(p.numel() for p in est.model.parameters()),
-               "timing_k1": _call_window(torch, est, CONV_K, CONV_CALLS, card,
-                                         f"{conv} K = 1", per_step)}
-        # (d) K = 16: the captured step replayed
-        if conv in CONV_GROUPED:
-            est16 = estimator(conv, flow, cache, "cuda", f"{conv}_k16", k=GROUP_K)
-            losses16, launches16, _ = _run_counted(torch, est16, TRAIN_STEPS)
-            _expect_launches(launches16, want, f"{conv} on the paged device lane at K = {GROUP_K}")
-            replays = _replay_launches(est16, launches16,
-                                       {k: n * est16.captures for k, n in per_step.items()})
-            row["k16"] = {"losses": losses16, "launches": launches16, "captures": est16.captures,
-                          "max_rel_err": _assert_close(losses16, losses,
-                                                       f"{conv} K = {GROUP_K} vs K = 1"),
-                          **replays}
-            row[f"timing_k{GROUP_K}"] = _call_window(torch, est16, CONV_K, CONV_CALLS, card,
-                                                     f"{conv} K = {GROUP_K}", per_step)
-            del est16
-        row["seconds"] = time.perf_counter() - t
-        convs[conv] = row
-        del est
-        torch.cuda.empty_cache()
+        def model(conv=conv):
+            return SuperviseModel(TRAIN_FEAT, conv, TRAIN_DIMS, 2,
+                                  conv_kwargs=CONV_KWARGS.get(conv))
+
+        convs[conv] = _model_checks(
+            torch, conv, model, flows, caches, CONV_PER_STEP.get(conv, {HOP_KERNEL: 2}),
+            conv in CONV_GROUPED, TRAIN_STEPS, CONV_K, CONV_CALLS, tmp, seed, card,
+            f"conv_{conv}", falling=False)
     res = {"phase": "conv_train", "card": card, "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
            "fanouts": TRAIN_FANOUTS, "dims": TRAIN_DIMS, "layout": "paged",
            "page_size": PAGE_SIZE, "steps": TRAIN_STEPS, "conv_kwargs": CONV_KWARGS,
@@ -4871,6 +4866,251 @@ def graph_clf(torch, tmp: str, seed: int, card: str) -> dict:
     return {"launches": {name: quality_launches.get(name, 0) + launches.get(name, 0)
                          + launches16.get(name, 0) for name in launches},
             "result": res}
+
+
+# ---- phases 24-26: the rest of the sampled zoo ------------------------------
+
+
+def typed_graph(seed: int):
+    """Phase 4's random_graph recipe (NUM_NODES nodes, out-degree
+    OUT_DEGREE, FEAT_DIM-wide features, unit weights) with each edge given
+    one of TYPED_TYPES relation types by a seeded draw: one out-adjacency
+    a type, each node's edges of a type in their edge order."""
+    from euler_tpu_torch.datasets.synthetic import shard_arrays, synthetic_meta
+    from euler_tpu_torch.graph.store import Graph, GraphStore
+
+    rng = np.random.default_rng(seed)
+    meta = synthetic_meta(FEAT_DIM, LABEL_DIM, 1)
+    meta.num_edge_types = TYPED_TYPES
+    centers = rng.normal(0.0, 4.0, (LABEL_DIM, FEAT_DIM))
+    a = shard_arrays(0, NUM_NODES, OUT_DEGREE, FEAT_DIM, LABEL_DIM, 1, rng, centers)
+    for key in [k for k in a if k.startswith(("adj_0_", "inadj_0_"))]:
+        del a[key]
+    etype = rng.integers(0, TYPED_TYPES, len(a["edge_dst"])).astype(np.int32)
+    a["edge_types"] = etype
+    src_row = np.repeat(np.arange(NUM_NODES), OUT_DEGREE)
+    for t in range(TYPED_TYPES):
+        sel = np.nonzero(etype == t)[0]  # in (src row, edge) order
+        counts = np.bincount(src_row[sel], minlength=NUM_NODES)
+        a[f"adj_{t}_indptr"] = np.r_[0, np.cumsum(counts)].astype(np.int64)
+        a[f"adj_{t}_dst"] = a["edge_dst"][sel]
+        a[f"adj_{t}_w"] = a["edge_weights"][sel]
+        a[f"adj_{t}_eidx"] = sel.astype(np.int64)
+    meta.node_weight_sums.append([float(NUM_NODES)])
+    meta.edge_weight_sums.append([float(np.sum(etype == t)) for t in range(TYPED_TYPES)])
+    return Graph(meta, [GraphStore(meta, a, part=0)])
+
+
+class _NoiseTap:
+    """Keeps copies of the first `n` draws of a model's own random
+    streams (`draw_rngs`, VGAE's noise); `close` drops the wrapper."""
+
+    def __init__(self, model, n: int):
+        self.model, self.draws = model, []
+        draw = getattr(model, "draw_rngs", None)
+        if draw is None:
+            return
+
+        def tap(*a):
+            out = draw(*a)
+            if len(self.draws) < n:
+                self.draws.append({k: v.clone() for k, v in out.items()})
+            return out
+
+        model.draw_rngs = tap
+
+    def close(self):
+        self.model.__dict__.pop("draw_rngs", None)
+
+
+def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_step: dict,
+                  grouped: bool, steps: int, k: int, calls: int, tmp: str, seed: int, card: str,
+                  tag: str, falling: bool = True) -> dict:
+    """One model on its device flow (phases 21 and 24): `steps` steps in
+    mode auto with exactly `per_step` launches a step and finite losses
+    (falling: the mean of the last 5 below the first 5's), mode ref on
+    the card for REF_STEPS (bitwise batches, losses within 1e-4),
+    CPU_STEPS on the CPU from the card's draws and model noise (bitwise
+    batches, losses within 1e-4), K = 16 when `grouped` (replays, the
+    same launches, losses within 1e-4 of K = 1's), then calls of k steps
+    timed. `flows` and `caches` by device ("cuda", "cpu")."""
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+
+    def estimator(device: str, run: str, kk: int = 1):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"{tag}_{run}"),
+                              learning_rate=0.01, optimizer="adam", log_steps=10**9, seed=seed,
+                              steps_per_call=kk)
+        return Estimator(make_model(), flows[device], cfg, feature_cache=caches[device],
+                         device=device)
+
+    t = time.perf_counter()
+    want = {kernel: n * steps for kernel, n in per_step.items()}
+    flow = flows["cuda"]
+    # (a) the main path, mode auto
+    est = estimator("cuda", "main")
+    tap, noise = _Tap(flow, REF_STEPS), _NoiseTap(est.model, REF_STEPS)
+    losses, launches, main_s = _run_counted(torch, est, steps)
+    tap.close()
+    noise.close()
+    _expect_launches(launches, want, f"{name} on its device flow")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"{name} losses not finite: {losses}")
+    if falling and not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"{name} losses not falling: {losses}")
+    # (b) mode ref on the card: the plain versions, the same batches
+    tap_ref = _Tap(flow, REF_STEPS)
+    losses_ref, launches_ref, _ = _run_counted(torch, estimator("cuda", "ref"), REF_STEPS, "ref")
+    tap_ref.close()
+    if any(launches_ref.values()):
+        raise AssertionError(f"{name}: mode ref launched kernels: {launches_ref}")
+    same_ref = _same_nests(torch, tap_ref.batches, tap.batches, f"{name} auto vs ref")
+    err_ref = _assert_close(losses_ref, losses[:REF_STEPS], f"{name} auto vs ref")
+    # (c) the port on the CPU, from the card's draws (and its noise)
+    cpu_flow = flows["cpu"]
+    draws = iter([_to_cpu(torch, d) for d in tap.draws[:CPU_STEPS]])
+    cpu_flow.draw_inputs = lambda gen: next(draws)
+    cpu_est = estimator("cpu", "cpu")
+    if noise.draws:
+        noise_cpu = iter([_to_cpu(torch, d) for d in noise.draws[:CPU_STEPS]])
+        cpu_est.model.draw_rngs = lambda gen, rows, device: next(noise_cpu)
+    tap_cpu = _Tap(cpu_flow, CPU_STEPS)
+    try:
+        losses_cpu = cpu_est.train(CPU_STEPS, log=False, save=False)
+    finally:
+        tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
+    same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:CPU_STEPS], f"{name} card vs CPU")
+    err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], f"{name} card vs CPU")
+    row = {"losses": losses, "launches": launches, "launches_per_step": per_step,
+           "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref, "max_rel_err": err_ref},
+           "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu, "max_rel_err": err_cpu},
+           "params": sum(p.numel() for p in est.model.parameters()), "main_run_s": main_s,
+           "timing_k1": _call_window(torch, est, k, calls, card, f"{name} K = 1", per_step)}
+    # (d) K = 16: the captured step replayed
+    if grouped:
+        est16 = estimator("cuda", "k16", kk=GROUP_K)
+        losses16, launches16, _ = _run_counted(torch, est16, steps)
+        _expect_launches(launches16, want, f"{name} at K = {GROUP_K}")
+        replays = _replay_launches(est16, launches16,
+                                   {kernel: n * est16.captures for kernel, n in per_step.items()})
+        row["k16"] = {"losses": losses16, "launches": launches16, "captures": est16.captures,
+                      "max_rel_err": _assert_close(losses16, losses,
+                                                   f"{name} K = {GROUP_K} vs K = 1"),
+                      **replays}
+        row[f"timing_k{GROUP_K}"] = _call_window(torch, est16, k, calls, card,
+                                                 f"{name} K = {GROUP_K}", per_step)
+        del est16
+    row["seconds"] = time.perf_counter() - t
+    del est
+    torch.cuda.empty_cache()
+    return row
+
+
+def zoo_rest_train(torch, tmp: str, seed: int, card: str) -> dict:
+    """Phase 24: GAE, VGAE and DGI on phase 5's paged lane; RGCN and
+    LayerwiseGCN (FastGCN's model) on the typed graph, dense layout (see
+    the module docstring)."""
+    from euler_tpu_torch.dataflow import (DeviceDgiFlow, DeviceGaeFlow, DeviceLayerwiseFlow,
+                                          DeviceRelationFlow)
+    from euler_tpu_torch.datasets import skewed_weighted_graph
+    from euler_tpu_torch.estimator import DeviceFeatureCache
+    from euler_tpu_torch.models import DGI, GAE, LayerwiseGCN, RGCNSupervised
+
+    t0 = time.perf_counter()
+    g = skewed_weighted_graph(TRAIN_NODES, TRAIN_GRAPH_SEED)
+    prev_dtype = os.environ.get("EULER_TPU_PAGE_DTYPE")
+    os.environ["EULER_TPU_PAGE_DTYPE"] = "bf16"
+    try:
+        paged = {}
+        for kind, cls in (("gae", DeviceGaeFlow), ("dgi", DeviceDgiFlow)):
+            paged[kind] = {dev: cls(g, ZOO_FANOUTS, ZOO_BATCH, layout="paged",
+                                    page_size=PAGE_SIZE, device=dev) for dev in ("cuda", "cpu")}
+        caches = {dev: DeviceFeatureCache(g, ["feat"], device=dev) for dev in ("cuda", "cpu")}
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev_dtype
+    if not paged["gae"]["cuda"]._page_w_packed:
+        raise AssertionError("the GAE lane did not stage a packed weight plane")
+    paged_s = time.perf_counter() - t0
+    models = {}
+
+    def checks(name, make, flows, caches):
+        models[name] = _model_checks(torch, name, make, flows, caches, ZOO_PER_STEP[name],
+                                     name in ZOO_GROUPED, ZOO_STEPS, ZOO_K, ZOO_CALLS, tmp, seed,
+                                     card, f"zoo_{name}")
+    for name, make in (("gae", lambda: GAE(TRAIN_FEAT, ZOO_DIMS)),
+                       ("vgae", lambda: GAE(TRAIN_FEAT, ZOO_DIMS, variational=True)),
+                       ("dgi", lambda: DGI(TRAIN_FEAT, ZOO_DIMS))):
+        checks(name, make, paged["dgi" if name == "dgi" else "gae"], caches)
+    del paged, caches, g
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    tg = typed_graph(TYPED_SEED)
+    typed = {
+        "rgcn": {dev: DeviceRelationFlow(tg, ["feat"], TYPED_TYPES, REL_BATCH, REL_FANOUT,
+                                         REL_HOPS, label_feature="label", device=dev)
+                 for dev in ("cuda", "cpu")},
+        "fastgcn": {dev: DeviceLayerwiseFlow(tg, ["feat"], LW_BATCH, LW_SIZES,
+                                             label_feature="label", device=dev)
+                    for dev in ("cuda", "cpu")},
+    }
+    typed_s = time.perf_counter() - t1
+    no_cache = {"cuda": None, "cpu": None}
+    for name, make in (
+        ("rgcn", lambda: RGCNSupervised(FEAT_DIM, TYPED_DIMS, TYPED_TYPES, LABEL_DIM,
+                                        num_bases=REL_BASES)),
+        ("fastgcn", lambda: LayerwiseGCN(FEAT_DIM, TYPED_DIMS, LABEL_DIM)),
+    ):
+        checks(name, make, typed[name], no_cache)
+    del typed, tg
+    torch.cuda.empty_cache()
+    res = {"phase": "zoo_rest_train", "card": card,
+           "paged_cell": {"nodes": TRAIN_NODES, "batch": ZOO_BATCH, "fanouts": ZOO_FANOUTS,
+                          "dims": ZOO_DIMS, "layout": "paged", "page_size": PAGE_SIZE,
+                          "setup_s": paged_s},
+           "typed_cell": {"nodes": NUM_NODES, "out_degree": OUT_DEGREE, "feat_dim": FEAT_DIM,
+                          "relations": TYPED_TYPES, "layout": "dense", "dims": TYPED_DIMS,
+                          "rgcn": {"batch": REL_BATCH, "fanout": REL_FANOUT, "hops": REL_HOPS,
+                                   "bases": REL_BASES},
+                          "layerwise": {"batch": LW_BATCH, "layer_sizes": LW_SIZES},
+                          "setup_s": typed_s},
+           "steps": ZOO_STEPS, "models": models, "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"launches": {n: r["launches"] for n, r in models.items()},
+            "launches_k16": {n: models[n]["k16"]["launches"] for n in ZOO_GROUPED},
+            "result": res}
+
+
+def zoo_rest_quality(torch, card: str) -> dict:
+    """Phase 25: GAE / VGAE AUC (`examples/link_quality.py`) and FastGCN /
+    AdaptiveGCN F1 (`examples/conv_quality.py`) on the card from the JAX
+    tests' init, each in its band; no kernel of the port launches."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.examples.conv_quality import (LAYERWISE_RECIPES, cora_like,
+                                                       layerwise_quality)
+    from euler_tpu_torch.examples.link_quality import gae_quality
+
+    t0 = time.perf_counter()
+    data = cora_like()
+    ops.reset_launch_counts()
+    recipes = {}
+    for name in ("gae", "vgae"):
+        t = time.perf_counter()
+        recipes[name] = {**gae_quality(name, "cuda", data[0]), "seconds": time.perf_counter() - t}
+    for name in LAYERWISE_RECIPES:
+        t = time.perf_counter()
+        recipes[name] = {**layerwise_quality(name, "cuda", data),
+                         "seconds": time.perf_counter() - t}
+    launches = ops.launch_counts()
+    res = {"phase": "zoo_rest_quality", "card": card, "recipes": recipes, "launches": launches,
+           "seconds": time.perf_counter() - t0}
+    _emit(res)
+    out = {name: r.get("auc", r.get("f1")) for name, r in recipes.items() if not r["in_band"]}
+    if out:
+        raise AssertionError(f"zoo quality out of its band: {out}")
+    _expect_launches(launches, {}, "the zoo's quality recipes")
+    return res
 
 
 def check_gat_dx(torch, gen) -> dict:
@@ -5011,9 +5251,9 @@ def main(argv=None) -> int:
         served_paths = {"serve_tcp": tcp["result"], "serve_parity": tcp_parity,
                         "serve_fleet": fleet}
 
-        # 16-20. the link-prediction and shallow-embedding families: the
+        # 16-19. the link-prediction and shallow-embedding families: the
         # unsupervised GraphSAGE lane, the skip-gram family on phase 4's
-        # graph, the TransX family, its table served, the run_model CLI
+        # graph, the TransX family, its table served
         unsup = unsup_train(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
         skipgram_train(torch, served.pop("graph"), tmp, args.seed, card)
@@ -5022,15 +5262,26 @@ def main(argv=None) -> int:
         kg_search = kg_retrieve(torch, kg, card)
         del kg
         torch.cuda.empty_cache()
-        run_model_cli(torch, tmp, card)
 
-        # 21-23. the conv zoo: each conv on the paged device lane, then the
-        # JAX quality tests' conv recipes on the card; graph classification
+        # 20 and 26. the run_model CLI of every family as processes, waited
+        # on by a thread while 22 and 25, the JAX quality tests' conv and
+        # zoo recipes, run here (no timing is taken while they overlap)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            cli_runs = pool.submit(run_model_cli, torch, tmp, card)
+            conv_quality_bands(torch, card)
+            torch.cuda.empty_cache()
+            zoo_rest_quality(torch, card)
+            torch.cuda.empty_cache()
+            _emit(cli_runs.result())
+
+        # 21, 23, 24. the conv zoo on the paged device lane; graph
+        # classification; the rest of the sampled zoo (GAE / VGAE / DGI on
+        # the paged lane, RGCN and LayerwiseGCN on a typed graph)
         convs = conv_train(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
-        conv_quality_bands(torch, card)
-        torch.cuda.empty_cache()
         gclf = graph_clf(torch, tmp, args.seed, card)
+        torch.cuda.empty_cache()
+        zoo = zoo_rest_train(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
@@ -5095,7 +5346,8 @@ def main(argv=None) -> int:
         **{f"conv_train_{c}": n["gather_weighted_sum"] for c, n in convs["launches"].items()},
         **{f"conv_train_{c}_k16": n["gather_weighted_sum"]
            for c, n in convs["launches_k16"].items()},
-        "graph_clf": gclf["launches"]["gather_weighted_sum"]}
+        "graph_clf": gclf["launches"]["gather_weighted_sum"],
+        **{f"zoo_rest_{m}": n["gather_weighted_sum"] for m, n in zoo["launches"].items()}}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -5110,7 +5362,9 @@ def main(argv=None) -> int:
                            for c, n in convs["launches"].items()},
                         **{f"conv_train_{c}_k16": n["gather_weighted_sum_dx"]
                            for c, n in convs["launches_k16"].items()},
-                        "graph_clf": gclf["launches"]["gather_weighted_sum_dx"]}
+                        "graph_clf": gclf["launches"]["gather_weighted_sum_dx"],
+                        **{f"zoo_rest_{m}": n["gather_weighted_sum_dx"]
+                           for m, n in zoo["launches"].items()}}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -5195,7 +5449,9 @@ def main(argv=None) -> int:
                      + unsup["launches"][HOP_KERNEL] + unsup["launches_k16"][HOP_KERNEL]
                      + sum(n[HOP_KERNEL] for n in convs["launches"].values())
                      + sum(n[HOP_KERNEL] for n in convs["launches_k16"].values())
-                     + gclf["launches"][HOP_KERNEL]),
+                     + gclf["launches"][HOP_KERNEL]
+                     + sum(n[HOP_KERNEL] for n in zoo["launches"].values())
+                     + sum(n[HOP_KERNEL] for n in zoo["launches_k16"].values())),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
                              "train_grouped": grouped["launches"][HOP_KERNEL],
                              "unsup_train": unsup["launches"][HOP_KERNEL],
@@ -5204,7 +5460,11 @@ def main(argv=None) -> int:
                                 for c, n in convs["launches"].items()},
                              **{f"conv_train_{c}_k16": n[HOP_KERNEL]
                                 for c, n in convs["launches_k16"].items()},
-                             "graph_clf": gclf["launches"][HOP_KERNEL]},
+                             "graph_clf": gclf["launches"][HOP_KERNEL],
+                             **{f"zoo_rest_{m}": n[HOP_KERNEL]
+                                for m, n in zoo["launches"].items()},
+                             **{f"zoo_rest_{m}_k16": n[HOP_KERNEL]
+                                for m, n in zoo["launches_k16"].items()}},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],
@@ -5236,11 +5496,13 @@ def main(argv=None) -> int:
             "replaces": f"euler_tpu/ops/pallas_kernels.py:{line}",
             "launches": (train_launches[name] + unsup["launches"][name]
                          + sum(n[name] for n in convs["launches"].values())
-                         + gclf["launches"][name]),
+                         + gclf["launches"][name]
+                         + sum(n[name] for n in zoo["launches"].values())),
             "launches_by_path": {"train": train_launches[name],
                                  "unsup_train": unsup["launches"][name],
                                  "conv_train": sum(n[name] for n in convs["launches"].values()),
-                                 "graph_clf": gclf["launches"][name]},
+                                 "graph_clf": gclf["launches"][name],
+                                 "zoo_rest": sum(n[name] for n in zoo["launches"].values())},
             "max_abs_err": paged_check["max_abs_err"],
             "check": "bitwise",
             "ms": total(rows, "ms"),

@@ -85,6 +85,17 @@ def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor | None:
     return t.to(device)
 
 
+def _put_nest(x, put):
+    """`put` over the arrays and tensors of a nest of tuples and
+    dataclasses (a Block's ints and None leaves kept)."""
+    if isinstance(x, tuple):
+        return tuple(_put_nest(v, put) for v in x)
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(
+            x, **{f.name: _put_nest(getattr(x, f.name), put) for f in dataclasses.fields(x)})
+    return put(x) if isinstance(x, (np.ndarray, torch.Tensor)) else x
+
+
 def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     """The batch with every array as a tensor on `device` (the port's
     counterpart of the JAX `Estimator._put` + `hydrate_blocks`); arrays
@@ -96,7 +107,9 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     each host array in page-locked memory and copies it without
     blocking: the caller must order its use after the current
     stream's copies (the Prefetcher records an event). A lean batch's
-    missing leaves stay None, and its bf16 edge weights stay bf16."""
+    missing leaves stay None, and its bf16 edge weights stay bf16. The
+    layer-wise and relation batches (`LayerwiseBatch`, `RelMiniBatch`)
+    move the same way: every array but their host hop_ids."""
     device = torch.device(device)
     moved = {}  # one copy of an array the batch holds more than once
 
@@ -106,6 +119,11 @@ def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
         if id(a) not in moved:
             moved[id(a)] = (a, _tensor(a, device, pinned))
         return moved[id(a)][1]
+
+    if not isinstance(batch, MiniBatch):
+        return dataclasses.replace(batch, **{
+            f.name: _put_nest(getattr(batch, f.name), put)
+            for f in dataclasses.fields(batch) if f.name != "hop_ids"})
 
     blocks = tuple(
         dataclasses.replace(

@@ -5,8 +5,11 @@ on the card and every training step draws its batch there
 (src, pos, negs) triple (`DeviceUnsupSageFlow`), DeepWalk / node2vec
 walks and skip-gram pairs (`DeviceWalkFlow`), LINE's edges
 (`DeviceEdgeFlow`), the TransX family's corrupted triples
-(`DeviceKGFlow`) and graph classification's whole graphs
-(`DeviceWholeGraphFlow`).
+(`DeviceKGFlow`), graph classification's whole graphs
+(`DeviceWholeGraphFlow`), RGCN's per-relation fanouts
+(`DeviceRelationFlow`, dense layout), the LADIES layers of FastGCN /
+AdaptiveGCN (`DeviceLayerwiseFlow`, dense layout), and the GAE / VGAE
+and DGI batches (`DeviceGaeFlow`, `DeviceDgiFlow`).
 
 Staging (once, on the host, numpy) is the JAX package's, step for step,
 so both packages stage the same integers: the compacted neighbour rows
@@ -42,10 +45,12 @@ tests/test_torch_skipgram.py, tests/test_torch_kg.py).
 
 Not ported yet: `refresh_rows` (ROADMAP queue 1 item 8), `mesh` (item
 6), `with_hop_ids` (item 2), remote-shard staging (item 8), and the
-typed, layerwise and frontier flows (items 3-5).
+frontier flows of ScalableGNN (item 4).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -110,9 +115,10 @@ def _segment_arange(counts: np.ndarray) -> np.ndarray:
 
 def _compact_block(graph, sub, edge_types, cap: int):
     """One staging sweep step: the neighbours of `sub` in row+1 space,
-    valid entries compacted to the front, their f32 weights, degrees
-    (0 for zero-strength rows) and whether every weight is 1."""
-    nbr, w, _, mask, _ = graph.get_full_neighbor(sub, edge_types, max_degree=cap)
+    valid entries compacted to the front, their f32 weights and edge
+    types (-1 on padding), degrees (0 for zero-strength rows), the rows'
+    f64 out-strengths and whether every weight is 1."""
+    nbr, w, tt, mask, _ = graph.get_full_neighbor(sub, edge_types, max_degree=cap)
     unit = bool(np.all(w[mask] == 1.0))
     rows = graph.lookup_rows(nbr.ravel()).reshape(nbr.shape)
     # masked or unknown neighbours collapse to padding
@@ -120,10 +126,12 @@ def _compact_block(graph, sub, edge_types, cap: int):
     order = np.argsort(blk0 == 0, axis=1, kind="stable")
     block = np.take_along_axis(blk0, order, axis=1)
     wblk = np.take_along_axis(np.where(blk0 > 0, w, 0.0).astype(np.float32), order, axis=1)
+    tblk = np.take_along_axis(np.where(blk0 > 0, tt, -1).astype(np.int32), order, axis=1)
     d = (block > 0).sum(axis=1).astype(np.int32)
     # a positive-degree row whose weights are all zero is unsampleable
-    d[wblk.sum(axis=1, dtype=np.float64) <= 0.0] = 0
-    return block, wblk, d, unit
+    strength = wblk.sum(axis=1, dtype=np.float64)
+    d[strength <= 0.0] = 0
+    return block, wblk, tblk, d, strength, unit
 
 
 class DeviceGraphTables:
@@ -141,6 +149,7 @@ class DeviceGraphTables:
         max_degree: int = 512,
         roots_pool: np.ndarray | None = None,
         root_node_type: int = -1,
+        stage_types: bool = False,
         layout: str = "auto",
         page_size: int = 16,
         device=None,
@@ -149,12 +158,14 @@ class DeviceGraphTables:
         roots of one node type (ignored with a pool); default every node.
         Root draws are proportional to node weights either way.
         max_degree guards the dense table's width: a graph past it raises
-        under layout="dense" and stages paged under "auto". page_size
-        must divide 128. The tables go to the CUDA card unless
-        device="cpu"."""
+        under layout="dense" and stages paged under "auto". stage_types
+        also stages the edge-type plane `ttab` (dense layout only, as in
+        the JAX package). page_size must divide 128. The tables go to the
+        CUDA card unless device="cpu"."""
         self.device = resolve_device(device)
         ids, wn, nt = _node_table(graph)
-        self._stage_adjacency(graph, ids, edge_types, max_degree, layout, page_size)
+        self._stage_adjacency(graph, ids, edge_types, max_degree, layout, page_size,
+                              stage_types)
         self._stage_nodes(graph, ids, wn, nt, roots_pool, root_node_type)
 
     def _put(self, a: np.ndarray) -> torch.Tensor:
@@ -180,18 +191,20 @@ class DeviceGraphTables:
             degs[lo : lo + len(sub)] = graph.degree_sum(sub, edge_types)
         return degs
 
-    def _stage_adjacency(self, graph, ids, edge_types, max_degree, layout, page_size):
+    def _stage_adjacency(self, graph, ids, edge_types, max_degree, layout, page_size,
+                         stage_types: bool = False):
         if layout not in ("auto", "dense", "paged"):
             raise ValueError(f"unknown layout {layout!r}")
         degs = self._stage_degrees(graph, ids, edge_types)
         dmax = max(int(degs.max(initial=0)), 1)
+        paged_ok = self._PAGED_OK and not stage_types
         if layout == "auto":
-            layout = "paged" if (dmax > max_degree and self._PAGED_OK) else "dense"
-        if layout == "paged" and not self._PAGED_OK:
+            layout = "paged" if (dmax > max_degree and paged_ok) else "dense"
+        if layout == "paged" and not paged_ok:
             raise ValueError(
                 f"{type(self).__name__} reads the dense adjacency planes "
-                "directly (bias math) — the paged layout serves the "
-                "SAGE-family flows only"
+                "directly (bias/type/layerwise math) — the paged layout "
+                "serves the SAGE-family flows only"
             )
         if layout == "dense" and dmax > max_degree:
             raise ValueError(
@@ -209,15 +222,23 @@ class DeviceGraphTables:
         adj = np.zeros((n + 1, dmax), dtype=np.int32)
         deg = np.zeros(n + 1, dtype=np.int32)
         wtab = np.zeros((n + 1, dmax), dtype=np.float32)
+        ttab = np.full((n + 1, dmax), -1, dtype=np.int32) if stage_types else None
+        strength = np.zeros(n + 1, dtype=np.float64)
         unit_w = True
         for lo in range(0, n, _STAGE_CHUNK):
             sub = ids[lo : lo + _STAGE_CHUNK]
-            block, wblk, d, unit = _compact_block(graph, sub, edge_types, dmax)
+            block, wblk, tblk, d, st, unit = _compact_block(graph, sub, edge_types, dmax)
             unit_w = unit_w and unit
             sl = slice(1 + lo, 1 + lo + len(sub))
             adj[sl, : block.shape[1]] = block
             wtab[sl, : block.shape[1]] = wblk
+            if ttab is not None:  # each slot's edge type (the relation flow's)
+                ttab[sl, : block.shape[1]] = tblk
             deg[sl] = d
+            strength[sl] = st
+        # per-node out-strength: DeviceGaeFlow draws edge sources by it
+        self._out_strength = strength
+        self.ttab = self._put(ttab) if ttab is not None else None
         self.adj = self._put(adj)
         self.deg = self._put(deg)
         self.unit_w = unit_w
@@ -238,6 +259,7 @@ class DeviceGraphTables:
             raise ValueError(f"page_size must divide {PAGE_LANES}; got {P}")
         n = len(ids)
         deg = np.zeros(n + 1, dtype=np.int32)
+        strength = np.zeros(n + 1, dtype=np.float64)
         unit_w = True
         vals_p, w_p, q_p = [], [], []
         lo = 0
@@ -246,14 +268,17 @@ class DeviceGraphTables:
             chunk = max(256, min(_STAGE_CHUNK, _STAGE_TEMP_BYTES // (cap_hint * 8)))
             sub = ids[lo : lo + chunk]
             cap = max(int(degs[lo : lo + len(sub)].max(initial=0)), 1)
-            block, wblk, d, unit = _compact_block(graph, sub, edge_types, cap)
+            block, wblk, _, d, st, unit = _compact_block(graph, sub, edge_types, cap)
             unit_w = unit_w and unit
             deg[1 + lo : 1 + lo + len(sub)] = d
+            strength[1 + lo : 1 + lo + len(sub)] = st
             valid = np.arange(block.shape[1])[None, :] < d[:, None]
             vals_p.append(block[valid])
             w_p.append(wblk[valid])
             q_p.append(_quantize_rows(wblk, valid)[valid])
             lo += len(sub)
+        self._out_strength = strength
+        self.ttab = None
         npages = -(-deg.astype(np.int64) // P)  # ceil(deg/P); 0 for deg 0
         ps = np.zeros(n + 2, dtype=np.int64)
         ps[1:] = np.cumsum(npages)
@@ -450,6 +475,44 @@ class DeviceGraphTables:
         'off' and 'ref'."""
         return paged_sample_hop(self.hop_tables(), cur, draw, impl=paged_impl())
 
+    def _draw_neighbors_typed(self, cur: torch.Tensor, u: torch.Tensor, rel: int):
+        """[W] rows and [W, k] f32 uniforms -> the draws of relation `rel`
+        (counterpart: device.py:832-867): ([W·k] rows, [W·k] f32 weights,
+        [W·k] valid mask). The row's weights are masked to slots of type
+        `rel` and the uniforms invert their f32 cumsum — the host
+        sample_neighbor(cur, [rel], k) distribution. A type's support is
+        not contiguous, so a draw the f32 rounding puts on a zero-weight
+        slot is redirected to the row's last in-support slot. Needs
+        stage_types=True."""
+        nbr_rows = self.adj[cur]  # [W, D]
+        w = self.wtab[cur] if self.wtab is not None else (nbr_rows > 0).float()
+        w = w * (self.ttab[cur] == rel)
+        cw = torch.cumsum(w, dim=1)
+        total = cw[:, -1]
+        u = u * total[:, None]
+        idx = (cw[:, None, :] <= u[:, :, None]).sum(dim=-1).clamp_max(self.adj.shape[1] - 1)
+        wpick = torch.gather(w, 1, idx)
+        slots = torch.arange(w.shape[1], device=w.device)
+        last = torch.argmax(torch.where(w > 0, slots, -1), dim=1)
+        idx = torch.where(wpick > 0, idx, last[:, None])
+        alive = total > 0
+        nbr = torch.where(alive[:, None], torch.gather(nbr_rows, 1, idx), 0)
+        ew = torch.where(alive[:, None], torch.gather(w, 1, idx), 0.0)
+        return nbr.reshape(-1), ew.reshape(-1), (nbr > 0).reshape(-1)
+
+    def _stage_edge_src_cdf(self) -> None:
+        """The quantized CDF over the nodes' out-strengths: a source drawn
+        from it, then a neighbour from its row, is an edge drawn in
+        proportion to its weight (host sample_edge's distribution;
+        counterpart: device.py:869-876)."""
+        self.edge_src_cdf = self._quantize_cdf(self._out_strength[1:], "edge-source out-strength")
+
+    def _draw_edge_sources(self, generator, count: int) -> torch.Tensor:
+        """[count] edge-source rows (row+1 space), by out-strength."""
+        r = u32(self._bits(generator, (count,)))
+        pick = torch.searchsorted(self.edge_src_cdf, r, right=True)
+        return pick.clamp_max(self.num_nodes - 1).to(torch.int32) + 1
+
 
 class DeviceSageFlow(DeviceGraphTables):
     """Device-resident adjacency + fanout sampling → lean MiniBatch.
@@ -500,15 +563,19 @@ class DeviceSageFlow(DeviceGraphTables):
         else:
             self.label_table = None
 
-    def draw_inputs(self, generator: torch.Generator):
-        """One batch's random numbers: ([B] root rows, per hop [W_h, k_h]
-        int32 bits (weighted) or f32 uniforms (unit weights))."""
-        roots = self._draw_roots(generator, self.batch_size)
-        draws, width = [], self.batch_size
+    def _hop_draws(self, generator, width: int) -> tuple:
+        """The fanout's draws from `width` roots: per hop [W_h, k_h]."""
+        draws = []
         for k in self.fanouts:
             draws.append(self._hop_draw(generator, width, k))
             width *= k
-        return roots, tuple(draws)
+        return tuple(draws)
+
+    def draw_inputs(self, generator: torch.Generator):
+        """One batch's random numbers: ([B] root rows, per hop [W_h, k_h]
+        int32 bits (weighted) or f32 uniforms (unit weights))."""
+        return (self._draw_roots(generator, self.batch_size),
+                self._hop_draws(generator, self.batch_size))
 
     def make_batch(self, roots: torch.Tensor, hop_draws) -> MiniBatch:
         """Deterministic multi-hop fanout from [B] root rows and the hops'
@@ -582,13 +649,6 @@ class DeviceUnsupSageFlow(DeviceSageFlow):
             layout=layout, page_size=page_size, device=device,
         )
         self.num_negs = int(num_negs)
-
-    def _hop_draws(self, generator, width: int) -> tuple:
-        draws = []
-        for k in self.fanouts:
-            draws.append(self._hop_draw(generator, width, k))
-            width *= k
-        return tuple(draws)
 
     def draw_inputs(self, generator: torch.Generator):
         """(src rows [B], the pos draw [B, 1], neg rows [B*N], then the
@@ -907,3 +967,259 @@ class DeviceWholeGraphFlow(DeviceGraphTables):
 
     def sample(self, generator: torch.Generator):
         return self.make_batch(*self.draw_inputs(generator))
+
+
+def _feature_table(graph, names, device) -> torch.Tensor:
+    from euler_tpu_torch.estimator.feature_cache import DeviceFeatureCache
+
+    return DeviceFeatureCache(graph, list(names), device=device).table
+
+
+class DeviceRelationFlow(DeviceGraphTables):
+    """Per-relation fanouts for RGCN drawn on the device (counterpart:
+    euler_tpu/dataflow/device.py:1341-1447; host parity
+    `RelationDataFlow`).
+
+    One staged table set with the type plane serves every relation: a
+    hop's draw of relation r masks the row's weights to type r before the
+    CDF inversion (`_draw_neighbors_typed`). `make_batch` returns the
+    RelMiniBatch RGCNSupervised consumes, its features gathered in the
+    flow from the feature table (RelMiniBatch has no rows-mode
+    hydration). Dense layout only."""
+
+    _PAGED_OK = False  # typed draws mask the dense type plane
+
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        num_relations: int,
+        batch_size: int,
+        fanout: int = 5,
+        num_hops: int = 2,
+        label_feature: str | None = None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        mesh=None,
+        *,
+        device=None,
+    ):
+        from euler_tpu_torch.dataflow.relation import relation_src_slots
+
+        _refuse_mesh(type(self).__name__, mesh)
+        super().__init__(graph, None, max_degree, roots_pool, root_node_type,
+                         stage_types=True, device=device)
+        self.num_relations = int(num_relations)
+        self.batch_size = int(batch_size)
+        self.fanout = int(fanout)
+        self.num_hops = int(num_hops)
+        self.feat_table = _feature_table(graph, feature_names, self.device)
+        self.label_table = (_feature_table(graph, [label_feature], self.device)
+                            if label_feature is not None else None)
+        # each hop's constant edge columns, made once (a captured step
+        # cannot copy from the host)
+        k, nr = self.fanout, self.num_relations
+        self._src_slots, self._dst_slots, n = [], [], self.batch_size
+        for _ in range(self.num_hops):
+            self._src_slots.append(tuple(self._put(relation_src_slots(n, nr, k, r))
+                                         for r in range(nr)))
+            self._dst_slots.append(self._put(np.repeat(np.arange(n, dtype=np.int32), k)))
+            n *= nr * k
+
+    def draw_inputs(self, generator: torch.Generator):
+        """([B] root rows, per hop and relation in that order its [W_h, k]
+        f32 uniforms), in JAX's key order."""
+        roots = self._draw_roots(generator, self.batch_size)
+        draws, width = [], self.batch_size
+        for _ in range(self.num_hops):
+            for _ in range(self.num_relations):
+                draws.append(torch.rand((width, self.fanout), generator=generator,
+                                        device=self.device))
+            width *= self.num_relations * self.fanout
+        return roots, tuple(draws)
+
+    def make_batch(self, roots: torch.Tensor, draws):
+        from euler_tpu_torch.dataflow.relation import RelMiniBatch
+
+        k, nr = self.fanout, self.num_relations
+        cur = roots
+        hop_rows, hop_masks, rel_blocks = [cur], [cur > 0], []
+        it = iter(draws)
+        for hop in range(self.num_hops):
+            n = cur.shape[0]
+            nxt, blocks = [], []
+            for r in range(nr):
+                nbr, ew, valid = self._draw_neighbors_typed(cur, next(it), r)
+                nxt.append(nbr.reshape(n, k))
+                blocks.append(Block(edge_src=self._src_slots[hop][r],
+                                    edge_dst=self._dst_slots[hop], edge_w=ew.float(),
+                                    mask=valid, n_src=n * nr * k, n_dst=n))
+            rel_blocks.append(tuple(blocks))
+            # the next hop interleaves the relations: [n, nr, k] flattened,
+            # the slots the edge_src columns address
+            cur = torch.stack(nxt, dim=1).reshape(-1)
+            hop_rows.append(cur)
+            hop_masks.append(cur > 0)
+        return RelMiniBatch(
+            feats=tuple(self.feat_table[rw] for rw in hop_rows),
+            masks=tuple(hop_masks),
+            rel_blocks=tuple(rel_blocks),
+            root_idx=self.node_id[hop_rows[0]],
+            labels=self.label_table[hop_rows[0]] if self.label_table is not None else None,
+            hop_ids=tuple(self.node_id[rw] for rw in hop_rows),
+        )
+
+    def sample(self, generator: torch.Generator):
+        return self.make_batch(*self.draw_inputs(generator))
+
+
+class DeviceLayerwiseFlow(DeviceGraphTables):
+    """LADIES layer draws on the device (counterpart:
+    euler_tpu/dataflow/device.py:1451-1551; host parity
+    `LayerwiseDataFlow`): a layer's candidate weights scatter-add into an
+    [N+1] vector, a Gumbel top-k takes `count` of them without
+    replacement (log w + Gumbel noise, `layerwise_from_full`'s recipe),
+    and the batch -> layer adjacency is the [W, D, count] membership
+    product, row-normalised. The Gumbel noise ([N+1] a layer) is a
+    `draw_inputs` output. `make_batch` returns the LayerwiseBatch
+    LayerwiseGCN consumes, features gathered in the flow. Dense layout
+    only."""
+
+    _PAGED_OK = False  # the layer scatter reads the dense adj/w planes
+
+    def __init__(
+        self,
+        graph,
+        feature_names,
+        batch_size: int,
+        layer_sizes=(128, 128),
+        label_feature: str | None = None,
+        normalize: bool = True,
+        edge_types=None,
+        max_degree: int = 512,
+        roots_pool: np.ndarray | None = None,
+        root_node_type: int = -1,
+        mesh=None,
+        *,
+        device=None,
+    ):
+        _refuse_mesh(type(self).__name__, mesh)
+        super().__init__(graph, edge_types, max_degree, roots_pool, root_node_type,
+                         device=device)
+        self.batch_size = int(batch_size)
+        self.layer_sizes = [int(c) for c in layer_sizes]
+        self.normalize = bool(normalize)
+        self.feat_table = _feature_table(graph, feature_names, self.device)
+        self.label_table = (_feature_table(graph, [label_feature], self.device)
+                            if label_feature is not None else None)
+
+    def draw_inputs(self, generator: torch.Generator):
+        """([B] root rows, per layer [N+1] f32 Gumbel noise, drawn as
+        jax.random.gumbel: -log(-log(u)), u uniform on [tiny, 1))."""
+        roots = self._draw_roots(generator, self.batch_size)
+        tiny = torch.finfo(torch.float32).tiny
+        noise = []
+        for _ in self.layer_sizes:
+            u = torch.rand(self.num_nodes + 1, generator=generator, device=self.device)
+            noise.append(-torch.log(-torch.log(u.clamp_min(tiny))))
+        return roots, tuple(noise)
+
+    def _sample_layer(self, cur: torch.Tensor, gumbel: torch.Tensor, count: int):
+        """[W] rows -> ([count] layer rows, f32[W, count] adjacency,
+        bool[count] layer mask)."""
+        nbr = self.adj[cur]  # [W, D]
+        w = self.wtab[cur] if self.wtab is not None else (nbr > 0).float()
+        wsum = torch.zeros(self.num_nodes + 1, device=w.device)
+        wsum = wsum.index_add(0, nbr.reshape(-1).long(), w.reshape(-1))
+        wsum[0] = 0.0
+        score = torch.where(wsum > 0, torch.log(wsum) + gumbel,
+                            torch.full_like(wsum, float("-inf")))
+        top, layer = torch.topk(score, count)
+        lmask = top > float("-inf")
+        layer = torch.where(lmask, layer, 0).to(torch.int32)
+        hit = (nbr[:, :, None] == layer[None, None, :]) & (layer[None, None, :] > 0)
+        adj = torch.einsum("wd,wdc->wc", w, hit.to(w.dtype))
+        if self.normalize:
+            adj = adj / adj.sum(dim=1, keepdim=True).clamp_min(1e-9)
+        return layer, adj, lmask
+
+    def make_batch(self, roots: torch.Tensor, noise):
+        from euler_tpu_torch.dataflow.layerwise import LayerwiseBatch
+
+        cur = roots
+        layer_rows, layer_masks, adjs = [cur], [cur > 0], []
+        for count, g in zip(self.layer_sizes, noise):
+            layer, adj, lmask = self._sample_layer(cur, g, count)
+            adjs.append(adj)
+            cur = layer
+            layer_rows.append(cur)
+            layer_masks.append(lmask)
+        return LayerwiseBatch(
+            feats=tuple(self.feat_table[rw] for rw in layer_rows),
+            masks=tuple(layer_masks),
+            adjs=tuple(adjs),
+            root_idx=self.node_id[layer_rows[0]],
+            labels=self.label_table[layer_rows[0]] if self.label_table is not None else None,
+            hop_ids=tuple(self.node_id[rw] for rw in layer_rows),
+        )
+
+    def sample(self, generator: torch.Generator):
+        return self.make_batch(*self.draw_inputs(generator))
+
+
+class DeviceGaeFlow(DeviceSageFlow):
+    """(src, dst, neg) fanout triples for GAE / VGAE drawn on the device
+    (counterpart: euler_tpu/dataflow/device.py:1555-1580; host parity
+    `gae_batches`): src by out-strength through the edge-source CDF, dst
+    a neighbour drawn from src's row (so src -> dst is an edge drawn in
+    proportion to its weight), neg a global node draw; each gets its own
+    lean fanout batch. On the paged layout a step runs
+    `paged_sample_hop` once for the dst draw and once a hop of each of
+    the three batches."""
+
+    def __init__(self, graph, fanouts, batch_size, edge_types=None, max_degree: int = 512,
+                 mesh=None, layout: str = "auto", page_size: int = 16, *, device=None):
+        super().__init__(graph, fanouts, batch_size, None, edge_types, max_degree, mesh=mesh,
+                         layout=layout, page_size=page_size, device=device)
+        self._stage_edge_src_cdf()
+
+    def draw_inputs(self, generator: torch.Generator):
+        """(src rows [B], the dst draw [B, 1], neg rows [B], then the hop
+        draws of the src, dst and neg fanouts), in JAX's key order."""
+        b = self.batch_size
+        src = self._draw_edge_sources(generator, b)
+        dst_draw = self._hop_draw(generator, b, 1)
+        neg = self._draw_global_nodes(generator, b)
+        return (src, dst_draw, neg, self._hop_draws(generator, b), self._hop_draws(generator, b),
+                self._hop_draws(generator, b))
+
+    def make_batch(self, src, dst_draw, neg, src_hops, dst_hops, neg_hops) -> tuple:
+        dst, _, _ = self._draw_neighbors(src, dst_draw)
+        fanout = super().make_batch
+        return fanout(src, src_hops), fanout(dst, dst_hops), fanout(neg, neg_hops)
+
+
+class DeviceDgiFlow(DeviceSageFlow):
+    """(real, corrupted) batches for DGI drawn on the device (counterpart:
+    euler_tpu/dataflow/device.py:1583-1609; host parity `dgi_batches`):
+    the corruption permutes each hop's feature rows across the batch —
+    on a lean batch a row permutation is DGI's feature shuffle, since
+    hydration gathers the permuted rows. The permutations (one a hop)
+    are `draw_inputs` outputs."""
+
+    def draw_inputs(self, generator: torch.Generator):
+        """([B] root rows, the hop draws, one permutation of each hop's
+        rows)."""
+        roots, hops = super().draw_inputs(generator)
+        widths = [self.batch_size]
+        for k in self.fanouts:
+            widths.append(widths[-1] * k)
+        perms = tuple(torch.randperm(w, generator=generator, device=self.device)
+                      for w in widths)
+        return roots, hops, perms
+
+    def make_batch(self, roots, hop_draws, perms) -> tuple:
+        mb = super().make_batch(roots, hop_draws)
+        perm_feats = tuple(f[p] for f, p in zip(mb.feats, perms))
+        return mb, dataclasses.replace(mb, feats=perm_feats)

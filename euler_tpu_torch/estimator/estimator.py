@@ -7,18 +7,27 @@ returns (embedding, loss, metric_name, metric). Two lanes feed it:
 - a host batch function: `batch_fn()` returns a tuple of model args —
   numpy `MiniBatch`es (`node_batches`, `unsupervised_batches`'s (src,
   pos, negs), a `ResumableSource` or a `Prefetcher`), which go through
-  `to_device` → `hydrate_blocks` → the feature cache, or dicts of numpy
-  arrays (the skip-gram and KG sources) and `GraphBatch`es
+  `to_device` → `hydrate_blocks` → the feature cache, `LayerwiseBatch`es
+  and `RelMiniBatch`es (moved by `to_device`, hop_ids kept on the host),
+  or dicts of numpy arrays (the skip-gram and KG sources) and `GraphBatch`es
   (`graph_label_batches`), whose arrays are moved as they are (int32 ids
   stay int32);
 - a device flow (`DeviceSageFlow`, `DeviceUnsupSageFlow`,
   `DeviceWalkFlow`, `DeviceEdgeFlow`, `DeviceKGFlow`,
-  `DeviceWholeGraphFlow`): each step draws its
+  `DeviceWholeGraphFlow`, `DeviceRelationFlow`, `DeviceLayerwiseFlow`,
+  `DeviceGaeFlow`, `DeviceDgiFlow`): each step draws its
   batch on the device from a generator seeded from (cfg.seed + 2, global
   step), so the batch stream is a function of the global step, as JAX's
   `fold_in` makes it; the draws go through the flow's one `draw_inputs`
   method and its deterministic `make_batch`, which returns a MiniBatch,
-  a tuple of them (the model's args), a dict or a GraphBatch.
+  a tuple of them (the model's args), a dict, a GraphBatch, a
+  LayerwiseBatch or a RelMiniBatch.
+
+A model may declare random streams of its own (`rng_collections`, VGAE's
+"reparam" noise, as in the JAX package): each step's draws come from
+`rng_generator(cfg.seed, step)` through the model's `draw_rngs`, outside
+the step (a captured step takes them as an input), and reach the model
+as `rngs=`.
 
 `EstimatorConfig.steps_per_call` = K > 1 groups the steps into calls of
 K, as JAX's lax.scan does (`_train_scan`): the host lane then takes one
@@ -48,6 +57,8 @@ import numpy as np
 import torch
 
 from euler_tpu_torch.dataflow.base import MiniBatch, hydrate_blocks, to_device, upgrade_lean_host
+from euler_tpu_torch.dataflow.layerwise import LayerwiseBatch
+from euler_tpu_torch.dataflow.relation import RelMiniBatch
 from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.estimator.graph_step import StepGraph, signature, tree_map
 from euler_tpu_torch.ops import kernel_mode
@@ -64,6 +75,8 @@ from euler_tpu_torch.training.checkpoint import CheckpointStore
 # losses kept on the device before a drain to the host: one live scalar
 # a step would otherwise pin an unbounded number of small buffers
 DRAIN_EVERY = 4096
+# the batch dataclasses `to_device` moves (hop_ids stay on the host)
+BATCH_TYPES = (MiniBatch, LayerwiseBatch, RelMiniBatch)
 
 
 @dataclasses.dataclass
@@ -145,6 +158,14 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(s))
 
 
+def rng_generator(seed: int, step: int, device) -> torch.Generator:
+    """The generator of the model's own random draws (its
+    `rng_collections`, VGAE's "reparam" noise) at global step `step`: the
+    port's `fold_in(PRNGKey(seed + 1), step)`."""
+    s = np.random.SeedSequence([int(seed) + 1, int(step)]).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(s))
+
+
 class Estimator:
     """Drives a (emb, loss, metric_name, metric) model over a host batch
     function or a device flow."""
@@ -194,6 +215,10 @@ class Estimator:
         self._graphs: dict = {}
         self.captures = 0
         self._init_draw = init_params is None and not is_flow
+        # models may declare random streams of their own (VGAE's
+        # "reparam"): drawn outside the step, from `rng_generator`, and
+        # passed to the model as `rngs=`
+        self._rng_names = tuple(getattr(model, "rng_collections", ()))
         self._profiled = False
         self._profile_first = 0
         # losses of the most recent train(), published even when it raises
@@ -231,12 +256,38 @@ class Estimator:
         hydrated."""
         return tuple(self._hydrate(b) if isinstance(b, MiniBatch) else b for b in args)
 
-    def _update(self, batch):
+    def _rng_kwargs(self, rngs) -> dict:
+        return {} if rngs is None else {"rngs": rngs}
+
+    def _model_rngs(self, step: int, args=None) -> dict | None:
+        """The model's own draws for global step `step` (None when it
+        declares no random stream): `model.draw_rngs(generator, rows,
+        device)`, rows being the batch's root count — the first MiniBatch's
+        of the host batch `args`, or the flow's batch size."""
+        if not self._rng_names:
+            return None
+        if args is None:
+            rows = self.flow.batch_size
+        else:
+            rows = next(len(a.root_idx) for a in args if isinstance(a, MiniBatch))
+        return self.model.draw_rngs(rng_generator(self.cfg.seed, step, self.device), rows,
+                                    self.device)
+
+    def _update(self, batch, rngs=None):
         self.optimizer.zero_grad(set_to_none=True)
-        _, loss, _, metric = self.model(*self._model_args(batch))
+        _, loss, _, metric = self.model(*self._model_args(batch), **self._rng_kwargs(rngs))
         loss.backward()
         self.optimizer.step()
         return loss.detach(), metric.detach()
+
+    def _step_of(self, x):
+        """One optimizer step on a call input: the flow's draws or a host
+        batch, paired with the model's draws when it declares
+        rng_collections."""
+        if self._rng_names:
+            x, rngs = x
+            return self._update(self._batch_of(x), rngs)
+        return self._update(self._batch_of(x))
 
     # -- calls of steps_per_call steps (counterpart: estimator.py:516-542,
     # 651-727) ---------------------------------------------------------------
@@ -252,7 +303,15 @@ class Estimator:
         """The inputs of the next n steps: each global step's draws
         (device flows), or one `batch_fn()` item — when `stacked`, a
         K-stacked item whose first n slices are the steps' batches, moved
-        to the card at once when it runs graphs."""
+        to the card at once when it runs graphs. A model with
+        rng_collections gets each step's input paired with its own draws
+        (`_model_rngs`)."""
+        first = self.step
+        for i, x in enumerate(self._step_inputs(n, stacked)):
+            yield x if not self._rng_names else (x, self._model_rngs(
+                first + i, None if self.flow is not None else x))
+
+    def _step_inputs(self, n: int, stacked: bool) -> Iterator:
         first = self.step
         if self.flow is not None:
             for i in range(n):
@@ -281,10 +340,10 @@ class Estimator:
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
         with torch.cuda.stream(side):
-            out = self._update(self._batch_of(x))
+            out = self._step_of(x)
         main.wait_stream(side)
         self.optimizer.zero_grad(set_to_none=True)
-        self._graphs[key] = StepGraph(lambda xs: self._update(self._batch_of(xs)), x)
+        self._graphs[key] = StepGraph(self._step_of, x)
         self.captures += 1
         return out
 
@@ -300,7 +359,7 @@ class Estimator:
                 loss, metric = self._graph_step(x)
                 loss = loss.clone()  # the next replay overwrites the static loss
             else:
-                loss, metric = self._update(self._batch_of(x))
+                loss, metric = self._step_of(x)
             losses.append(loss)
             self.step += 1
         return losses, metric
@@ -413,14 +472,18 @@ class Estimator:
                 self.save()
 
     def evaluate(self, batches: Iterable[tuple]) -> dict:
-        """Mean loss and metric over host batches: {"loss", <metric name>}."""
+        """Mean loss and metric over host batches: {"loss", <metric name>}.
+        A model's own random draws come from step 0's generator anew for
+        every batch, as JAX's `_rngs(0)`."""
         self._ensure_init()
         name = None
         losses, metrics = [], []
         with torch.inference_mode():
             for batch in batches:
+                rngs = self._model_rngs(0, batch)
                 _, loss, name, metric = self.model(
-                    *self._model_args(args_to_device(batch, self.device)))
+                    *self._model_args(args_to_device(batch, self.device)),
+                    **self._rng_kwargs(rngs))
                 losses.append(float(loss))
                 metrics.append(float(metric))
         return {
@@ -538,7 +601,7 @@ def args_to_device(args: tuple, device) -> tuple:
             v = torch.from_numpy(np.ascontiguousarray(v))
         return v.to(device) if isinstance(v, torch.Tensor) else v
 
-    return tuple(to_device(b, device) if isinstance(b, MiniBatch) else tree_map(put, b)
+    return tuple(to_device(b, device) if isinstance(b, BATCH_TYPES) else tree_map(put, b)
                  for b in args)
 
 

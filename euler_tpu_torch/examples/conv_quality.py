@@ -19,6 +19,12 @@ reported beside it.
 
     python -m euler_tpu_torch.examples.conv_quality --device cpu [--seeds 0 1 2]
 
+The layer-wise recipes (`tests/test_quality.py:817-862`, FastGCN and
+AdaptiveGCN) train LayerwiseGCN over LayerwiseDataFlow on the 640-label
+pool, each step's roots drawn by `rng.choice` from the generator the flow
+samples with, and report the F1 over the 1 000 test nodes in batches of
+64 (`layerwise_quality`).
+
 prints one JSON line of every recipe's F1 at each seed and whether the
 first seed's lies in its band (on the CUDA card unless `--device cpu`).
 """
@@ -64,6 +70,22 @@ RECIPES = {
     "lgcn": Recipe("lgcn", [64], None, "640", 200, 0.01, (0.70, 0.86), flow="sampled"),
 }
 POOLS = {"140": (0,), "640": (0, 1)}
+
+
+class LayerwiseRecipe(NamedTuple):
+    layer_sizes: tuple
+    batch: int
+    steps: int
+    band: tuple  # the JAX test's open F1 band
+
+
+# tests/test_quality.py:817-862: around the published cora F1s 0.803
+# (FastGCN) and 0.821 (AdaptiveGCN); dims [32, 32], lr 0.02, 640 labels
+LAYERWISE_RECIPES = {
+    "fastgcn": LayerwiseRecipe((256, 256), 64, 400, (0.74, 0.88)),
+    "adaptivegcn": LayerwiseRecipe((400, 400), 128, 600, (0.74, 0.88)),
+}
+LAYERWISE_DIMS, LAYERWISE_LR, LAYERWISE_EVAL = [32, 32], 0.02, 64
 # LGCN's protocol (tests/test_quality.py:871-908)
 SAMPLED_FANOUTS, SAMPLED_BATCH, SAMPLED_EVAL = [10], 32, 200
 
@@ -153,6 +175,41 @@ def conv_quality(name: str, device=None, data=None, seeds=(0,)) -> dict:
             "in_band": r.band[0] < f1s[0] < r.band[1]}
 
 
+def layerwise_quality(name: str, device=None, data=None, seed: int = 0) -> dict:
+    """One LAYERWISE_RECIPES recipe from the JAX init of `seed`: one
+    generator (default_rng(0)) draws the layers and the roots, and the
+    first draw is the one the JAX Estimator initialises from."""
+    from euler_tpu_torch.dataflow import LayerwiseDataFlow
+    from euler_tpu_torch.device import resolve_device
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.models import LayerwiseGCN
+    from euler_tpu_torch.params import flax_init
+
+    r = LAYERWISE_RECIPES[name]
+    g, types = data if data is not None else cora_like()
+    device = resolve_device(device)
+    tr, te = _splits(types, "640")
+    rng = np.random.default_rng(0)
+    flow = LayerwiseDataFlow(g, ["feature"], layer_sizes=list(r.layer_sizes),
+                             label_feature="label", rng=rng)
+    model = LayerwiseGCN(g.meta.feature_spec("feature").dim, LAYERWISE_DIMS, 7)
+
+    def batch_fn():
+        return (flow.query(rng.choice(tr, size=r.batch, replace=True)),)
+
+    est = Estimator(model, batch_fn, EstimatorConfig(learning_rate=LAYERWISE_LR,
+                                                     log_steps=10**9, seed=seed),
+                    init_params=flax_init(model, seed), device=device)
+    batch_fn()  # the JAX Estimator's init draw
+    final = est.train(r.steps, log=False, save=False)[-1]
+    evals = [(flow.query(te[i : i + LAYERWISE_EVAL]),)
+             for i in range(0, min(len(te), 1000), LAYERWISE_EVAL)]
+    f1 = est.evaluate(evals)["f1"]
+    return {"layer_sizes": list(r.layer_sizes), "batch": r.batch, "steps": r.steps,
+            "lr": LAYERWISE_LR, "final_loss": final, "f1": f1, "band": r.band,
+            "in_band": r.band[0] < f1 < r.band[1]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
@@ -165,6 +222,8 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     data = cora_like()
     out = {name: conv_quality(name, device, data, args.seeds) for name in RECIPES}
+    out.update({name: layerwise_quality(name, device, data, args.seeds[0])
+                for name in LAYERWISE_RECIPES})
     print(json.dumps({**out, "device": str(device), "torch_threads": torch.get_num_threads(),
                       "cores": os.cpu_count()}))
     return 0 if all(r["in_band"] for r in out.values()) else 1

@@ -1,8 +1,12 @@
 """The link-prediction quality recipes of the JAX package's tests
-(`tests/test_quality.py:467-546`) on the port: LINE and DeepWalk
-edge-ranking MRR on `cora_like`, TransE MeanRank / Hit@10 on
-`fb15k_like` with the untrained control, each with the JAX test's
-steps, learning rate, batch and seeds, and its band.
+(`tests/test_quality.py:467-546`, `:909-947`) on the port: LINE and
+DeepWalk edge-ranking MRR on `cora_like`, TransE MeanRank / Hit@10 on
+`fb15k_like` with the untrained control, GAE and VGAE held-out
+link-prediction AUC on `cora_like`, each with the JAX test's steps,
+learning rate, batch and seeds, and its band. GAE and VGAE start from
+the params the JAX test's Estimator draws (`params.flax_init`, seed 0)
+and consume its init draw; VGAE's noise comes from the port's
+generators, so its AUC is the band's, not the JAX test's number.
 
     python -m euler_tpu_torch.examples.link_quality --device cpu
 
@@ -25,6 +29,10 @@ LINE_STEPS, LINE_BAND = 2000, (0.87, 0.97)
 DEEPWALK_STEPS, DEEPWALK_BAND = 600, (0.87, 0.995)
 TRANSE_STEPS, TRANSE_CONTROL_MR = 1500, 600
 TRANSE_MR_BAND, TRANSE_HIT_BAND = (30, 420), (0.32, 0.55)
+# GAE / VGAE (tests/test_quality.py:909-947): around the published cora
+# AUCs 0.71 / 0.79 (examples/gae/README.md)
+GAE_STEPS, GAE_BATCH, GAE_EVAL_BATCH, GAE_EVALS = 400, 128, 256, 4
+GAE_BANDS = {"gae": (0.74, 0.92), "vgae": (0.70, 0.90)}
 
 
 def _estimator(model, batch_fn, lr: float, device):
@@ -97,6 +105,36 @@ def transe_quality(device=None) -> dict:
             "mean_rank_band": TRANSE_MR_BAND, "hit10_band": TRANSE_HIT_BAND, "in_band": ok}
 
 
+def gae_quality(name: str, device=None, graph=None, seed: int = 0) -> dict:
+    """GAE or VGAE ("gae" / "vgae") on cora_like: dims [32] over
+    SageDataFlow(fanouts [10]), gae_batches of 128 edges, adam lr 0.01,
+    GAE_STEPS steps, then the AUC over GAE_EVALS held-out batches of 256
+    (each a fresh default_rng(7) source over the trained flow)."""
+    from euler_tpu_torch.dataflow import SageDataFlow
+    from euler_tpu_torch.datasets import cora_like_json
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.graph import Graph
+    from euler_tpu_torch.models import GAE, gae_batches
+    from euler_tpu_torch.params import flax_init
+
+    g = graph if graph is not None else Graph.from_json(cora_like_json())
+    rng = np.random.default_rng(0)
+    flow = SageDataFlow(g, ["feature"], fanouts=[10], rng=rng)
+    model = GAE(g.meta.feature_spec("feature").dim, [32], variational=name == "vgae")
+    batch_fn = gae_batches(g, flow, GAE_BATCH, rng=rng)
+    est = Estimator(model, batch_fn,
+                    EstimatorConfig(learning_rate=0.01, log_steps=10**9, seed=seed),
+                    init_params=flax_init(model, seed), device=device)
+    batch_fn()  # the draw the JAX Estimator initialises from
+    final = est.train(GAE_STEPS, log=False, save=False)[-1]
+    evals = [gae_batches(g, flow, GAE_EVAL_BATCH, rng=np.random.default_rng(7))()
+             for _ in range(GAE_EVALS)]
+    auc = est.evaluate(evals)["auc"]
+    band = GAE_BANDS[name]
+    return {"steps": GAE_STEPS, "final_loss": final, "auc": auc, "band": band,
+            "in_band": band[0] < auc < band[1]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--device", default=None,
@@ -107,10 +145,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
     out = {"line": skipgram_quality("line", device),
            "deepwalk": skipgram_quality("deepwalk", device),
-           "transe": transe_quality(device), "device": str(device),
+           "transe": transe_quality(device), "gae": gae_quality("gae", device),
+           "vgae": gae_quality("vgae", device), "device": str(device),
            "torch_threads": torch.get_num_threads(), "cores": os.cpu_count()}
     print(json.dumps(out))
-    return 0 if all(out[k]["in_band"] for k in ("line", "deepwalk", "transe")) else 1
+    return 0 if all(out[k]["in_band"]
+                    for k in ("line", "deepwalk", "transe", "gae", "vgae")) else 1
 
 
 if __name__ == "__main__":

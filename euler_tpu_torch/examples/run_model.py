@@ -9,6 +9,8 @@
         --device-flow
     python -m euler_tpu_torch.examples.run_model --model gin --dataset mutag --synthetic \
         --device cpu
+    python -m euler_tpu_torch.examples.run_model --model rgcn --synthetic --device cpu
+    python -m euler_tpu_torch.examples.run_model --model vgae --synthetic --device-flow
 
 The JAX runner's flags and defaults, plus `--device` (the CUDA card
 unless `--device cpu`; `--platform cpu` means the same). The families the
@@ -17,7 +19,15 @@ port runs:
                      gated geniepath graph lgcn (SuperviseModel over the conv
                      of that name; gat with improved=True, as the JAX runner
                      builds it)
-  conv unsupervised: graphsage_unsup
+  conv unsupervised: graphsage_unsup, dgi, gae, vgae (over SageDataFlow's
+                     first fanout and hidden width; DeviceDgiFlow /
+                     DeviceGaeFlow on the device)
+  layerwise:         fastgcn adaptivegcn (LayerwiseGCN over
+                     LayerwiseDataFlow(layer_sizes=[64] * layers), or
+                     DeviceLayerwiseFlow)
+  relation:          rgcn (RGCNSupervised with 4 bases over
+                     RelationDataFlow(fanout=fanouts[0], num_hops=layers),
+                     or DeviceRelationFlow)
   graph clf:         gin set2set gated_graph graphgcn (GraphClassifier over
                      WholeGraphDataFlow(max_nodes=16, max_degree=8), or
                      DeviceWholeGraphFlow staged from it)
@@ -25,15 +35,17 @@ port runs:
   knowledge graph:   transe transh transr transd distmult rotate
 each on the host flow and, with `--device-flow`, on the device flow.
 Modes, as the JAX runner runs them: train for every family; evaluate
-for the KG family (`kg_rank_eval`) and the supervised convs; infer for
-the embedding family (writes embedding_0.npy and ids_0.npy), the
-supervised convs and graphsage_unsup; train_and_evaluate for the
-supervised convs. The runner refuses the other modes of the embedding
-and KG families, and so does the port; graphsage_unsup's
-evaluate and train_and_evaluate, which raise a TypeError in the JAX
-runner (it feeds the triple model one MiniBatch), are refused too, and
-so are the graph-classification family's modes but train (the JAX
-runner feeds node ids to the graph-label flow as labels).
+for the KG family (`kg_rank_eval`), the supervised convs, rgcn, fastgcn
+and adaptivegcn; infer for the embedding family (writes embedding_0.npy
+and ids_0.npy), the supervised convs, rgcn, fastgcn, adaptivegcn,
+graphsage_unsup, gae, vgae and dgi; train_and_evaluate for the
+supervised convs, rgcn, fastgcn and adaptivegcn. The runner refuses the
+other modes of the embedding and KG families, and so does the port;
+the evaluate and train_and_evaluate of graphsage_unsup, gae, vgae and
+dgi, which raise a TypeError in the JAX runner (it feeds the pair or
+triple model one MiniBatch), are refused too, and so are the
+graph-classification family's modes but train (the JAX runner feeds
+node ids to the graph-label flow as labels).
 Every other model of the JAX zoo exits with a message naming its
 ROADMAP item.
 
@@ -59,14 +71,12 @@ CONV_MODELS = {"gcn": "gcn", "graphsage": "sage", "sage": "sage", "gat": "gat",
 # the graph-classification models: (conv, pool)
 GRAPH_CLF = {"gin": ("gin", "mean"), "set2set": ("gin", "set2set"),
              "gated_graph": ("gated", "mean"), "graphgcn": ("gcn", "attention")}
+# the models trained on (src, dst, neg) or (real, corrupted) batches: one
+# MiniBatch per arg, so only infer (`model.embed`) runs beside train
+PAIR_MODELS = ("graphsage_unsup", "gae", "vgae", "dgi")
+LAYERWISE_MODELS = ("fastgcn", "adaptivegcn")
 # the JAX zoo's other models and the ROADMAP item each waits for
-NOT_PORTED = {
-    **{m: "ROADMAP queue 1 item 4 (GAE/DGI)" for m in ("gae", "vgae", "dgi")},
-    **{m: "ROADMAP queue 1 items 3-4 (the layerwise flow and its model)"
-       for m in ("fastgcn", "adaptivegcn")},
-    "rgcn": "ROADMAP queue 1 items 3-4 (the relation flow and RGCN)",
-    **{m: "ROADMAP queue 1 item 4 (ScalableGNN)" for m in ("scalable_gcn", "scalable_sage")},
-}
+NOT_PORTED = {m: "ROADMAP queue 1 item 4 (ScalableGNN)" for m in ("scalable_gcn", "scalable_sage")}
 
 
 def build_parser():
@@ -98,9 +108,9 @@ def build_parser():
     ap.add_argument("--data-parallel", type=int, default=0,
                     help="devices for a data-parallel mesh (0 = single; not ported yet)")
     ap.add_argument("--device-flow", action="store_true",
-                    help="sample batches on the device (graphsage_unsup, the supervised convs, "
-                         "graph classification, deepwalk/node2vec/line and the TransX "
-                         "family; local graphs only)")
+                    help="sample batches on the device (graphsage_unsup, gae/vgae/dgi, rgcn, "
+                         "fastgcn/adaptivegcn, the supervised convs, graph classification, "
+                         "deepwalk/node2vec/line and the TransX family; local graphs only)")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize conv layers on backward (not ported yet)")
     ap.add_argument("--device", default=None,
@@ -121,8 +131,8 @@ def _require_checkpoint(est):
 def _refuse(name: str) -> None:
     if name in NOT_PORTED:
         raise SystemExit(f"model {name!r} is not ported to euler_tpu_torch yet: {NOT_PORTED[name]}")
-    known = (sorted(KG_MODELS) + list(EMBEDDING_MODELS) + ["graphsage_unsup"]
-             + list(CONV_MODELS) + list(GRAPH_CLF))
+    known = (sorted(KG_MODELS) + list(EMBEDDING_MODELS) + list(PAIR_MODELS)
+             + list(LAYERWISE_MODELS) + ["rgcn"] + list(CONV_MODELS) + list(GRAPH_CLF))
     if name not in known:
         raise SystemExit(f"unknown model {name!r}")
 
@@ -156,7 +166,8 @@ def main(argv=None):
         seed=args.seed,
     )
     feature = "feature"
-    if args.remat and (name in KG_MODELS or name in EMBEDDING_MODELS):
+    if args.remat and (name in KG_MODELS or name in EMBEDDING_MODELS
+                       or name in LAYERWISE_MODELS or name == "rgcn"):
         print(f"# --remat has no effect for model {name!r} (no conv stack)")
     label_dim = getattr(ds, "num_classes", 2) if ds else 2
     dims = [args.hidden_dim] * args.layers
@@ -216,6 +227,68 @@ def main(argv=None):
         else:
             bf = graph_label_batches(graph, flow, args.batch_size, rng=rng)
         est = Estimator(model, bf, cfg, device=device)
+    elif name in LAYERWISE_MODELS:
+        from euler_tpu_torch.dataflow import LayerwiseDataFlow
+        from euler_tpu_torch.models import LayerwiseGCN
+
+        layer_sizes = [64] * args.layers
+        flow = LayerwiseDataFlow(graph, [feature], layer_sizes=layer_sizes,
+                                 label_feature="label", rng=rng)
+        model = LayerwiseGCN(graph.meta.feature_spec(feature).dim, dims, label_dim)
+        if args.device_flow:
+            from euler_tpu_torch.dataflow import DeviceLayerwiseFlow
+
+            bf = DeviceLayerwiseFlow(graph, [feature], batch_size=args.batch_size,
+                                     layer_sizes=layer_sizes, label_feature="label",
+                                     root_node_type=0, device=device)
+        else:
+            bf = node_batches(graph, flow, args.batch_size, 0, rng=rng)
+        est = Estimator(model, bf, cfg, device=device)
+    elif name == "rgcn":
+        from euler_tpu_torch.dataflow import RelationDataFlow
+        from euler_tpu_torch.models import RGCNSupervised
+
+        nr = graph.meta.num_edge_types
+        flow = RelationDataFlow(graph, [feature], num_relations=nr, fanout=args.fanouts[0],
+                                num_hops=args.layers, label_feature="label", rng=rng)
+        model = RGCNSupervised(graph.meta.feature_spec(feature).dim, dims, nr, label_dim,
+                               num_bases=4)
+        if args.device_flow:
+            from euler_tpu_torch.dataflow import DeviceRelationFlow
+
+            bf = DeviceRelationFlow(graph, [feature], num_relations=nr,
+                                    batch_size=args.batch_size, fanout=args.fanouts[0],
+                                    num_hops=args.layers, label_feature="label",
+                                    root_node_type=0, device=device)
+        else:
+            bf = node_batches(graph, flow, args.batch_size, 0, rng=rng)
+        est = Estimator(model, bf, cfg, device=device)
+    elif name in ("gae", "vgae", "dgi"):
+        from euler_tpu_torch.dataflow import SageDataFlow
+        from euler_tpu_torch.estimator import DeviceFeatureCache
+        from euler_tpu_torch.models import DGI, GAE, dgi_batches, gae_batches
+
+        in_dim = graph.meta.feature_spec(feature).dim
+        flow = SageDataFlow(graph, [feature], fanouts=args.fanouts[:1], rng=rng)
+        if name == "dgi":
+            model = DGI(in_dim, dims[:1], remat=args.remat)
+        else:
+            model = GAE(in_dim, dims[:1], variational=(name == "vgae"), remat=args.remat)
+        if args.device_flow:
+            from euler_tpu_torch.dataflow import DeviceDgiFlow, DeviceGaeFlow
+
+            flow_cls = DeviceDgiFlow if name == "dgi" else DeviceGaeFlow
+            est = Estimator(
+                model,
+                flow_cls(graph, fanouts=args.fanouts[:1], batch_size=args.batch_size,
+                         device=device),
+                cfg, feature_cache=DeviceFeatureCache(graph, [feature], device=device),
+                device=device,
+            )
+        else:
+            batches = dgi_batches if name == "dgi" else gae_batches
+            est = Estimator(model, batches(graph, flow, args.batch_size, rng=rng), cfg,
+                            device=device)
     else:
         from euler_tpu_torch.dataflow import SageDataFlow
         from euler_tpu_torch.estimator import DeviceFeatureCache
@@ -276,7 +349,7 @@ def main(argv=None):
         kg_eval = name in KG_MODELS and args.mode == "evaluate"
         emb_infer = name in EMBEDDING_MODELS and args.mode == "infer"
         flow_mode = flow is not None and name not in GRAPH_CLF and (
-            name != "graphsage_unsup" or args.mode == "infer")
+            name not in PAIR_MODELS or args.mode == "infer")
         if not (kg_eval or emb_infer or flow_mode):
             raise SystemExit(f"mode {args.mode!r} is not supported for model {name!r}")
     if args.mode != "train" and flow is None:

@@ -21,9 +21,9 @@ same on one machine and may differ between machines with other core
 counts.
 
 The random walk is bound for unbiased walks; a node2vec-biased walk (p
-or q != 1) runs the numpy store's path, as in the JAX package. Not bound
-yet: layer-wise sampling and the variable-length and binary feature
-calls, which no ported module calls.
+or q != 1) runs the numpy store's path, as in the JAX package. The
+layer-wise (LADIES) draw is one engine call. Not bound yet: the
+variable-length and binary feature calls, which no ported module calls.
 """
 
 from __future__ import annotations
@@ -83,6 +83,7 @@ _SIGNATURES = (
     ("etpu_sample_fanout", None,
      [_h, _u64p, _i64, _i32p, _i64, _i64p, _i64, _u64, _u64p, _i64p, _f32p, _i32p, _u8p]),
     ("etpu_random_walk", None, [_h, _u64p, _i64, _i32p, _i64, _i64, _u64, _u64p]),
+    ("etpu_layerwise", None, [_h, _u64p, _i64, _i32p, _i64, _i64, _u64, _u64p, _f32p, _u8p]),
     ("etpu_stats", None, [_h, _u64p]),
     ("etpu_reset_stats", None, [_h]),
 )
@@ -284,6 +285,20 @@ class NativeGraphStore(GraphStore):
             self._h, _ptr(ids, _c.c_uint64), len(ids), _ptr(types, _c.c_int32), len(types),
             walk_len, self._seed(rng), _ptr(out, _c.c_uint64))
         return out
+
+    def sample_neighbor_layerwise(self, batch_ids, edge_types=None, count=128, rng=None):
+        """The layer-wise draw in one engine call: (layer_ids u64[count],
+        adj f32[n, count], mask bool[count])."""
+        ids, types = _as_ids(batch_ids), _types_arr(edge_types)
+        n = len(ids)
+        layer = np.empty(count, dtype=np.uint64)
+        adj = np.empty((n, count), dtype=np.float32)
+        lmask = np.empty(count, dtype=np.uint8)
+        self._lib.etpu_layerwise(
+            self._h, _ptr(ids, _c.c_uint64), n, _ptr(types, _c.c_int32), len(types), count,
+            self._seed(rng), _ptr(layer, _c.c_uint64), _ptr(adj, _c.c_float),
+            _ptr(lmask, _c.c_uint8))
+        return layer, adj, lmask.astype(bool)
 
     def op_stats(self) -> dict:
         """Per-op {"calls", "ms"} counters of the engine."""

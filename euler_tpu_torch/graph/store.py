@@ -4,8 +4,8 @@
 This is the part of the JAX package's store that the serving and
 training paths run: id lookup, weighted root, edge and neighbor
 sampling, the fused multi-hop fanout with feature rows, dense feature
-reads, the full adjacency and degrees the device flows stage, and the
-(node2vec-biased) random walk. The numpy draw order
+reads, the full adjacency and degrees the device flows stage, the
+(node2vec-biased) random walk and the layer-wise (LADIES) draw. The numpy draw order
 is the JAX package's exactly, so a seed gives the same sample in both
 packages (held by tests/test_torch_graph_flow.py). `Graph.load(native=)`
 serves the hot paths from the C++ engine instead (`graph/native.py`).
@@ -57,6 +57,44 @@ def lean_wire_ok(roots, hop_w, hop_mask, hop_rows, require_unit_w=True) -> bool:
 
 def _rng(rng) -> np.random.Generator:
     return rng if rng is not None else np.random.default_rng()
+
+
+def layerwise_from_full(nbr, w, mask, count: int, rng) -> tuple:
+    """LADIES-style layer selection from a batch's full neighbour arrays
+    (counterpart: euler_tpu/graph/store.py:100-142). Candidates are
+    weighted by their total incident weight from the batch and drawn
+    without replacement by a Gumbel top-k (`rng.gumbel` once per
+    candidate, in the order of their sorted ids); a frontier that fits
+    in `count` is taken whole. The shard and the facade share it: the
+    facade gathers the full neighbours first, so a candidate cited from
+    several shards is weighted by its global sum.
+
+    Returns (layer_ids u64[count], adj f32[n, count], mask bool[count])."""
+    n = nbr.shape[0]
+    flat_ids = nbr[mask]
+    flat_w = w[mask].astype(np.float64)
+    if len(flat_ids) == 0:
+        return (np.full(count, DEFAULT_ID, dtype=np.uint64),
+                np.zeros((n, count), dtype=np.float32), np.zeros(count, dtype=bool))
+    uniq, inv = np.unique(flat_ids, return_inverse=True)
+    wsum = np.zeros(len(uniq))
+    np.add.at(wsum, inv, flat_w)
+    if len(uniq) <= count:
+        chosen = np.arange(len(uniq))
+    else:
+        keys = np.log(np.maximum(wsum, 1e-30)) + rng.gumbel(size=len(uniq))
+        chosen = np.sort(np.argpartition(-keys, count - 1)[:count])
+    layer = np.full(count, DEFAULT_ID, dtype=np.uint64)
+    layer[: len(chosen)] = uniq[chosen]
+    lmask = layer != DEFAULT_ID
+    # the batch -> layer adjacency
+    pos = np.searchsorted(uniq[chosen], nbr.ravel())
+    pos = np.clip(pos, 0, len(chosen) - 1)
+    hit = mask.ravel() & (uniq[chosen][pos] == nbr.ravel())
+    adj = np.zeros((n, count), dtype=np.float32)
+    rr = np.repeat(np.arange(n), nbr.shape[1])
+    np.add.at(adj, (rr[hit], pos[hit]), w.ravel()[hit])
+    return layer, adj, lmask
 
 
 class _WeightedSampler:
@@ -367,6 +405,17 @@ class GraphStore:
             eidx[at] = c.eidx[src_el[keep]]
             col += d
         return nbr, w, tt, nbr != DEFAULT_ID, eidx
+
+    def sample_neighbor_layerwise(self, batch_ids, edge_types=None, count: int = 128, rng=None):
+        """One candidate layer of `count` nodes for the whole batch, drawn
+        in proportion to their incident weight from it, and the batch ->
+        layer adjacency (`layerwise_from_full`; counterpart:
+        store.py:673-685). Returns (layer_ids u64[count], adj f32[n,
+        count], mask bool[count])."""
+        rng = _rng(rng)
+        batch_ids = np.asarray(batch_ids, dtype=np.uint64)
+        nbr, w, _, mask, _ = self.get_full_neighbor(batch_ids, edge_types)
+        return layerwise_from_full(nbr, w, mask, count, rng)
 
     def degree_sum(self, ids, edge_types=None) -> np.ndarray:
         """Total degree per id across the requested edge types (0 if absent)."""
@@ -711,6 +760,18 @@ class Graph:
         return self._scatter_gather(
             ids, lambda sh, i: sh.get_full_neighbor(i, edge_types, max_degree)
         )
+
+    def sample_neighbor_layerwise(self, batch_ids, edge_types=None, count=128, rng=None):
+        """The layer draw over every shard (counterpart: store.py:1675-):
+        one shard draws itself; several gather the batch's full
+        neighbours first and select once over the merged arrays, so a
+        candidate is weighted by its global incident sum."""
+        rng = _rng(rng)
+        if self.num_shards == 1:
+            return self.shards[0].sample_neighbor_layerwise(batch_ids, edge_types, count, rng)
+        batch_ids = np.asarray(batch_ids, dtype=np.uint64)
+        nbr, w, _, mask, _ = self.get_full_neighbor(batch_ids, edge_types)
+        return layerwise_from_full(nbr, w, mask, count, rng)
 
     def degree_sum(self, ids, edge_types=None) -> np.ndarray:
         return self._scatter_gather(ids, lambda sh, i: sh.degree_sum(i, edge_types))

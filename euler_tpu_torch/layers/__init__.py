@@ -11,6 +11,7 @@ from euler_tpu_torch.layers.conv import (  # noqa: F401
     GINConv,
     GraphConv,
     LGCNConv,
+    RelationConv,
     SAGEConv,
     SGCNConv,
     TAGConv,
@@ -18,7 +19,7 @@ from euler_tpu_torch.layers.conv import (  # noqa: F401
 )
 
 # the JAX package's names (euler_tpu/layers/__init__.py); RelationConv,
-# which takes per-relation blocks, waits for RGCN
+# which takes per-relation blocks, is not among them (RGCNSupervised builds it)
 CONVS = {
     "gcn": GCNConv,
     "sage": SAGEConv,

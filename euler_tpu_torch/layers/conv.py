@@ -1,8 +1,8 @@
 """Convolution layers over padded Blocks
 (counterpart: euler_tpu/layers/conv.py:23-456): SAGEConv, GCNConv,
 GATConv, GINConv, GraphConv, APPNPConv, SGCNConv, TAGConv, AGNNConv,
-ARMAConv, DNAConv, GatedGraphConv, LGCNConv and GeniePathConv
-(RelationConv waits for RGCN).
+ARMAConv, DNAConv, GatedGraphConv, LGCNConv, GeniePathConv and RGCN's
+RelationConv.
 
 A conv consumes (x_dst, x_src, block) and produces new dst embeddings.
 flax's Dense infers its input width at init; here each conv is told its
@@ -499,4 +499,53 @@ class GeniePathConv(Conv):
         breadth = self.agg_add(g_src * alpha[:, None], block)
         carry = (self.dense(self.carry_c, x_dst), self.dense(self.carry_h, x_dst))
         _, out = self.lstm(carry, breadth)
+        return out
+
+
+class RelationConv(Conv):
+    """RGCN: W_0·x_dst + Σ_r mean_r(x_src·W_r), optionally with the
+    relation weights a basis decomposition W_r = Σ_b coef[r, b]·basis[b].
+    Called with one Block per relation. The params keep flax's names and
+    shapes: `basis` [B, in, out] and `coef` [R, B] (num_bases > 0) or
+    `rel_w` [R, in, out], and `linear` (flax's Dense_0) on x_dst. Each
+    relation's mean divides its scatter-added messages by the count of
+    its valid edges at the dst (1 where it has none)."""
+
+    def __init__(self, in_dim: int, out_dim: int, dtype: torch.dtype | None = None,
+                 num_relations: int = 1, num_bases: int = 0):
+        super().__init__(in_dim, out_dim, dtype)
+        self.num_relations = num_relations
+        self.num_bases = num_bases
+        self.denses((in_dim, True))
+        if num_bases:
+            self.basis = nn.Parameter(torch.empty(num_bases, in_dim, out_dim))
+            self.coef = nn.Parameter(torch.empty(num_relations, num_bases))
+        else:
+            self.rel_w = nn.Parameter(torch.empty(num_relations, in_dim, out_dim))
+        self.reset_like_flax()
+
+    @torch.no_grad()
+    def reset_like_flax(self, generator: torch.Generator | None = None) -> None:
+        """flax's initializers: lecun_normal on the 3-D weights (fan_in =
+        the product of every axis but the last), normal(0.1) on `coef`."""
+        if self.num_bases:
+            lecun_normal_(self.basis, self.num_bases * self.in_dim, generator)
+            self.coef.normal_(0.0, 0.1, generator=generator)
+        else:
+            lecun_normal_(self.rel_w, self.num_relations * self.in_dim, generator)
+
+    def relation_weights(self) -> torch.Tensor:
+        """[R, in, out]: rel_w, or the basis combination."""
+        if self.num_bases:
+            return torch.einsum("rb,bio->rio", self.coef, self.basis)
+        return self.rel_w
+
+    def forward(self, x_dst, x_src, rel_blocks):
+        out = self.dense(self.linear, x_dst)
+        weights = self.relation_weights()
+        for r, block in enumerate(rel_blocks):
+            total = self.agg_add(self.msg(x_src, block) @ weights[r], block)
+            cnt = scatter_add(torch.ones(block.edge_src.shape[0], device=x_src.device),
+                              block.edge_dst, block.n_dst, mask=block.mask)
+            out = out + total / cnt.clamp_min(1.0)[:, None]
         return out

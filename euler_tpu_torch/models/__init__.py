@@ -1,3 +1,9 @@
+from euler_tpu_torch.models.autoencoders import (  # noqa: F401
+    DGI,
+    GAE,
+    dgi_batches,
+    gae_batches,
+)
 from euler_tpu_torch.models.embedding_models import (  # noqa: F401
     SkipGramModel,
     deepwalk_batches,
@@ -15,3 +21,5 @@ from euler_tpu_torch.models.kg import (  # noqa: F401
     kg_ranking_metrics,
     transx_warm_start,
 )
+from euler_tpu_torch.models.layerwise_models import LayerwiseGCN  # noqa: F401
+from euler_tpu_torch.models.rgcn import RGCNSupervised  # noqa: F401

@@ -12,8 +12,10 @@ Denses `ii`, `hr`, ... keep flax's names), `params/out/bias` becomes
 `out.bias`, and every other name — an `Embedding`'s
 `params/<name>/table` (the skip-gram and KG tables, TransX's
 projections), GAT's `att_src` / `att_dst`, GIN's `eps`, AGNN's `beta`,
-GeniePath's `carry_c`, GraphClassifier's `pooler` and `head` — keeps
-its name and its shape. A checkpoint holds the leaves in flax's tree_flatten order
+GeniePath's `carry_c`, GraphClassifier's `pooler` and `head`,
+RelationConv's `basis` / `coef` / `rel_w`, DGI's `bilinear`, GAE's
+`encoder` / `mu_head` / `logvar_head`, LayerwiseGCN's `denses_<l>` /
+`self_denses_<l>` — keeps its name and its shape. A checkpoint holds the leaves in flax's tree_flatten order
 (sorted keys) and the optimizer state in optax's leaf order, so either
 package restores what the other saved.
 """
@@ -230,7 +232,7 @@ def load_optimizer_leaves(name: str, optimizer, named_params: dict, leaves) -> N
 # (jax._src.random `_truncated_normal`: a uniform mapped through XLA's
 # single-precision erf_inv). numpy rounds XLA's log1p inside erf_inv to
 # another neighbour now and then (about 1 % of the draws), so a value may
-# sit 1-2 ulp off flax's.
+# sit 1-3 ulp off flax's (3 seen once: a Dense kernel at seed 5).
 
 _THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 # XLA's ErfInv for f32 (M. Giles, "Approximating the erfinv function"):
@@ -240,8 +242,10 @@ _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
 _ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
                0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682)
 # a param's creation count in its flax module (`Scope.make_rng` counts from
-# 1): Dense and Conv make kernel then bias, GATConv att_src then att_dst
-_FLAX_PARAM_COUNT = {"kernel": 1, "bias": 2, "att_src": 1, "att_dst": 2, "eps": 1, "beta": 1}
+# 1): Dense and Conv make kernel then bias, GATConv att_src then att_dst,
+# RelationConv basis then coef (or rel_w alone; its Dense is a submodule)
+_FLAX_PARAM_COUNT = {"kernel": 1, "bias": 2, "att_src": 1, "att_dst": 2, "eps": 1, "beta": 1,
+                     "basis": 1, "coef": 2, "rel_w": 1, "bilinear": 1}
 # the hidden-state Denses of flax's GRUCell and LSTMCell, whose kernels
 # take `orthogonal()`
 _RECURRENT = {"hr", "hz", "hn", "hi", "hf", "hg", "ho"}
@@ -344,11 +348,15 @@ def _orthogonal(key, shape) -> np.ndarray:
 def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     """The state_dict of the params the JAX package's Estimator draws for
     the flax twin of `model` at `seed` (see the note above): every weight,
-    Conv kernel and GAT attention vector from lecun_normal (fan_in = the
-    product of the flax shape's axes but the last: a Conv's k·in), the
-    hidden-state kernels of the recurrent cells from `orthogonal()`, GIN's
-    `eps` its owner's `eps_init`, AGNN's `beta` 1, every bias 0. Raises on
-    any other param."""
+    Conv kernel, GAT attention vector, RelationConv `basis` / `rel_w` and
+    DGI `bilinear` from lecun_normal (fan_in = the product of the flax
+    shape's axes but the last: a Conv's k·in, a basis' B·in), RelationConv's
+    `coef` from normal(0.1), the hidden-state kernels of the recurrent
+    cells from `orthogonal()`, GIN's `eps` its owner's `eps_init`, AGNN's
+    `beta` 1, every bias 0. Raises on any other param. (A model that
+    declares rng_collections, like GAE, takes the params key from a wider
+    split of the seed's key; with threefry partitionable its first key is
+    the same.)"""
     k0, k1 = _key_words((np.uint32(0), np.uint32(seed)), 1)
     key = (k0[0], k1[0])
     out = {}
@@ -366,6 +374,8 @@ def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
             leaf = np.full(shape, owner.eps_init, np.float32)
         elif kind == "beta":
             leaf = np.ones(shape, np.float32)
+        elif kind == "coef":
+            leaf = (_normal(pkey, shape) * np.float32(0.1)).astype(np.float32)
         elif kind == "kernel" and len(path) > 2 and path[-2] in _RECURRENT \
                 and path[-3].split("_")[0] in ("LSTMCell", "GRUCell"):
             leaf = _orthogonal(pkey, shape)

@@ -55,6 +55,10 @@ PORTED = [
     "euler_tpu_torch.dataflow.whole", "euler_tpu_torch.examples.conv_quality",
     "euler_tpu_torch.nn.cells", "euler_tpu_torch.nn.pooling",
     "euler_tpu_torch.models.graph_clf", "euler_tpu_torch.examples.graph_clf_quality",
+    "euler_tpu_torch.dataflow.layerwise", "euler_tpu_torch.dataflow.relation",
+    "euler_tpu_torch.models.rgcn", "euler_tpu_torch.models.layerwise_models",
+    "euler_tpu_torch.models.autoencoders", "euler_tpu_torch.examples.link_quality",
+    "euler_tpu_torch.examples.run_model",
 ]
 
 

@@ -1,10 +1,11 @@
 """The port's `run_model` CLI on the CPU (`--device cpu`): the JAX runner's
 flags and defaults; every family the port runs (of the supervised
 convs: sage, gcn, gat and agnn; of graph classification: gin on the
-mutag stand-in) trains on the host flow and on the device flow
-(`--device-flow`); train_and_evaluate and evaluate
-for sage, evaluate for the KG family, infer for the embedding family,
-sage and graphsage_unsup, each exiting 0 on `--synthetic` data; the
+mutag stand-in; gae, vgae, dgi, rgcn, fastgcn and adaptivegcn) trains on
+the host flow and on the device flow (`--device-flow`);
+train_and_evaluate and evaluate for sage, rgcn and fastgcn, evaluate for
+the KG family, infer for the embedding family, sage, graphsage_unsup,
+gae, dgi and adaptivegcn, each exiting 0 on `--synthetic` data; the
 modes the JAX runner refuses (or cannot run) and the models the port
 does not run exit with a message (an unported model names its ROADMAP
 item)."""
@@ -61,7 +62,7 @@ def test_flags_and_defaults_follow_the_jax_runner():
 
 
 FAMILIES = ["graphsage_unsup", "deepwalk", "node2vec", "line", "sage", "gcn", "gat", "agnn",
-            "gin", *sorted(KG_MODELS)]
+            "gin", *sorted(KG_MODELS), "gae", "vgae", "dgi", "rgcn", "fastgcn", "adaptivegcn"]
 
 
 @pytest.mark.parametrize("flow", ["host", "device"])
@@ -78,6 +79,15 @@ def test_train_exits_zero(cache, model, flow, capsys):
 def test_train_and_evaluate_exits_zero(cache, flow, capsys):
     extra = ["--device-flow"] if flow == "device" else []
     assert _run(cache, "sage", *extra, mode="train_and_evaluate") == 0
+    out = capsys.readouterr().out
+    assert "'loss'" in out and "'f1'" in out
+
+
+@pytest.mark.parametrize("model", ["rgcn", "fastgcn"])
+@pytest.mark.parametrize("flow", ["host", "device"])
+def test_new_families_train_and_evaluate_exit_zero(cache, flow, model, capsys):
+    extra = ["--device-flow"] if flow == "device" else []
+    assert _run(cache, model, *extra, mode="train_and_evaluate") == 0
     out = capsys.readouterr().out
     assert "'loss'" in out and "'f1'" in out
 
@@ -100,11 +110,28 @@ def test_evaluate_and_infer_exit_zero(cache, capsys):
         assert np.load(os.path.join(cache, f"{model}_cora", "embedding_0.npy")).shape[1] == 8
 
 
+def test_new_families_evaluate_and_infer_exit_zero(cache, capsys):
+    """After a train of each: evaluate for rgcn and fastgcn, infer for
+    gae, dgi and adaptivegcn (on the device-flow runs' checkpoints for gae
+    and dgi)."""
+    for model, extra in (("rgcn", ()), ("fastgcn", ()), ("adaptivegcn", ()),
+                         ("gae", ("--device-flow",)), ("dgi", ("--device-flow",))):
+        assert _run(cache, model, *extra) == 0
+    for model in ("rgcn", "fastgcn"):
+        assert _run(cache, model, mode="evaluate") == 0
+        assert "'f1'" in capsys.readouterr().out
+    for model in ("gae", "dgi", "adaptivegcn"):
+        assert _run(cache, model, mode="infer") == 0
+        emb = np.load(os.path.join(cache, f"{model}_cora", "embedding_0.npy"))
+        assert emb.shape[1] == 8 and np.isfinite(emb).all()
+
+
 @pytest.mark.parametrize("model, mode", [
     ("graphsage_unsup", "evaluate"), ("graphsage_unsup", "train_and_evaluate"),
     ("deepwalk", "evaluate"), ("deepwalk", "train_and_evaluate"),
     ("line", "train_and_evaluate"), ("transe", "train_and_evaluate"), ("transe", "infer"),
-    ("gin", "evaluate"), ("set2set", "infer")])
+    ("gin", "evaluate"), ("set2set", "infer"), ("gae", "evaluate"),
+    ("vgae", "train_and_evaluate"), ("dgi", "evaluate")])
 def test_modes_the_jax_runner_refuses_exit_with_a_message(cache, tmp_path, model, mode):
     """Refused before a checkpoint is asked for: the model dir is empty."""
     with pytest.raises(SystemExit, match=f"mode '{mode}' is not supported for model '{model}'"):
@@ -120,10 +147,9 @@ def test_refusals(cache, tmp_path):
         with pytest.raises(SystemExit, match="ROADMAP queue 1 item") as e:
             _run(cache, model)
         assert item in str(e.value)
-    with pytest.raises(SystemExit, match="item 4 .GAE/DGI"):
-        _run(cache, "gae")
-    assert not {"agnn", "dna", "gated", "geniepath", "lgcn", "gin", "set2set",
-                "gated_graph", "graphgcn"} & set(NOT_PORTED)
+    with pytest.raises(SystemExit, match="item 4 .ScalableGNN"):
+        _run(cache, "scalable_gcn")
+    assert set(NOT_PORTED) == {"scalable_gcn", "scalable_sage"}
     with pytest.raises(SystemExit, match="unknown model"):
         _run(cache, "nope")
     with pytest.raises(SystemExit, match="item 6"):
@@ -141,15 +167,34 @@ def test_link_quality_recipes_run(monkeypatch):
     import euler_tpu_torch.examples.link_quality as lq
     from euler_tpu_torch.graph import Graph
 
-    for name in ("LINE_STEPS", "DEEPWALK_STEPS", "TRANSE_STEPS"):
+    for name in ("LINE_STEPS", "DEEPWALK_STEPS", "TRANSE_STEPS", "GAE_STEPS"):
         monkeypatch.setattr(lq, name, 3)
     g = Graph.from_json(datasets.cora_like_json(num_nodes=300, feature_dim=16,
                                                 train_per_class=5, val_n=20, test_n=20))
     for name, band in (("line", lq.LINE_BAND), ("deepwalk", lq.DEEPWALK_BAND)):
         q = lq.skipgram_quality(name, "cpu", graph=g)
         assert q["steps"] == 3 and q["band"] == band and 0 < q["mrr"] <= 1
+    for name in ("gae", "vgae"):
+        q = lq.gae_quality(name, "cpu", graph=g)
+        assert q["steps"] == 3 and q["band"] == lq.GAE_BANDS[name] and 0 <= q["auc"] <= 1
     full = datasets.fb15k_like
     monkeypatch.setattr(datasets, "fb15k_like", lambda: full(n_train=1000, n_test=20))
     q = lq.transe_quality("cpu")
     assert q["steps"] == 3 and 1 <= q["trained"]["mean_rank"] <= 2000
     assert isinstance(q["in_band"], bool)
+
+
+def test_layerwise_quality_recipes_run(monkeypatch):
+    """`examples/conv_quality.py`'s layer-wise recipes (the JAX quality
+    tests'), cut to 3 steps on a small stand-in: each reports its F1 and
+    band."""
+    import euler_tpu_torch.examples.conv_quality as cq
+    from euler_tpu_torch.datasets import cora_like_json
+    from euler_tpu_torch.graph import Graph
+
+    j = cora_like_json(num_nodes=300, feature_dim=16, train_per_class=5, val_n=20, test_n=20)
+    data = Graph.from_json(j), np.asarray([n["type"] for n in j["nodes"]])
+    for name, r in cq.LAYERWISE_RECIPES.items():
+        monkeypatch.setitem(cq.LAYERWISE_RECIPES, name, r._replace(steps=3))
+        q = cq.layerwise_quality(name, "cpu", data)
+        assert q["steps"] == 3 and q["band"] == r.band and 0 <= q["f1"] <= 1

@@ -1,7 +1,8 @@
 """euler_tpu_torch constructors (and `Graph.load`, `InferenceRuntime.swap`
 and the batch sources, walks, KG evaluations and graph builders of the
 link-prediction families, the graph-label queries and the mutag
-stand-in) take the JAX package's parameters in its order
+stand-in, the layer-wise, relation and auto-encoder families' flows,
+batches and models) take the JAX package's parameters in its order
 and under its names, so a caller's positional arguments mean the
 same thing in both packages. Port-only parameters (`device`) are
 keyword-only. The one deliberate difference: the torch modules take their
@@ -19,6 +20,22 @@ from euler_tpu.dataflow import DeviceKGFlow as JaxDeviceKGFlow
 from euler_tpu.dataflow import DeviceSageFlow as JaxDeviceSageFlow
 from euler_tpu.dataflow import DeviceUnsupSageFlow as JaxDeviceUnsupSageFlow
 from euler_tpu.dataflow import DeviceWalkFlow as JaxDeviceWalkFlow
+from euler_tpu.dataflow import DeviceDgiFlow as JaxDeviceDgiFlow
+from euler_tpu.dataflow import DeviceGaeFlow as JaxDeviceGaeFlow
+from euler_tpu.dataflow import DeviceLayerwiseFlow as JaxDeviceLayerwiseFlow
+from euler_tpu.dataflow import DeviceRelationFlow as JaxDeviceRelationFlow
+from euler_tpu.dataflow import LayerwiseDataFlow as JaxLayerwiseDataFlow
+from euler_tpu.dataflow import RelationDataFlow as JaxRelationDataFlow
+from euler_tpu.dataflow.layerwise import LayerwiseBatch as JaxLayerwiseBatch
+from euler_tpu.dataflow.relation import RelMiniBatch as JaxRelMiniBatch
+from euler_tpu.graph.store import layerwise_from_full as jax_layerwise_from_full
+from euler_tpu.layers import RelationConv as JaxRelationConv
+from euler_tpu.models import DGI as JaxDGI
+from euler_tpu.models import GAE as JaxGAE
+from euler_tpu.models import LayerwiseGCN as JaxLayerwiseGCN
+from euler_tpu.models import RGCNSupervised as JaxRGCNSupervised
+from euler_tpu.models import dgi_batches as jax_dgi_batches
+from euler_tpu.models import gae_batches as jax_gae_batches
 from euler_tpu.dataflow.walk import gen_pair as jax_gen_pair
 from euler_tpu.datasets import get_dataset as jax_get_dataset
 from euler_tpu.datasets.quality import cora_like_json as jax_cora_like_json
@@ -79,6 +96,14 @@ from euler_tpu.serving import ServingClient as JaxServingClient
 from euler_tpu.serving import ServingRouter as JaxServingRouter
 from euler_tpu.serving import TenantQuota as JaxTenantQuota
 from euler_tpu_torch.dataflow import (
+    DeviceDgiFlow,
+    DeviceGaeFlow,
+    DeviceLayerwiseFlow,
+    DeviceRelationFlow,
+    LayerwiseBatch,
+    LayerwiseDataFlow,
+    RelationDataFlow,
+    RelMiniBatch,
     DeviceEdgeFlow,
     DeviceKGFlow,
     DeviceSageFlow,
@@ -99,6 +124,8 @@ from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator
 from euler_tpu_torch.estimator import edge_batches, unsupervised_batches
 from euler_tpu_torch.graph import Graph, build_from_json, convert_json
 from euler_tpu_torch.graph.native import NativeGraphStore
+from euler_tpu_torch.graph.store import GraphStore, layerwise_from_full
+from euler_tpu.graph.store import GraphStore as JaxGraphStore
 from euler_tpu_torch.layers import (
     AGNNConv,
     APPNPConv,
@@ -111,11 +138,18 @@ from euler_tpu_torch.layers import (
     GINConv,
     GraphConv,
     LGCNConv,
+    RelationConv,
     SAGEConv,
     SGCNConv,
     TAGConv,
 )
 from euler_tpu_torch.models import (
+    DGI,
+    GAE,
+    LayerwiseGCN,
+    RGCNSupervised,
+    dgi_batches,
+    gae_batches,
     GraphClassifier,
     GraphSAGESupervised,
     GraphSAGEUnsupervised,
@@ -219,13 +253,32 @@ PAIRS = [
     (get_dataset, jax_get_dataset),
     (cora_like_json, jax_cora_like_json),
     (fb15k_like, jax_fb15k_like),
+    (layerwise_from_full, jax_layerwise_from_full),
+    (GraphStore.sample_neighbor_layerwise, JaxGraphStore.sample_neighbor_layerwise),
+    (Graph.sample_neighbor_layerwise, JaxGraph.sample_neighbor_layerwise),
+    (NativeGraphStore.sample_neighbor_layerwise, JaxNativeGraphStore.sample_neighbor_layerwise),
+    (LayerwiseDataFlow, JaxLayerwiseDataFlow),
+    (RelationDataFlow, JaxRelationDataFlow),
+    (LayerwiseBatch, JaxLayerwiseBatch),
+    (RelMiniBatch, JaxRelMiniBatch),
+    (RelationConv, JaxRelationConv),
+    (RGCNSupervised, JaxRGCNSupervised),
+    (LayerwiseGCN, JaxLayerwiseGCN),
+    (GAE, JaxGAE),
+    (DGI, JaxDGI),
+    (gae_batches, jax_gae_batches),
+    (dgi_batches, jax_dgi_batches),
+    (DeviceRelationFlow, JaxDeviceRelationFlow),
+    (DeviceLayerwiseFlow, JaxDeviceLayerwiseFlow),
+    (DeviceGaeFlow, JaxDeviceGaeFlow),
+    (DeviceDgiFlow, JaxDeviceDgiFlow),
 ]
 # the torch modules' input width, which flax infers at init
 IN_DIM_FIRST = (SAGEConv, GCNConv, GATConv, GraphConv, APPNPConv, SGCNConv, TAGConv, ARMAConv,
                 GINConv, AGNNConv, DNAConv, GatedGraphConv, GeniePathConv, LGCNConv,
                 Pooling, AttentionPool, Set2SetPool, GraphClassifier,
                 GNNNet, GraphSAGESupervised, SuperviseModel, UnsuperviseModel,
-                GraphSAGEUnsupervised)
+                GraphSAGEUnsupervised, RelationConv, RGCNSupervised, LayerwiseGCN, GAE, DGI)
 # flax.linen.Module's own dataclass fields
 FLAX_FIELDS = ("parent", "name")
 
