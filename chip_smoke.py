@@ -63,8 +63,8 @@ Phases, each of which raises (exit code != 0) when it fails:
      Then the median step time, the device idle share and the kernel
      launches a step over 10 profiled steps; paged_sample_hop per hop on
      the path's tables, rows and draws (held bitwise first), cycled past the
-     L2 and L2-warm (200 calls), against its plain version and the
-     composition of kernels 2-4 it replaced (mode 'cuda'; 50 calls each)
+     L2 and L2-warm (100 calls), against its plain version and the
+     composition of kernels 2-4 it replaced (mode 'cuda'; 25 calls each)
      and its bound; then `train_grouped`:
      the 20 steps again at steps_per_call 16 (one call of 16 and a
      remainder of 4; the first step eager, then 19 replays of the
@@ -165,7 +165,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      10,10, batch 1024, layout auto: dense), DeviceFeatureCache, dims
      128,128, adam lr 0.01 — at steps_per_call 1 and 64, f32 and bf16
      convs: 128 warm-up steps (K = 64's losses within 1e-4 of K = 1's),
-     then 15 calls of 64 steps with exactly 3 gather_weighted_sum and 1
+     then 8 calls of 64 steps with exactly 3 gather_weighted_sum and 1
      gather_weighted_sum_dx launches a step (one capture at K = 64, whose
      launches times its replays are the counts), and
      graphsage_sampled_edges_per_sec_per_chip (bench.py:350-355's 112 640
@@ -178,7 +178,7 @@ Phases, each of which raises (exit code != 0) when it fails:
      SageDataFlow(fanouts 10,10, feature_mode rows, lean) shipping int32
      rows, 1 024 roots a batch, Prefetcher(stack_batches(batch_fn, 16),
      depth 4, workers 4, device_put), bf16 convs, steps_per_call 16 — 32
-     warm-up steps then 30 calls of 16 steps with exactly 3
+     warm-up steps then 15 calls of 16 steps with exactly 3
      gather_weighted_sum and 1 dx launches a step:
      graphsage_sampled_edges_per_sec_per_chip, the median call, idle share,
      H2D time, kernels on the card a step, the engine's calls and ms a
@@ -283,7 +283,9 @@ Phases, each of which raises (exit code != 0) when it fails:
      = W·x_src with its softmax weights, and h_src carries a gradient in
      every conv call), the other convs none; the first 3 steps in mode
      ref on the card and 2 on the CPU from the card's draws (bitwise
-     batches, losses within 1e-4 relative); GCN, GAT, GeniePath and LGCN
+     batches, losses within 1e-4 relative; LGCN's 2 by sgd on both, a card
+     run of their own: its second adam loss is ~2e-12, whose relative
+     value is the logits' rounding amplified); GCN, GAT, GeniePath and LGCN
      at steps_per_call 16 (replays, the same launches, losses within 1e-4
      of K = 1's); calls of 8 steps timed (median step, device ms, idle
      share, the port's kernels on the card a step) at K = 1, and at K =
@@ -346,7 +348,32 @@ Phases, each of which raises (exit code != 0) when it fails:
      with and without --device-flow, then evaluate (rgcn, fastgcn) and
      infer (gae, dgi, adaptivegcn): each exits 0. Its processes run
      among phase 20's, all started together (one wave of 28 trainings
-     instead of two).
+     instead of two). The wave also trains graphsage and gae with
+     --device-flow --remat, and for gcn and gat runs `tools/train.py
+     --conv` on phase 4's graph dir (dims 128,128, 20 steps), then
+     `tools/serve.py --conv` on its checkpoint (--full-neighbor, bucket
+     128) answering one request of 16 ids over TCP and stopped by SIGINT:
+     every process exits 0;
+ 27. `serve_cache`, the JAX package's production serving configuration on
+     phase 13's cell — its checkpoint at bucket 128 over SageDataFlow(
+     fanouts 10,10, feature_mode rows) and a DeviceFeatureCache in f32,
+     bf16 and int8 pages, the f32 table also staged in chunks of 50 000
+     rows (bitwise the one-transfer table): the bf16 and int8 tables
+     within the codec's `quant_error_budget` of the f32 rows; for each
+     page type predict bitwise the port's own `Estimator.infer` over the
+     same cache, exactly 3 kernel-1 launches a predict and no dx; f32
+     within 1e-5 of the dense-feature runtime's rows; the median predict,
+     device ms a predict, H2D bytes a batch and the idle share; then over
+     TCP (f32) 16 clients x 20 requests of 16 ids, requests/s and p99
+     beside `serve_tcp`'s dense figures;
+ 28. `remat_train`, phase 5's paged lane (after `train_grouped`) with
+     GraphSAGESupervised(remat=True): 20 steps from the main run's init
+     and draws at steps_per_call 1 and 16, losses within 1e-6 relative of
+     the runs without remat, exactly 6 gather_weighted_sum launches a step
+     (3 forward, 3 recomputed in the backward pass: each checkpointed conv
+     call), 1 dx and 2 paged_sample_hop; peak device memory with and
+     without remat; calls of 8 steps timed with and without (the port's
+     kernels on the card a step held by profiler record).
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
@@ -375,6 +402,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
 import itertools
 import json
 import math
@@ -410,7 +438,7 @@ SERVE_TOL = 1e-4
 TRAIN_NODES, TRAIN_GRAPH_SEED, TRAIN_FEAT = 200_000, 13, 16
 TRAIN_BATCH, TRAIN_FANOUTS, TRAIN_DIMS, PAGE_SIZE = 1024, [10, 10], [128, 128], 16
 TRAIN_STEPS, REF_STEPS, CPU_STEPS, F32_STEPS = 20, 3, 2, 3
-TIMED_STEPS, PROFILED_STEPS = 15, 10
+TIMED_STEPS, PROFILED_STEPS = 10, 10
 TRAIN_TOL = 1e-4
 PAGED_KERNELS = ("paged_gather", "paged_gather_dequant", "paged_cdf_count")
 # kernel 2-4h, one hop of the paged draw, and the graph of its sweep: hubs
@@ -420,7 +448,7 @@ HOP_KERNEL = "paged_sample_hop"
 HOP_NODES, HOP_GRAPH_SEED, HOP_HUBS = 3000, 21, (256, 257, 270, 600, 4200)
 HOP_PAGE_SIZES = (1, 8, 16, 128)
 HOP_KS = (1, 3, 10, 12, 17, 33)
-HOP_SLOW_ITERS = 50  # calls of the plain hop and the composition in their timing
+HOP_SLOW_ITERS = 25  # calls of the plain hop and the composition in their timing
 # one DRAM sector: the least a gather of one 4-byte word moves
 SECTOR_BYTES = 32
 
@@ -432,7 +460,7 @@ RETR_BUCKETS = (1, 4, 16, 64)
 RETR_FILTER = [[["cat", "in", [0, 2]]]]
 RETR_HOT, RETR_COPIES = 8, 80
 RETR_ORACLE_BUCKET, RETR_ORACLE_EXTRA = 16, (16, 31, 47, 63)
-RETR_TIMED, RETR_PROFILED, RETR_WARM_ROWS = 20, 10, 65_536
+RETR_TIMED, RETR_PROFILED, RETR_WARM_ROWS = 10, 10, 65_536
 # the retrieval front end: bench.py's retrieval lane at its accelerator
 # sizes (bench.py:1151-1223: 20 000 x 64 cosine from default_rng(17), 2
 # shards x 1 replica, 300 queries of 4, k 32, filter cat in {0, 2}); then
@@ -449,6 +477,10 @@ TOPK_SWEEP_DP = (1, 8, 32, 64, 128, 256)
 TOPK_SWEEP_ROWS = (1, 127, 1001, 100_003)
 TOPK_SWEEP_B = (1, 2, 3, 8, 16, 20, 64, 65)  # every block shape of the scorer
 PROFILE_WINDOWS = 3
+# a kernel timing (`_time_ms`): the fullest of 2 profiled windows, and at
+# least TIMED_ITERS calls a loop (more where the input sets cycled past the
+# L2 outnumber them)
+TIME_WINDOWS, TIMED_ITERS = 2, 100
 SELECT_TILES = (1024, 8192)
 SELECT_ROWS = (1, 1000, 10_007, 100_003)
 SELECT_BP, SELECT_B = 16, 13
@@ -458,7 +490,7 @@ SELECT_BP, SELECT_B = 16, 13
 # (euler_tpu/tools/train.py) on the same products-like graph
 NS_FEAT, NS_CLASSES, NS_DIMS, NS_FANOUTS, NS_BATCH = 100, 47, [128, 128], [10, 5], 128
 NS_STEPS, NS_EVAL, NS_EVAL_BATCH, NS_F1_BAND = 500, 5000, 500, (0.74, 0.84)
-NS_TIMED, NS_PROFILED, NS_SAME_STEPS = 30, 10, 20
+NS_TIMED, NS_PROFILED, NS_SAME_STEPS = 15, 10, 20
 CLI_MAX_DEGREE, CLI_CADENCE, CLI_STEPS, CLI_COUNTED = 10, 10, 40, 5
 CLI_WAIT_S = 300  # bound on every wait for a trainer process
 INFER_IDS, INFER_BUCKET = 1000, 128
@@ -476,19 +508,19 @@ HOST_SHAPES = (("ns layer0 hop0", 128, 10, 100), ("ns layer0 hop1", 1280, 5, 100
 # (seed 0), DeviceSageFlow(fanouts 10,10, batch 1024, layout auto -> dense),
 # DeviceFeatureCache, dims 128,128, adam lr 0.01, 2K warm-up steps then 15
 # calls of K = 64, at K 1 and 64, f32 and bf16 convs
-GROUP_K, GROUP_CALLS = 16, 10
+GROUP_K, GROUP_CALLS = 16, 5
 HEAD_NODES, HEAD_DEGREE, HEAD_FEAT, HEAD_SEED = 200_000, 15, 64, 0
 HEAD_BATCH, HEAD_FANOUTS, HEAD_DIMS, HEAD_K = 1024, [10, 10], [128, 128], 64
-HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 15
+HEAD_WARMUP, HEAD_CALLS = 2 * HEAD_K, 8
 # the host headline cell, bench.py's host training leg (bench.py:1806-1870
 # with the device flow off, :293-364): the headline's graph written to a
 # graph dir and served by the native engine, SageDataFlow(fanouts 10,10,
 # feature_mode rows, lean) into DeviceFeatureCache, 1 024 roots a batch
 # from default_rng(SeedSequence([17, n])), Prefetcher(stack_batches(
 # batch_fn, 16), depth 4, workers 4, device_put), bf16 convs, adam lr 0.01,
-# 2K warm-up steps then 30 calls of K = 16; again with workers 1
+# 2K warm-up steps then 15 calls of K = 16; again with workers 1
 HH_K, HH_DEPTH, HH_WORKERS, HH_ROOT_SEED = 16, 4, (4, 1), 17
-HH_WARMUP, HH_CALLS, HH_TIMED = 2 * HH_K, 30, 20
+HH_WARMUP, HH_CALLS, HH_TIMED = 2 * HH_K, 15, 20
 # the rows-lane self-checks: steps of lean batches at K = 16 against K = 1
 LANE_STEPS = 16
 # the serving front end: bench.py's serving lane at its accelerator sizes
@@ -516,15 +548,25 @@ CARD_KERNELS = {"gather_weighted_sum": "::gws_kernel<", "gather_weighted_sum_dx"
 # phase 4's serving graph, the TransX family at FB15k's shape, and the JAX
 # package's quality bands (tests/test_quality.py:467-546) on its stand-ins
 UNSUP_BATCH, UNSUP_NEGS, UNSUP_STEPS, UNSUP_HOST_STEPS = 512, 5, 20, 3
-UNSUP_K, UNSUP_CALLS = 8, 5
+UNSUP_K, UNSUP_CALLS = 8, 3
 # launches an unsupervised step: paged_sample_hop once for the pos draw and
 # once a hop of each of the three fanouts (src, pos, negs); kernel 1 three
 # a MiniBatch (layer 0 over hops 0 and 1, layer 1 over hop 0) and its dx
 # one a MiniBatch (layer 1's x carries a gradient, layer 0's are features)
 UNSUP_PER_STEP = {HOP_KERNEL: 1 + 3 * len(TRAIN_FANOUTS), "gather_weighted_sum": 9,
                   "gather_weighted_sum_dx": 3}
+# phase 27, serving through the feature cache: phase 13's graph, flow
+# seed and 1-step checkpoint at bucket 128 over a rows-mode flow, one
+# cache a page type (f32 also staged in chunks of 50 000 rows); 20 timed
+# predicts a type, 16 clients x 20 requests of 16 ids over TCP (f32)
+CACHE_QUANTS, CACHE_CHUNK_ROWS, CACHE_TIMED, CACHE_REQS = ("f32", "bf16", "int8"), 50_000, 20, 20
+CACHE_TOL = 1e-5
+# phase 28, remat on phase 5's lane: each wrapped conv call recomputes its
+# forward in the backward pass, one more kernel-1 launch a call
+REMAT_PER_STEP = {HOP_KERNEL: 2, "gather_weighted_sum": 6, "gather_weighted_sum_dx": 1}
+REMAT_TOL, REMAT_K, REMAT_CALLS = 1e-6, 8, 3
 SG_BATCH, SG_NEGS, SG_DIM, SG_WALK, SG_WINDOW, SG_STEPS, SG_CPU_STEPS = 512, 5, 128, 5, 2, 20, 2
-SG_K, SG_CALLS = 8, 5
+SG_K, SG_CALLS = 8, 3
 N2V_P, N2V_Q = 0.5, 2.0
 KG_ENT, KG_REL, KG_TRIPLES, KG_SEED = 14_951, 1_345, 483_142, 5
 KG_DIM, KG_BATCH, KG_NEGS, KG_STEPS, KG_CPU_STEPS = 100, 512, 8, 20, 2
@@ -532,6 +574,11 @@ KGR_QUERIES, KGR_K, KGR_BUCKETS = 16, 10, (1, 4, 16)
 CLI_RM_MODELS = ("graphsage_unsup", "deepwalk", "line", "transe", "gcn", "gat", "agnn", "gin",
                  "gae", "vgae", "dgi", "rgcn", "fastgcn", "adaptivegcn")
 CLI_RM_STEPS = 20
+# run_model --remat (--device-flow) of two conv families, and two convs
+# through the trainer CLI then the serve CLI (--full-neighbor, bucket 128,
+# one request of 16 ids, stopped by SIGINT) on phase 4's graph
+CLI_REMAT = ("graphsage", "gae")
+CLI_CONVS, CLI_CONV_STEPS = ("gcn", "gat"), 20
 # the dataset each CLI model trains on (cora otherwise)
 CLI_RM_DATASETS = {"transe": "fb15k", "gin": "mutag"}
 # the kernels line's paths of phase 16 and the launch counts each reads
@@ -545,22 +592,25 @@ CONV_NAMES = ("gcn", "gat", "graph", "appnp", "sgcn", "tagcn", "arma",
               "agnn", "dna", "gated", "geniepath", "lgcn")
 CONV_KWARGS = {"gat": {"improved": True}}
 CONV_GROUPED = ("gcn", "gat", "geniepath", "lgcn")
-CONV_K, CONV_CALLS = 8, 5
+# LGCN's card-vs-CPU steps by sgd (see `_model_checks`): since the loss is
+# optax's form, its second adam step's loss is ~2e-12 and not rounded to 0
+CONV_CPU_OPTIMIZER = {"lgcn": "sgd"}
+CONV_K, CONV_CALLS = 8, 3
 # a GAT step launches kernel 1 once a conv call (layer 0 over hops 0 and 1,
 # layer 1 over hop 0) and its dx as often: h_src = W·x_src carries a
 # gradient in every call, where SAGE's layer-0 x are features; the other
-# convs gather and scatter with index_select / index_add_, LGCN's top k is
-# a sort and GatedGraph's and GeniePath's cells are Linears (XLA ops in
-# the JAX package, never Pallas): they launch neither
+# convs gather and scatter with `ops.mp_ops` (indexing, index_put_), LGCN's
+# top k is a sort and GatedGraph's and GeniePath's cells are Linears (XLA
+# ops in the JAX package, never Pallas): they launch neither
 CONV_PER_STEP = {"gat": {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 3}}
 # the share of GAT's grid slots kept by the mask in the kernel timings
 GAT_KEEP = 0.9
 # graph classification (phase 23): GIN + add through DeviceWholeGraphFlow
 # on the mutag stand-in, the quality recipe's batch and padding
-GCLF_BATCH, GCLF_STEPS, GCLF_K, GCLF_CALLS = 16, 20, 8, 5
+GCLF_BATCH, GCLF_STEPS, GCLF_K, GCLF_CALLS = 16, 20, 8, 3
 # the rest of the sampled zoo (phases 24-26): GAE / VGAE / DGI on phase 5's
 # paged lane, RGCN and LayerwiseGCN on a typed copy of phase 4's graph
-ZOO_FANOUTS, ZOO_BATCH, ZOO_DIMS, ZOO_STEPS, ZOO_K, ZOO_CALLS = [10], 1024, [128], 20, 8, 5
+ZOO_FANOUTS, ZOO_BATCH, ZOO_DIMS, ZOO_STEPS, ZOO_K, ZOO_CALLS = [10], 1024, [128], 20, 8, 3
 TYPED_TYPES, TYPED_SEED = 4, 7
 REL_BATCH, REL_FANOUT, REL_HOPS, REL_BASES = 512, 5, 2, 4
 LW_BATCH, LW_SIZES, TYPED_DIMS = 512, [256, 256], [128, 128]
@@ -847,7 +897,7 @@ def serve(torch, data_dir: str, model_dir: str | None, seed: int) -> dict:
             "launches_dx": launches["gather_weighted_sum_dx"], "req_rng": req_rng}
 
 
-def time_predict(rt, req_rng, reps: int = 30) -> dict:
+def time_predict(rt, req_rng, reps: int = 20) -> dict:
     """Median predict latency per bucket (host clock; predict returns
     host numpy, so each call ends synchronised), and its host-side
     sampling share."""
@@ -948,7 +998,7 @@ def _time_ms(torch, fn, sets, iters: int) -> dict:
         torch.cuda.synchronize()
 
     counts = {}
-    kernels, _ = _profile_window(torch, loop, counts=counts)
+    kernels, _ = _profile_window(torch, loop, windows=TIME_WINDOWS, counts=counts)
     return {"device_ms": sum(kernels.values()) / 1e3 / iters,
             "loop_ms": loop_ms, "device_kernels": sorted(k[:60] for k in kernels),
             "device_ops_per_call": sum(counts.values()) / iters}
@@ -1011,11 +1061,11 @@ def time_kernels(torch, gen, shapes, what: str, bf16: tuple = (), attention: boo
         if not torch.allclose(out, ref, rtol=KERNEL_TOL, atol=KERNEL_TOL):
             raise AssertionError(f"gather_weighted_sum disagrees with its plain version at "
                                  f"{what} {label}: max abs err {err}")
-        iters = max(200, 2 * copies)
+        iters = max(TIMED_ITERS, copies)
         kern = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum(x, s, w, "cuda"),
                         sets, iters)
         warm = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum(x, s, w, "cuda"),
-                        sets[:1], 200)
+                        sets[:1], TIMED_ITERS)
         plain = _time_ms(torch, lambda x, s, w, sl, wl: gather_weighted_sum_ref(x, s, w),
                          sets, iters)
         lib = _time_ms(
@@ -1094,14 +1144,14 @@ def time_dx(torch, gen, shapes, what: str, dtype=None, attention: bool = False) 
                            _bits(torch, gather_weighted_sum_dx_ref(w, g, slots, n_src, dtype))):
             raise AssertionError(f"gather_weighted_sum_dx is not bitwise the plain backward "
                                  f"at {what} {label}")
-        iters = max(200, 2 * copies)
+        iters = max(TIMED_ITERS, copies)
         timed = {
             "plain": _time_ms(torch, lambda g, s, w, t, o, gl: gather_weighted_sum_dx_ref(
                 w, g, s, n_src, dtype), sets, iters),
             "library": _time_ms(torch, lambda g, s, w, t, o, gl: torch.autograd.grad(
                 o, t, gl, retain_graph=True), sets, iters),
             "kernel": _time_ms(torch, run, sets, iters),
-            "warm": _time_ms(torch, run, sets[:1], 200),
+            "warm": _time_ms(torch, run, sets[:1], TIMED_ITERS),
         }
         if timed["kernel"]["device_ms"] <= 0:
             raise AssertionError("the profiler saw no device time for the dx kernel")
@@ -1417,10 +1467,10 @@ def _assert_same_batches(torch, got, want, what: str) -> int:
     return len(got)
 
 
-def _assert_close(got, want, what: str) -> float:
+def _assert_close(got, want, what: str, tol: float = TRAIN_TOL) -> float:
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
     err = float(np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-12)))
-    if got.shape != want.shape or not err <= TRAIN_TOL:
+    if got.shape != want.shape or not err <= tol:
         raise AssertionError(f"{what}: losses {got.tolist()} against {want.tolist()}")
     return err
 
@@ -1790,7 +1840,7 @@ def time_paged_kernels(torch, calls, card: str) -> list:
             nbytes = _sectors(torch, words) * SECTOR_BYTES + 2 * 4 * n
             ops_count = n
             shape = tuple(fidx.shape)
-        iters = max(200, 2 * copies)
+        iters = max(TIMED_ITERS, copies)
         tk = _time_ms(torch, kern, sets, iters)
         tp = _time_ms(torch, plain, sets, iters)
         tl = _time_ms(torch, lib, sets, iters) if lib is not None else None
@@ -1883,7 +1933,7 @@ def time_hop_kernel(torch, hops, card: str) -> list:
         sets = [(ti, cur.clone(), draw.clone()) for ti in tables]
         kern = lambda t, c, d: paged_sample_hop(t, c, d, "cuda")  # noqa: E731
         comp = lambda t, c, d: _compose_hop(t, c, d, "cuda")  # noqa: E731
-        iters = max(200, 2 * copies)
+        iters = max(TIMED_ITERS, copies)
         # the plain hop and the superseded composition issue dozens of
         # small launches a call: fewer calls time them as well
         slow_iters = max(HOP_SLOW_ITERS, copies)
@@ -3444,6 +3494,249 @@ def serve_tcp(torch, graph, tmp: str, card: str) -> dict:
     return {"result": res, "cfg": cfg, "model": model}
 
 
+def _h2d_bytes(batch) -> int:
+    """Bytes `to_device` moves for one host batch: each distinct array
+    once, hop_ids left on the host."""
+    import dataclasses
+
+    arrays = {}
+
+    def walk(x):
+        if isinstance(x, tuple):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                if f.name != "hop_ids":
+                    walk(getattr(x, f.name))
+        elif isinstance(x, np.ndarray):
+            arrays[id(x)] = x.nbytes
+
+    walk(batch)
+    return sum(arrays.values())
+
+
+def serve_cache(torch, graph, tcp: dict, card: str) -> dict:
+    """Phase 27: the JAX package's production serving configuration —
+    phase 13's checkpoint at bucket 128 over SageDataFlow(fanouts 10,10,
+    feature_mode rows) and a DeviceFeatureCache in f32, bf16 and int8
+    pages (f32 also staged in chunks): chunked table bitwise the whole
+    one; each type's quantized table within the codec's budget of the f32
+    rows; predict bitwise the port's own `Estimator.infer` over the same
+    cache, f32 within 1e-5 of the dense runtime's rows; 3 kernel-1
+    launches a predict, no dx. Reports per type the median predict, the
+    device ms a predict, the H2D bytes a batch and the idle share; then
+    over TCP (f32) 16 clients x 20 requests of 16 ids."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.dataflow import SageDataFlow
+    from euler_tpu_torch.distributed.codec import quant_error_budget
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, id_batches
+    from euler_tpu_torch.serving import InferenceRuntime, ModelServer, ServingClient
+
+    ops.set_kernel_mode("auto")
+    dims = [int(x) for x in DIMS.split(",")]
+
+    def flow(mode: str):
+        return SageDataFlow(graph, ["feat"], fanouts=TCP_FANOUTS, label_feature="label",
+                            feature_mode=mode, rng=np.random.default_rng(TCP_FLOW_SEED))
+
+    t0 = time.perf_counter()
+    caches = {q: DeviceFeatureCache(graph, ["feat"], quant=q, device="cuda")
+              for q in CACHE_QUANTS}
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    chunked = DeviceFeatureCache(graph, ["feat"], quant="f32",
+                                 stage_chunk_rows=CACHE_CHUNK_ROWS, device="cuda")
+    torch.cuda.synchronize()
+    chunked_s = time.perf_counter() - t0
+    if not torch.equal(chunked.table, caches["f32"].table):
+        raise AssertionError("the chunk-staged f32 table differs from the one-transfer table")
+    del chunked
+    exact = caches["f32"].table
+    host = exact.cpu().numpy()
+    rows = torch.arange(exact.shape[0], device=exact.device)
+    quant_err = {}
+    for q in ("bf16", "int8"):
+        err = (caches[q].gather(rows) - exact).abs()
+        limit = torch.from_numpy(quant_error_budget(q, host)).to(exact.device)
+        if bool((err > limit[:, None]).any()):
+            raise AssertionError(f"the {q} cache's rows leave the codec's error budget")
+        quant_err[q] = float(err.max())
+    del rows, host
+
+    dense_rt = InferenceRuntime(tcp["model"], flow("dense"), tcp["cfg"], buckets=(TCP_BUCKET,),
+                                device="cuda")
+    req_rng = np.random.default_rng(TCP_FLOW_SEED + 1)
+    timed = [req_rng.integers(1, NUM_NODES + 1, size=TCP_BUCKET).astype(np.uint64)
+             for _ in range(CACHE_TIMED + 3)]
+    check_ids = req_rng.integers(1, NUM_NODES + 1, size=2 * TCP_BUCKET + 7).astype(np.uint64)
+    dense_rt.flow.rng = np.random.default_rng(TCP_FLOW_SEED)
+    dense_rows = dense_rt.predict(check_ids)
+    dense_bytes = _h2d_bytes(dense_rt.flow.query_padded(timed[0], TCP_BUCKET)[0])
+    per_type, launches_by_type = {}, {}
+    for q in CACHE_QUANTS:
+        rt = InferenceRuntime(tcp["model"], flow("rows"), tcp["cfg"], feature_cache=caches[q],
+                              buckets=(TCP_BUCKET,), device="cuda")
+        if rt._embed is not rt._est.embed_program():
+            raise AssertionError("the runtime does not serve its Estimator's embed program")
+        rt.warmup()
+        rt.flow.rng = np.random.default_rng(TCP_FLOW_SEED)
+        before = rt.device_batches
+        ops.reset_launch_counts()
+        got = rt.predict(check_ids)
+        torch.cuda.synchronize()
+        counted = _served_launches([rt], [before], f"serve_cache {q}")
+        launches_by_type[q] = counted["gather_weighted_sum"]
+        est = Estimator(copy.deepcopy(tcp["model"]), None, tcp["cfg"],
+                        feature_cache=caches[q], init_params=rt.params, device="cuda")
+        infer_flow = flow("rows")
+        _, want = est.infer(*id_batches(infer_flow, check_ids, TCP_BUCKET))
+        if not np.array_equal(got, want):
+            raise AssertionError(f"{q} cache: predict differs from Estimator.infer")
+        if q == "f32":
+            np.testing.assert_allclose(got, dense_rows, rtol=CACHE_TOL, atol=CACHE_TOL,
+                                       err_msg="f32 cache vs the dense-feature runtime")
+        lat = []
+        for i, ids in enumerate(timed):
+            t = time.perf_counter()
+            rt.predict(ids)
+            if i >= 3:
+                lat.append((time.perf_counter() - t) * 1e3)
+
+        def window(rt=rt):
+            for ids in timed[:PROFILED_REQS]:
+                rt.predict(ids)
+            torch.cuda.synchronize()
+
+        dev, wall_ms = _profile_window(torch, window)
+        busy_ms = sum(dev.values()) / 1e3
+        per_type[q] = {
+            "median_predict_ms": statistics.median(lat), "min_predict_ms": min(lat),
+            "device_ms_per_predict": busy_ms / PROFILED_REQS,
+            "device_idle_share": 1.0 - busy_ms / wall_ms,
+            "h2d_bytes_per_batch": _h2d_bytes(rt.flow.query_padded(timed[0], TCP_BUCKET)[0]),
+            "table_bytes": caches[q].table.numel() * caches[q].table.element_size()
+            + (2 * 4 * caches[q].table.shape[0] if q == "int8" else 0),
+            "kernel1_us_per_predict": _kernel1_us(dev, PROFILED_REQS),
+            "bitwise_vs_infer": True}
+        del est, rt
+    del dense_rt
+
+    # over TCP, the f32 cache
+    rt = InferenceRuntime(tcp["model"], flow("rows"), tcp["cfg"], feature_cache=caches["f32"],
+                          buckets=(TCP_BUCKET,), device="cuda")
+    rt.warmup()
+    server = ModelServer(rt, max_wait_us=TCP_WAIT_US).start()
+    addr = (server.host, server.port)
+    try:
+        ServingClient(addr).close()
+        before = [rt.device_batches]
+        ops.reset_launch_counts()
+
+        def check(ids, rows):
+            if rows.shape != (len(ids), dims[-1]) or not np.isfinite(rows).all():
+                raise AssertionError(f"bad served rows {rows.shape}")
+
+        clients = [ServingClient(addr) for _ in range(TCP_CLIENTS)]
+        try:
+            rps, lat = _hammer(clients, CACHE_REQS, lambda k: np.random.default_rng(200 + k),
+                               _request_ids, check)
+        finally:
+            for c in clients:
+                c.close()
+        tcp_launches = _served_launches([rt], before, "serve_cache over TCP")
+        stats = server.batcher.stats()
+    finally:
+        server.stop()
+    dense = tcp["result"]
+    res = {"phase": "serve_cache", "card": card, "nodes": NUM_NODES, "feat_dim": FEAT_DIM,
+           "bucket": TCP_BUCKET, "fanouts": TCP_FANOUTS, "stage_s": stage_s,
+           "chunked_stage_s": chunked_s, "chunk_rows": CACHE_CHUNK_ROWS,
+           "chunked_bitwise": True, "quant_max_abs_err": quant_err,
+           "dense_h2d_bytes_per_batch": dense_bytes, "by_page_type": per_type,
+           "tcp": {"page_type": "f32", "requests_per_sec": rps, **_percentiles(lat),
+                   "requests": len(lat), "clients": TCP_CLIENTS, "ids_per_request": TCP_IDS,
+                   "batches": stats.get("batches"), **tcp_launches},
+           "launches_by_page_type": launches_by_type,
+           "tcp_dense": {"requests_per_sec": dense["gnn_serving_requests_per_sec"],
+                         "p50_ms": dense["p50_ms"], "p99_ms": dense["p99_ms"],
+                         "requests": dense["requests"]},
+           "tol": CACHE_TOL}
+    _emit(res)
+    del caches
+    torch.cuda.empty_cache()
+    return {"gather_weighted_sum": tcp_launches["gather_weighted_sum"]
+            + sum(launches_by_type.values()), "gather_weighted_sum_dx": 0, "result": res}
+
+
+def remat_train(torch, trained: dict, grouped: dict, tmp: str, seed: int, card: str) -> dict:
+    """Phase 28: phase 5's paged lane with remat: GraphSAGE supervised
+    (dims 128,128, adam lr 0.01) with each conv call checkpointed, 20
+    steps from the main run's init and draws at K = 1 and at K = 16
+    against the runs without remat (losses within 1e-6 relative), exactly
+    REMAT_PER_STEP launches a step (kernel 1's recompute beside its dx);
+    peak device memory of 20 steps with and without remat; calls of 8
+    steps timed with and without (the port's kernels on the card a step
+    held by profiler record)."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.estimator import Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised
+
+    flow, cache = trained["flow"], trained["estimator"].feature_cache
+
+    def run(remat: bool, k: int):
+        cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"remat_{remat}_{k}"),
+                              learning_rate=0.01, optimizer="adam", log_steps=10**9,
+                              seed=seed, steps_per_call=k)
+        est = Estimator(GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2, remat=remat), flow, cfg,
+                        feature_cache=cache, device="cuda")
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        losses, launches, seconds = _run_counted(torch, est, TRAIN_STEPS)
+        return est, {"losses": losses, "launches": launches, "seconds": seconds,
+                     "peak_bytes": torch.cuda.max_memory_allocated(),
+                     "peak_above_start_bytes": torch.cuda.max_memory_allocated() - base}
+
+    plain, plain_run = run(False, 1)
+    remat1, remat_run = run(True, 1)
+    _expect_launches(remat_run["launches"],
+                     {k: n * TRAIN_STEPS for k, n in REMAT_PER_STEP.items()}, "remat, K = 1")
+    _assert_close(plain_run["losses"], trained["result"]["losses"], "plain vs phase 5",
+                  REMAT_TOL)
+    err1 = _assert_close(remat_run["losses"], plain_run["losses"], "remat vs plain, K = 1",
+                         REMAT_TOL)
+    remat16, remat16_run = run(True, GROUP_K)
+    _expect_launches(remat16_run["launches"],
+                     {k: n * TRAIN_STEPS for k, n in REMAT_PER_STEP.items()},
+                     f"remat, K = {GROUP_K}")
+    replays = _replay_launches(remat16, remat16_run["launches"],
+                               {k: n * remat16.captures for k, n in REMAT_PER_STEP.items()})
+    err16 = _assert_close(remat16_run["losses"], grouped["result"]["losses"],
+                          f"remat vs plain, K = {GROUP_K}", REMAT_TOL)
+    plain_per_step = {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 1}
+    res = {"phase": "remat_train", "card": card, "steps": TRAIN_STEPS, "dims": TRAIN_DIMS,
+           "batch": TRAIN_BATCH, "fanouts": TRAIN_FANOUTS,
+           "losses": remat_run["losses"], "max_rel_err": err1,
+           "bitwise": remat_run["losses"] == plain_run["losses"],
+           "launches": remat_run["launches"],
+           f"k{GROUP_K}": {"losses": remat16_run["losses"], "max_rel_err": err16,
+                           "launches": remat16_run["launches"], "captures": remat16.captures,
+                           **replays},
+           "peak_bytes": {"plain": plain_run["peak_bytes"], "remat": remat_run["peak_bytes"]},
+           "peak_above_start_bytes": {"plain": plain_run["peak_above_start_bytes"],
+                                      "remat": remat_run["peak_above_start_bytes"]},
+           "plain_timing": _call_window(torch, plain, REMAT_K, REMAT_CALLS, card, "no remat",
+                                        plain_per_step),
+           "remat_timing": _call_window(torch, remat1, REMAT_K, REMAT_CALLS, card, "remat",
+                                        REMAT_PER_STEP),
+           "tol": REMAT_TOL}
+    _emit(res)
+    return {"launches": remat_run["launches"], "launches_k16": remat16_run["launches"],
+            "result": res}
+
+
 def serve_parity(torch, graph, tcp: dict, card: str) -> dict:
     """Phase 14: the same graph and checkpoint over FullNeighborDataFlow
     at bucket 128: 16 concurrent clients' rows bitwise the runtime's
@@ -4614,19 +4907,62 @@ CLI_RM_LATER = (("transe", "evaluate"), ("deepwalk", "infer"), ("line", "infer")
                 ("gae", "infer"), ("dgi", "infer"), ("adaptivegcn", "infer"))
 
 
-def run_model_cli(torch, tmp: str, card: str) -> dict:
+class _ServeCli:
+    """`python -m euler_tpu_torch.tools.serve` as a process: `addr()`
+    waits (bounded) for its "serving model on host:port" line; `stop()`
+    sends SIGINT, on which the CLI stops its servers and exits 0."""
+
+    def __init__(self, args: list):
+        import threading
+
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "euler_tpu_torch.tools.serve", *args],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        self.lines, self.listening = [], threading.Event()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line)
+            if line.startswith("serving model on "):
+                self.listening.set()
+        self.listening.set()  # EOF: the process has ended
+
+    def addr(self) -> tuple:
+        self.listening.wait(CLI_WAIT_S)
+        for line in self.lines:
+            if line.startswith("serving model on "):
+                host, port = line.split()[3].rsplit(":", 1)
+                return host, int(port)
+        raise AssertionError(f"the serve CLI did not listen:\n{''.join(self.lines)[-3000:]}")
+
+    def stop(self) -> int:
+        self.proc.send_signal(signal.SIGINT)
+        self.proc.wait(timeout=CLI_WAIT_S)
+        self.reader.join(timeout=CLI_WAIT_S)
+        return self.proc.returncode
+
+
+def run_model_cli(torch, tmp: str, graph_dir: str, card: str) -> dict:
     """Phases 20 and 26 (the six families of the rest of the zoo): `python -m
     euler_tpu_torch.examples.run_model` as processes, on the card, on
     --synthetic data (cora, fb15k for transe, mutag for gin, converted
     once beforehand): each of CLI_RM_MODELS trained with and without
-    --device-flow (all at once), then the CLI_RM_LATER (model, mode) runs —
-    evaluate transe, rgcn and fastgcn, infer deepwalk, line,
-    graphsage_unsup, gae, dgi and adaptivegcn — on the device-flow runs'
-    dirs, each as soon as its training ends: every one exits 0 with its
-    result line. Returns the phase's line for the caller to emit: the
+    --device-flow and CLI_REMAT's with --device-flow --remat (all at
+    once), then the CLI_RM_LATER (model, mode) runs — evaluate transe,
+    rgcn and fastgcn, infer deepwalk, line, graphsage_unsup, gae, dgi and
+    adaptivegcn — on the device-flow runs' dirs, each as soon as its
+    training ends: every one exits 0 with its result line. Beside them,
+    for each of CLI_CONVS, the trainer CLI (`tools/train.py --conv`) on
+    phase 4's graph dir, then the serve CLI (`tools/serve.py --conv`) on
+    its checkpoint answering one request over TCP, stopped by SIGINT:
+    both exit 0. Returns the phase's line for the caller to emit: the
     script runs it in a thread beside the quality phases (it only waits
     on its processes), and one thread prints."""
     from euler_tpu_torch.datasets import get_dataset
+    from euler_tpu_torch.serving import ServingClient
 
     data = os.path.join(tmp, "cli_data")
     env = dict(os.environ, EULER_TPU_DATA=data)
@@ -4637,8 +4973,9 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
         return [sys.executable, "-m", "euler_tpu_torch.examples.run_model", "--model", model,
                 "--dataset", CLI_RM_DATASETS.get(model, "cora"), "--synthetic",
                 "--mode", mode, "--total-steps", str(CLI_RM_STEPS),
-                "--model-dir", os.path.join(tmp, f"cli_runs_{flow}")] + (
-                    ["--device-flow"] if flow == "device" else [])
+                "--model-dir", os.path.join(tmp, f"cli_runs_{flow}")] + {
+                    "host": [], "device": ["--device-flow"],
+                    "remat": ["--device-flow", "--remat"]}[flow]
 
     started = []
 
@@ -4658,18 +4995,48 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
             out[" ".join(job)] = last[:200]
         return out
 
+    def conv_args(conv):
+        return ["--data", graph_dir, "--model-dir", os.path.join(tmp, f"cli_conv_{conv}"),
+                "--conv", conv, "--dims", DIMS, "--label-dim", str(LABEL_DIM),
+                "--max-degree", str(PARITY_MAX_DEGREE)]
+
+    def serve_start(conv, trainer):
+        report = _finish(trainer, 0, f"tools/train.py --conv {conv}")
+        server = _ServeCli(conv_args(conv) + ["--full-neighbor", "--buckets", str(TCP_BUCKET)])
+        started.append(server.proc)
+        return report, server
+
+    def serve_conv(conv, report, server):
+        client = ServingClient(server.addr())
+        rows = client.predict(np.arange(1, TCP_IDS + 1, dtype=np.uint64))
+        client.close()
+        rc = server.stop()
+        if rc != 0 or rows.shape != (TCP_IDS, int(DIMS.split(",")[-1])) \
+                or not np.isfinite(rows).all():
+            raise AssertionError(f"tools/serve.py --conv {conv}: exit {rc}, rows {rows.shape}:\n"
+                                 f"{''.join(server.lines)[-3000:]}")
+        return {"trained_step": report["step"], "served": list(rows.shape), "exit": rc}
+
     t0 = time.perf_counter()
     later_jobs = [(m, "device", mode) for m, mode in CLI_RM_LATER]
     # the trainings the evaluate and infer runs read first, the others
     # meanwhile; the evaluate and infer runs as soon as theirs are done
     first = [(m, f, "train") for m, f, _ in later_jobs]
     rest = [(m, f, "train") for m in CLI_RM_MODELS for f in ("host", "device")
-            if (m, f, "train") not in first]
+            if (m, f, "train") not in first] + [(m, "remat", "train") for m in CLI_REMAT]
     try:
         pending = start(rest)
+        trainers = {c: _trainer(conv_args(c) + [
+            "--total-steps", str(CLI_CONV_STEPS), "--checkpoint-every", str(CLI_CONV_STEPS),
+            "--batch-size", str(TCP_BUCKET)]) for c in CLI_CONVS}
+        started.extend(trainers.values())
         trained = finish(start(first))
-        later_out = finish(start(later_jobs))
+        later = start(later_jobs)
+        # the serve CLIs boot while the evaluate and infer runs go on
+        servers = {c: serve_start(c, p) for c, p in trainers.items()}
+        later_out = finish(later)
         trained.update(finish(pending))
+        served = {c: serve_conv(c, *rs) for c, rs in servers.items()}
     finally:
         for p in started:
             if p.poll() is None:
@@ -4678,7 +5045,8 @@ def run_model_cli(torch, tmp: str, card: str) -> dict:
     if not all("trained" in v for v in trained.values()):
         raise AssertionError(f"run_model train runs: {trained}")
     return {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
-            "evaluate_infer": later_out, "seconds": time.perf_counter() - t0}
+            "evaluate_infer": later_out, "train_then_serve": served,
+            "seconds": time.perf_counter() - t0}
 
 
 def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
@@ -4730,7 +5098,7 @@ def conv_train(torch, tmp: str, seed: int, card: str) -> dict:
         convs[conv] = _model_checks(
             torch, conv, model, flows, caches, CONV_PER_STEP.get(conv, {HOP_KERNEL: 2}),
             conv in CONV_GROUPED, TRAIN_STEPS, CONV_K, CONV_CALLS, tmp, seed, card,
-            f"conv_{conv}", falling=False)
+            f"conv_{conv}", falling=False, cpu_optimizer=CONV_CPU_OPTIMIZER.get(conv, "adam"))
     res = {"phase": "conv_train", "card": card, "nodes": TRAIN_NODES, "batch": TRAIN_BATCH,
            "fanouts": TRAIN_FANOUTS, "dims": TRAIN_DIMS, "layout": "paged",
            "page_size": PAGE_SIZE, "steps": TRAIN_STEPS, "conv_kwargs": CONV_KWARGS,
@@ -4780,11 +5148,12 @@ def graph_clf(torch, tmp: str, seed: int, card: str) -> dict:
     equal to K = 1's, bitwise; losses within 1e-4 relative), its first
     CPU_STEPS on the CPU from the card's draws (bitwise batches, losses
     within 1e-4), calls of GCLF_K steps timed at K = 1 and K = 16. The
-    same pair under adam is run and its drift reported, not held: adam
-    divides each update by the root of its second moment, so a gradient
-    entry that `index_add_`'s atomics sum to ~1e-9 in one run and to 0 in
-    another moves a weight by a whole learning rate in one run only. No
-    kernel of the port launches in any of it."""
+    Set2Set recipe runs twice and must give the same bits (the segment
+    sums are sorted, `ops.mp_ops`). The same pair under adam is run and
+    its drift reported, not held: adam divides each update by the root
+    of its second moment, so a gradient entry summed to ~1e-9 in one
+    program and to 0 in another moves a weight by a whole learning rate
+    in one only. No kernel of the port launches in any of it."""
     from euler_tpu_torch import ops
     from euler_tpu_torch.dataflow import DeviceWholeGraphFlow, WholeGraphDataFlow
     from euler_tpu_torch.estimator import Estimator, EstimatorConfig
@@ -4803,6 +5172,12 @@ def graph_clf(torch, tmp: str, seed: int, card: str) -> dict:
         recipes[name] = {**graph_clf_quality(name, "cuda", g, seed=0),
                          "seconds": time.perf_counter() - t}
     quality_launches = ops.launch_counts()
+    # the segment sums are sorted, not atomic: a second run of the recipe
+    # with the most of them (Set2Set's three attention rounds) is bitwise
+    again = graph_clf_quality("set2set", "cuda", g, seed=0)
+    rerun = {k: (recipes["set2set"][k], again[k]) for k in ("final_loss", "acc")}
+    if any(a != b for a, b in rerun.values()):
+        raise AssertionError(f"set2set recipe differs between two runs of seed 0: {rerun}")
     out = {name: r["acc"] for name, r in recipes.items() if not r["in_band"]}
     if out:
         raise AssertionError(f"graph classification out of its band: {out}")
@@ -4849,7 +5224,7 @@ def graph_clf(torch, tmp: str, seed: int, card: str) -> dict:
     # (e) timing
     k1 = _call_window(torch, est, GCLF_K, GCLF_CALLS, card, "graph clf K = 1", {})
     k16 = _call_window(torch, est16, GCLF_K, GCLF_CALLS, card, f"graph clf K = {GROUP_K}", {})
-    res = {"phase": "graph_clf", "card": card, "recipes": recipes,
+    res = {"phase": "graph_clf", "card": card, "recipes": recipes, "set2set_rerun": rerun,
            "quality_launches": quality_launches, "graphs": len(g.meta.graph_labels),
            "batch": GCLF_BATCH, "max_nodes": MAX_NODES, "max_degree": MAX_DEGREE,
            "dims": list(DIMS), "optimizer": "sgd", "lr": LR, "steps": GCLF_STEPS,
@@ -4925,7 +5300,7 @@ class _NoiseTap:
 
 def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_step: dict,
                   grouped: bool, steps: int, k: int, calls: int, tmp: str, seed: int, card: str,
-                  tag: str, falling: bool = True) -> dict:
+                  tag: str, falling: bool = True, cpu_optimizer: str = "adam") -> dict:
     """One model on its device flow (phases 21 and 24): `steps` steps in
     mode auto with exactly `per_step` launches a step and finite losses
     (falling: the mean of the last 5 below the first 5's), mode ref on
@@ -4933,13 +5308,18 @@ def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_s
     CPU_STEPS on the CPU from the card's draws and model noise (bitwise
     batches, losses within 1e-4), K = 16 when `grouped` (replays, the
     same launches, losses within 1e-4 of K = 1's), then calls of k steps
-    timed. `flows` and `caches` by device ("cuda", "cpu")."""
+    timed. `flows` and `caches` by device ("cuda", "cpu"). cpu_optimizer
+    "sgd": the card-vs-CPU steps run by sgd on both (a card run of their
+    own, the same init and draws): where adam's first, sign-like step
+    drives the loss to ~exp(logit) (LGCN on the lane's all-zero labels:
+    2e-12 after one step), its relative value is the logits' absolute
+    rounding error amplified, not a comparison of the two devices."""
     from euler_tpu_torch.estimator import Estimator, EstimatorConfig
 
-    def estimator(device: str, run: str, kk: int = 1):
+    def estimator(device: str, run: str, kk: int = 1, optimizer: str = "adam"):
         cfg = EstimatorConfig(model_dir=os.path.join(tmp, f"{tag}_{run}"),
-                              learning_rate=0.01, optimizer="adam", log_steps=10**9, seed=seed,
-                              steps_per_call=kk)
+                              learning_rate=0.01, optimizer=optimizer, log_steps=10**9,
+                              seed=seed, steps_per_call=kk)
         return Estimator(make_model(), flows[device], cfg, feature_cache=caches[device],
                          device=device)
 
@@ -4966,10 +5346,14 @@ def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_s
     same_ref = _same_nests(torch, tap_ref.batches, tap.batches, f"{name} auto vs ref")
     err_ref = _assert_close(losses_ref, losses[:REF_STEPS], f"{name} auto vs ref")
     # (c) the port on the CPU, from the card's draws (and its noise)
+    card_losses = losses[:CPU_STEPS]
+    if cpu_optimizer != "adam":
+        card_losses = estimator("cuda", cpu_optimizer, optimizer=cpu_optimizer).train(
+            CPU_STEPS, log=False, save=False)
     cpu_flow = flows["cpu"]
     draws = iter([_to_cpu(torch, d) for d in tap.draws[:CPU_STEPS]])
     cpu_flow.draw_inputs = lambda gen: next(draws)
-    cpu_est = estimator("cpu", "cpu")
+    cpu_est = estimator("cpu", "cpu", optimizer=cpu_optimizer)
     if noise.draws:
         noise_cpu = iter([_to_cpu(torch, d) for d in noise.draws[:CPU_STEPS]])
         cpu_est.model.draw_rngs = lambda gen, rows, device: next(noise_cpu)
@@ -4979,10 +5363,11 @@ def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_s
     finally:
         tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
     same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:CPU_STEPS], f"{name} card vs CPU")
-    err_cpu = _assert_close(losses_cpu, losses[:CPU_STEPS], f"{name} card vs CPU")
+    err_cpu = _assert_close(losses_cpu, card_losses, f"{name} card vs CPU")
     row = {"losses": losses, "launches": launches, "launches_per_step": per_step,
            "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref, "max_rel_err": err_ref},
-           "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu, "max_rel_err": err_cpu},
+           "port_on_cpu": {"batches_equal": same_cpu, "losses": losses_cpu, "max_rel_err": err_cpu,
+                           "optimizer": cpu_optimizer, "card_losses": card_losses},
            "params": sum(p.numel() for p in est.model.parameters()), "main_run_s": main_s,
            "timing_k1": _call_window(torch, est, k, calls, card, f"{name} K = 1", per_step)}
     # (d) K = 16: the captured step replayed
@@ -5158,6 +5543,9 @@ def main(argv=None) -> int:
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    # the serve CLI processes of phase 20 stop on SIGINT: a SIGINT ignored
+    # here would stay ignored in them
+    signal.signal(signal.SIGINT, signal.default_int_handler)
 
     # 1. the card
     card = _card_line()
@@ -5202,6 +5590,8 @@ def main(argv=None) -> int:
         trained = train(torch, tmp, args.seed)
         time_train_steps(torch, trained["estimator"], card)
         grouped = train_grouped(torch, trained, tmp, args.seed, card)
+        # 28. remat on the same lane, from the same init and draws
+        remat = remat_train(torch, trained, grouped, tmp, args.seed, card)
         paged_calls, hops = _paged_calls(trained["flow"], gen)
         paged_rows = time_paged_kernels(torch, paged_calls, card)
         hop_rows = time_hop_kernel(torch, hops, card)
@@ -5248,8 +5638,10 @@ def main(argv=None) -> int:
         tcp = serve_tcp(torch, served["graph"], tmp, card)
         tcp_parity = serve_parity(torch, served["graph"], tcp, card)
         fleet = serve_fleet(torch, tmp, card)
+        # 27. the same cell through the feature cache (f32 / bf16 / int8)
+        cached = serve_cache(torch, served["graph"], tcp, card)
         served_paths = {"serve_tcp": tcp["result"], "serve_parity": tcp_parity,
-                        "serve_fleet": fleet}
+                        "serve_fleet": fleet, "serve_cache": cached}
 
         # 16-19. the link-prediction and shallow-embedding families: the
         # unsupervised GraphSAGE lane, the skip-gram family on phase 4's
@@ -5267,7 +5659,7 @@ def main(argv=None) -> int:
         # on by a thread while 22 and 25, the JAX quality tests' conv and
         # zoo recipes, run here (no timing is taken while they overlap)
         with concurrent.futures.ThreadPoolExecutor(1) as pool:
-            cli_runs = pool.submit(run_model_cli, torch, tmp, card)
+            cli_runs = pool.submit(run_model_cli, torch, tmp, tmp, card)
             conv_quality_bands(torch, card)
             torch.cuda.empty_cache()
             zoo_rest_quality(torch, card)
@@ -5347,7 +5739,9 @@ def main(argv=None) -> int:
         **{f"conv_train_{c}_k16": n["gather_weighted_sum"]
            for c, n in convs["launches_k16"].items()},
         "graph_clf": gclf["launches"]["gather_weighted_sum"],
-        **{f"zoo_rest_{m}": n["gather_weighted_sum"] for m, n in zoo["launches"].items()}}
+        **{f"zoo_rest_{m}": n["gather_weighted_sum"] for m, n in zoo["launches"].items()},
+        "remat_train": remat["launches"]["gather_weighted_sum"],
+        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum"]}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -5364,7 +5758,9 @@ def main(argv=None) -> int:
                            for c, n in convs["launches_k16"].items()},
                         "graph_clf": gclf["launches"]["gather_weighted_sum_dx"],
                         **{f"zoo_rest_{m}": n["gather_weighted_sum_dx"]
-                           for m, n in zoo["launches"].items()}}
+                           for m, n in zoo["launches"].items()},
+                        "remat_train": remat["launches"]["gather_weighted_sum_dx"],
+                        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum_dx"]}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -5451,7 +5847,8 @@ def main(argv=None) -> int:
                      + sum(n[HOP_KERNEL] for n in convs["launches_k16"].values())
                      + gclf["launches"][HOP_KERNEL]
                      + sum(n[HOP_KERNEL] for n in zoo["launches"].values())
-                     + sum(n[HOP_KERNEL] for n in zoo["launches_k16"].values())),
+                     + sum(n[HOP_KERNEL] for n in zoo["launches_k16"].values())
+                     + remat["launches"][HOP_KERNEL] + remat["launches_k16"][HOP_KERNEL]),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
                              "train_grouped": grouped["launches"][HOP_KERNEL],
                              "unsup_train": unsup["launches"][HOP_KERNEL],
@@ -5464,7 +5861,9 @@ def main(argv=None) -> int:
                              **{f"zoo_rest_{m}": n[HOP_KERNEL]
                                 for m, n in zoo["launches"].items()},
                              **{f"zoo_rest_{m}_k16": n[HOP_KERNEL]
-                                for m, n in zoo["launches_k16"].items()}},
+                                for m, n in zoo["launches_k16"].items()},
+                             "remat_train": remat["launches"][HOP_KERNEL],
+                             "remat_train_k16": remat["launches_k16"][HOP_KERNEL]},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],

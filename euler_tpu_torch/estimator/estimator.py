@@ -63,11 +63,10 @@ from euler_tpu_torch.device import resolve_device
 from euler_tpu_torch.estimator.graph_step import StepGraph, signature, tree_map
 from euler_tpu_torch.ops import kernel_mode
 from euler_tpu_torch.params import (
-    checkpoint_order,
-    from_flax_leaf,
     init_like_flax,
     load_optimizer_leaves,
     optimizer_leaves,
+    state_dict_from_leaves,
     to_checkpoint_leaves,
 )
 from euler_tpu_torch.training.checkpoint import CheckpointStore
@@ -223,6 +222,7 @@ class Estimator:
         self._profile_first = 0
         # losses of the most recent train(), published even when it raises
         self.last_losses: list[float] = []
+        self._embed = None  # embed_program(), built once
 
     # -- batches ------------------------------------------------------------
 
@@ -493,14 +493,18 @@ class Estimator:
 
     def embed_program(self) -> Callable:
         """`batch -> embeddings` (a device tensor): what `infer` runs on
-        each host MiniBatch — moved, hydrated and through `model.embed`,
-        as `InferenceRuntime` serves a checkpoint."""
+        each host MiniBatch — moved, hydrated (the feature cache's rows
+        too) and through `model.embed`. One object an Estimator:
+        `InferenceRuntime` serves its engine's."""
+        if self._embed is None:
 
-        def embed(batch: MiniBatch) -> torch.Tensor:
-            with torch.inference_mode():
-                return self.model.embed(*self._model_args(args_to_device((batch,), self.device)))
+            def embed(batch: MiniBatch) -> torch.Tensor:
+                with torch.inference_mode():
+                    return self.model.embed(
+                        *self._model_args(args_to_device((batch,), self.device)))
 
-        return embed
+            self._embed = embed
+        return self._embed
 
     def infer(
         self, batches: Iterable[tuple], ids: Iterable[np.ndarray], worker: int = 0
@@ -549,15 +553,7 @@ class Estimator:
     def load_leaves(self, params_leaves, opt_leaves) -> None:
         """Set the params and the optimizer state from checkpoint-order
         leaves (either package's)."""
-        keys = checkpoint_order(self.model.state_dict())
-        if len(params_leaves) != len(keys):
-            raise ValueError(
-                f"checkpoint carries {len(params_leaves)} param leaves where the "
-                f"model has {len(keys)}"
-            )
-        self.model.load_state_dict(
-            {k: from_flax_leaf(k, leaf) for k, leaf in zip(keys, params_leaves)}
-        )
+        self.model.load_state_dict(state_dict_from_leaves(self.model.state_dict(), params_leaves))
         load_optimizer_leaves(
             self.cfg.optimizer, self.optimizer, self._named_params(), opt_leaves
         )

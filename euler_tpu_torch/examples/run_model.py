@@ -112,7 +112,7 @@ def build_parser():
                          "fastgcn/adaptivegcn, the supervised convs, graph classification, "
                          "deepwalk/node2vec/line and the TransX family; local graphs only)")
     ap.add_argument("--remat", action="store_true",
-                    help="rematerialize conv layers on backward (not ported yet)")
+                    help="rematerialize conv layers on backward (less memory, one more forward)")
     ap.add_argument("--device", default=None,
                     help="torch device; default the CUDA card, 'cpu' to run on the CPU")
     return ap

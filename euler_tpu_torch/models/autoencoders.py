@@ -16,17 +16,16 @@ from typing import Sequence
 import numpy as np
 import torch
 from torch import nn
-from torch.nn import functional as F
 
 from euler_tpu_torch.dataflow.base import MiniBatch
 from euler_tpu_torch.layers.conv import lecun_normal_
 from euler_tpu_torch.nn.base_gnn import GNNNet
-from euler_tpu_torch.nn.heads import check_conv
+from euler_tpu_torch.nn.heads import sigmoid_binary_cross_entropy
 from euler_tpu_torch.nn.metrics import auc
 
 
 def _bce_auc(logits: torch.Tensor, labels: torch.Tensor):
-    loss = F.binary_cross_entropy_with_logits(logits, labels)
+    loss = sigmoid_binary_cross_entropy(logits, labels).mean()
     return loss, auc(labels, logits)
 
 
@@ -41,10 +40,9 @@ class GAE(nn.Module):
     def __init__(self, in_dim: int, dims: Sequence[int], variational: bool = False,
                  kl_weight: float = 1e-2, remat: bool = False):
         super().__init__()
-        check_conv("gcn", remat)
         self.variational = variational
         self.kl_weight = kl_weight
-        self.encoder = GNNNet(in_dim, "gcn", dims)
+        self.encoder = GNNNet(in_dim, "gcn", dims, remat=remat)
         width = self.encoder.out_dim
         if variational:
             self.mu_head = nn.Linear(width, dims[-1])
@@ -100,8 +98,7 @@ class DGI(nn.Module):
 
     def __init__(self, in_dim: int, dims: Sequence[int], remat: bool = False):
         super().__init__()
-        check_conv("gcn", remat)
-        self.encoder = GNNNet(in_dim, "gcn", dims)
+        self.encoder = GNNNet(in_dim, "gcn", dims, remat=remat)
         d = dims[-1]
         self.bilinear = nn.Parameter(torch.empty(d, d))
         self.reset_like_flax()

@@ -17,6 +17,7 @@ from torch.nn import functional as F
 
 from euler_tpu_torch.dataflow.whole import GraphBatch
 from euler_tpu_torch.layers import get_conv
+from euler_tpu_torch.nn.base_gnn import call_layer
 from euler_tpu_torch.nn.heads import check_conv, softmax_xent
 from euler_tpu_torch.nn.metrics import accuracy
 from euler_tpu_torch.nn.pooling import POOLS
@@ -24,8 +25,9 @@ from euler_tpu_torch.nn.pooling import POOLS
 
 class GraphClassifier(nn.Module):
     """in_dim: the node features' width; conv: a name of `layers.CONVS`;
-    dims: each conv's width; pool: add | mean | max | attention | set2set.
-    remat is not ported yet."""
+    dims: each conv's width; pool: add | mean | max | attention | set2set;
+    remat: recompute each conv's activations in the backward pass
+    (`base_gnn.call_layer`)."""
 
     def __init__(
         self,
@@ -38,7 +40,7 @@ class GraphClassifier(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        check_conv(conv, remat)
+        check_conv(conv)
         cls = get_conv(conv)
         convs, width = [], in_dim
         for d in dims:
@@ -48,6 +50,7 @@ class GraphClassifier(nn.Module):
         self.pooler = POOLS[pool](width)
         self.head = nn.Linear(self.pooler.out_width, num_classes)
         self.activation = activation
+        self.remat = remat
 
     def embed(self, batch: GraphBatch) -> torch.Tensor:
         """[G, pooled width] graph embeddings: each conv over (x, x,
@@ -56,7 +59,7 @@ class GraphClassifier(nn.Module):
         x = batch.feats
         mask = batch.node_mask[:, None]
         for i, conv in enumerate(self.convs):
-            x = conv(x, x, batch.block)
+            x = call_layer(conv, self.remat, x, x, batch.block)
             if i < len(self.convs) - 1:
                 x = act(x)
             x = x * mask.to(x.dtype)

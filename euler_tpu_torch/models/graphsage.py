@@ -15,11 +15,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from torch.nn import functional as F
-
 from euler_tpu_torch.dataflow.base import MiniBatch
 from euler_tpu_torch.nn.base_gnn import GNNNet
-from euler_tpu_torch.nn.heads import check_conv, contrastive_loss
+from euler_tpu_torch.nn.heads import check_conv, contrastive_loss, sigmoid_binary_cross_entropy
 from euler_tpu_torch.nn.metrics import micro_f1
 
 
@@ -27,9 +25,10 @@ class _EncodedGNN(nn.Module):
     """The conv stack over raw features (no ShallowEncoder stage yet)."""
 
     def __init__(self, in_dim: int, conv: str, dims: Sequence[int],
-                 conv_kwargs: dict | None = None):
+                 conv_kwargs: dict | None = None, remat: bool = False):
         super().__init__()
-        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs,
+                          remat=remat)
 
     def forward(self, batch: MiniBatch) -> torch.Tensor:
         return self.gnn(batch)
@@ -37,9 +36,10 @@ class _EncodedGNN(nn.Module):
 
 class GraphSAGESupervised(nn.Module):
     """conv_kwargs: passed to every conv ({"dtype": torch.bfloat16} runs the
-    convs' linears in bf16; the `out` head stays f32, as flax's).
-    `encoder_dim`/`max_id` (the ShallowEncoder stage) and `remat` are not
-    ported yet."""
+    convs' linears in bf16; the `out` head stays f32, as flax's). remat:
+    recompute each conv call's activations in the backward pass.
+    `encoder_dim`/`max_id` (the ShallowEncoder stage) are not ported yet
+    (ROADMAP queue 1 item 4)."""
 
     def __init__(
         self,
@@ -53,11 +53,13 @@ class GraphSAGESupervised(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if encoder_dim or max_id or remat:
+        if encoder_dim or max_id:
             raise NotImplementedError(
-                "GraphSAGESupervised(encoder_dim=, max_id=, remat=True) is not ported yet"
+                "GraphSAGESupervised(encoder_dim=, max_id=) needs ShallowEncoder, "
+                "which is not ported yet (ROADMAP queue 1 item 4)"
             )
-        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs,
+                               remat=remat)
         self.out = nn.Linear(self.net.gnn.out_dim, label_dim)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
@@ -68,16 +70,16 @@ class GraphSAGESupervised(nn.Module):
         emb = self.embed(batch)
         logits = self.out(emb.float())  # flax promotes bf16 embeddings to f32
         labels = batch.labels.float()
-        loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
-        loss = loss.sum(dim=-1).mean()
+        loss = sigmoid_binary_cross_entropy(logits, labels).sum(dim=-1).mean()
         return emb, loss, "f1", micro_f1(labels, logits)
 
 
 class GraphSAGEUnsupervised(nn.Module):
     """(src, pos, negs) contrastive GraphSAGE: one shared encoder embeds
     the three MiniBatches; the loss is the sampled-softmax cross-entropy
-    with the positive in column 0, the metric MRR. `encoder_dim`/`max_id`
-    (the ShallowEncoder stage) and `remat` are not ported yet."""
+    with the positive in column 0, the metric MRR. remat as the supervised
+    model's; `encoder_dim`/`max_id` (the ShallowEncoder stage) are not
+    ported yet."""
 
     def __init__(
         self,
@@ -95,8 +97,9 @@ class GraphSAGEUnsupervised(nn.Module):
                 "GraphSAGEUnsupervised(encoder_dim=, max_id=) needs ShallowEncoder, "
                 "which is not ported yet (ROADMAP queue 1 item 4)"
             )
-        check_conv(conv, remat)
-        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+        check_conv(conv)
+        self.net = _EncodedGNN(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs,
+                               remat=remat)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
         return self.net(batch)

@@ -16,6 +16,7 @@ from torch.nn import functional as F
 
 from euler_tpu_torch.dataflow.relation import RelMiniBatch
 from euler_tpu_torch.layers import RelationConv
+from euler_tpu_torch.nn.heads import sigmoid_binary_cross_entropy
 from euler_tpu_torch.nn.metrics import micro_f1
 
 
@@ -64,5 +65,5 @@ class RGCNSupervised(nn.Module):
         emb = self.embed(batch)
         logits = self.out(emb)
         labels = batch.labels.float()
-        loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
-        return emb, loss.sum(dim=-1).mean(), "f1", micro_f1(labels, logits)
+        loss = sigmoid_binary_cross_entropy(logits, labels).sum(dim=-1).mean()
+        return emb, loss, "f1", micro_f1(labels, logits)

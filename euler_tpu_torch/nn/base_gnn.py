@@ -13,9 +13,23 @@ from typing import Sequence
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.checkpoint import checkpoint
 
 from euler_tpu_torch.dataflow.base import MiniBatch
 from euler_tpu_torch.layers import get_conv
+
+
+def call_layer(layer: nn.Module, remat: bool, *args) -> torch.Tensor:
+    """`layer(*args)`; with `remat`, its activations are dropped after the
+    forward and recomputed in the backward pass (flax's `nn.remat`): a
+    fanout batch's activations, Σ_l B·Πk_i·F a layer, for one more
+    forward. The recompute relaunches the layer's kernels (kernel 1's
+    forward beside its dx kernel). It keeps no RNG state: no conv draws
+    (the flows' draws are inputs), and reading the CUDA generator's state
+    is illegal while a step is captured (steps_per_call > 1)."""
+    if not (remat and torch.is_grad_enabled()):
+        return layer(*args)
+    return checkpoint(layer, *args, use_reentrant=False, preserve_rng_state=False)
 
 
 class GNNNet(nn.Module):
@@ -25,7 +39,8 @@ class GNNNet(nn.Module):
     conv: layer name from euler_tpu_torch.layers.CONVS
     dims: output width per layer; len(dims) must equal len(batch.blocks)
     conv_kwargs: passed to every conv (e.g. {"dtype": torch.bfloat16})
-    remat (rematerialised layers) is not ported yet.
+    remat: recompute each conv call's activations in the backward pass
+      (`call_layer`); the same numbers, less memory.
 
     Each conv gets the width its predecessor outputs (flax infers it):
     a weightless conv (APPNP, SGCN) passes its input width on, not its
@@ -42,8 +57,6 @@ class GNNNet(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        if remat:
-            raise NotImplementedError("GNNNet(remat=True) is not ported yet")
         cls = get_conv(conv)
         kwargs = dict(conv_kwargs or {})
         convs, width = [], in_dim
@@ -54,6 +67,7 @@ class GNNNet(nn.Module):
         self.out_dim = width
         self.dims = list(dims)
         self.activation = activation
+        self.remat = remat
 
     def forward(self, batch: MiniBatch) -> torch.Tensor:
         num_hops = len(batch.blocks)
@@ -66,7 +80,7 @@ class GNNNet(nn.Module):
             last = layer == num_hops - 1
             new_xs = []
             for hop in range(num_hops - layer):
-                h = conv(xs[hop], xs[hop + 1], batch.blocks[hop])
+                h = call_layer(conv, self.remat, xs[hop], xs[hop + 1], batch.blocks[hop])
                 if not last:
                     h = act(h)
                 # zero out padded node slots so garbage never propagates

@@ -24,13 +24,20 @@ from euler_tpu_torch.nn.base_gnn import GNNNet
 from euler_tpu_torch.nn.metrics import micro_f1, mrr
 
 
-def check_conv(conv: str, remat: bool = False) -> None:
-    """Refuse an unknown conv, and what the port's heads cannot run yet,
-    naming its ROADMAP item."""
+def check_conv(conv: str) -> None:
+    """Refuse an unknown conv."""
     if conv not in CONVS:
         raise KeyError(f"unknown conv {conv!r}; have {sorted(CONVS)}")
-    if remat:
-        raise NotImplementedError("remat=True is not ported yet (ROADMAP queue 1 item 2)")
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax.sigmoid_binary_cross_entropy in optax's form, elementwise:
+    -z·log σ(x) - (1 - z)·log σ(-x). Its gradient keeps the tiny values
+    (x = 17.5, z = 1: -3.9e-10) that torch's fused BCE-with-logits
+    rounds to 0, and adam turns them into whole steps once the loss is
+    near 0."""
+    labels = labels.to(logits.dtype)
+    return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -70,8 +77,9 @@ class SuperviseModel(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        check_conv(conv, remat)
-        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+        check_conv(conv)
+        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs,
+                          remat=remat)
         self.out = nn.Linear(self.gnn.out_dim, label_dim)
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:
@@ -84,8 +92,7 @@ class SuperviseModel(nn.Module):
             emb = emb[batch.target_idx.long()]
         logits = self.out(emb.float())
         labels = batch.labels.float()
-        loss = F.binary_cross_entropy_with_logits(logits, labels, reduction="none")
-        loss = loss.sum(dim=-1).mean()
+        loss = sigmoid_binary_cross_entropy(logits, labels).sum(dim=-1).mean()
         return emb, loss, "f1", micro_f1(labels, logits)
 
 
@@ -102,8 +109,9 @@ class UnsuperviseModel(nn.Module):
         remat: bool = False,
     ):
         super().__init__()
-        check_conv(conv, remat)
-        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs)
+        check_conv(conv)
+        self.gnn = GNNNet(in_dim=in_dim, conv=conv, dims=dims, conv_kwargs=conv_kwargs,
+                          remat=remat)
         self.temperature = temperature
 
     def embed(self, batch: MiniBatch) -> torch.Tensor:

@@ -9,6 +9,14 @@ softmax).
 Gradients follow the JAX package: gather and scatter_add are each
 other's adjoints, and scatter_max splits a segment's gradient equally
 among the rows that tie for its max (mp_ops.py:76-85).
+
+On a CUDA tensor every sum here, forward and backward, goes through the
+sorted accumulation of `index_put_(accumulate=True)`: each segment's rows
+are added in index order, so a run gives the same bits as the run before,
+as XLA's segment_sum does. `index_add_` (and `index_select`'s backward,
+which is one) adds them with atomics in whatever order the threads reach
+them, and an adam run trained on such sums drifts apart between runs of
+one seed. On the CPU both add the rows serially in index order.
 """
 
 from __future__ import annotations
@@ -18,9 +26,10 @@ import torch
 
 def gather(params: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     """params[indices] along axis 0 (MPGather)."""
-    return params.index_select(0, indices.reshape(-1).long()).reshape(
-        indices.shape + params.shape[1:]
-    )
+    flat = indices.reshape(-1).long()
+    # indexing's backward is the sorted index_put_; index_select's, index_add_
+    rows = params[flat] if params.is_cuda else params.index_select(0, flat)
+    return rows.reshape(indices.shape + params.shape[1:])
 
 
 def _masked(data: torch.Tensor, mask: torch.Tensor | None, fill) -> torch.Tensor:
@@ -40,6 +49,8 @@ def scatter_add(
     `mask` is False contribute nothing."""
     data = _masked(data, mask, 0)
     out = data.new_zeros((num_segments,) + tuple(data.shape[1:]))
+    if data.is_cuda:
+        return out.index_put_((segment_ids.long(),), data, accumulate=True)
     return out.index_add_(0, segment_ids.long(), data)
 
 

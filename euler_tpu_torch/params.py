@@ -158,6 +158,19 @@ def from_flax_leaf(key: str, leaf) -> torch.Tensor:
     return torch.from_numpy(_kernel_to_torch(a, path) if path[-1] == "kernel" else a)
 
 
+def state_dict_from_leaves(state_dict, leaves) -> dict[str, torch.Tensor]:
+    """A model's state_dict from a checkpoint's param leaves (either
+    package's), matched to its keys in flax leaf order (`state_dict` the
+    model's own, for its keys)."""
+    keys = checkpoint_order(state_dict)
+    leaves = list(leaves)
+    if len(leaves) != len(keys):
+        raise ValueError(
+            f"checkpoint carries {len(leaves)} param leaves where the model has {len(keys)}"
+        )
+    return {k: from_flax_leaf(k, leaf) for k, leaf in zip(keys, leaves)}
+
+
 def to_checkpoint_leaves(state_dict) -> list[np.ndarray]:
     """The inverse of `from_checkpoint_leaves`: the state_dict as flax
     param leaves in tree_flatten order."""

@@ -4,13 +4,19 @@
 Loads a checkpoint into the model once, and serves `predict(node_ids) ->
 embeddings`. Every request is padded to one of a small menu of batch
 sizes (buckets), so only a few shapes ever run on the device; each row
-of a padded batch depends only on that row's subgraph.
+of a padded batch depends only on that row's subgraph. The program a
+bucket runs is the engine's `Estimator.embed_program()`, the one
+`Estimator.infer` runs, so served rows are offline inference's rows bit
+for bit. With a `DeviceFeatureCache` (and a rows-mode flow) a batch
+carries int32 feature rows, and the cache hydrates them on the device:
+the JAX package's production serving configuration.
 
-Hot reload: the weights live in one immutable `_Engine` (the model on its
-device); `swap()` builds and warms a NEW engine off the dispatch path,
-then publishes it with one reference assignment. Every predict() grabs
-the engine reference once at entry, so an in-flight request — even a
-chunked one — runs start to finish on one checkpoint.
+Hot reload: the weights live in one immutable `_Engine` (an Estimator
+with its model on the device); `swap()` builds and warms a NEW engine
+off the dispatch path, then publishes it with one reference assignment.
+Every predict() grabs the engine reference once at entry, so an
+in-flight request — even a chunked one — runs start to finish on one
+checkpoint.
 """
 
 from __future__ import annotations
@@ -19,24 +25,25 @@ import copy
 import threading
 
 import numpy as np
-import torch
 
-from euler_tpu_torch.dataflow.base import to_device
 from euler_tpu_torch.device import resolve_device
-from euler_tpu_torch.params import from_checkpoint_leaves
+from euler_tpu_torch.estimator.estimator import Estimator, EstimatorConfig
+from euler_tpu_torch.params import state_dict_from_leaves
 from euler_tpu_torch.training.checkpoint import CheckpointStore
 
 DEFAULT_BUCKETS = (8, 32, 128)
 
 
 class _Engine:
-    """One checkpoint's serving state: the model with its weights on the
-    device. Immutable after construction."""
+    """One checkpoint's serving state: the Estimator holding the weights
+    on the device, its embed program and the checkpoint's step (None for
+    `params=`). Immutable after construction."""
 
-    __slots__ = ("model", "step")
+    __slots__ = ("est", "embed", "step")
 
-    def __init__(self, model, step):
-        self.model = model
+    def __init__(self, est, embed, step):
+        self.est = est
+        self.embed = embed
         self.step = step
 
 
@@ -44,10 +51,13 @@ class InferenceRuntime:
     """One model + checkpoint + dataflow, served on one device.
 
     model: a module with `embed(batch)` (its own weights are a template;
-    the engine holds a copy). cfg: an EstimatorConfig (its model_dir
-    locates the checkpoint) or a model_dir string. params: a state_dict
-    (e.g. from `params.from_flax`) that skips the checkpoint restore.
-    `feature_cache` and `mesh` are not ported yet.
+    each engine's Estimator holds a copy). cfg: an EstimatorConfig (its
+    model_dir locates the checkpoint) or a model_dir string. params: a
+    state_dict (e.g. from `params.from_flax`) that skips the checkpoint
+    restore. feature_cache: a `DeviceFeatureCache` on the runtime's
+    device, for a flow in feature_mode="rows"; every engine, a swapped
+    one too, serves through it. `mesh` is not ported yet (ROADMAP queue 1
+    item 6).
 
     Not thread-safe by design: `predict` is called from ONE dispatcher
     thread (the MicroBatcher's); direct callers must serialize (`lock`).
@@ -67,9 +77,9 @@ class InferenceRuntime:
         *,
         device=None,
     ):
-        if feature_cache is not None or mesh is not None:
+        if mesh is not None:
             raise NotImplementedError(
-                "InferenceRuntime(feature_cache=, mesh=) is not ported yet"
+                "InferenceRuntime(mesh=) is not ported yet (ROADMAP queue 1 item 6)"
             )
         self.model = model
         self.flow = flow
@@ -77,6 +87,7 @@ class InferenceRuntime:
         self.buckets = tuple(sorted(set(int(b) for b in buckets)))
         if not self.buckets or self.buckets[0] < 1:
             raise ValueError(f"bad buckets {buckets!r}")
+        self._feature_cache = feature_cache
         # serializes swap() callers and guards the _model_dir/_engine
         # publishes; the predict path never takes it
         self._swap_lock = threading.Lock()
@@ -96,15 +107,29 @@ class InferenceRuntime:
             if model_dir is None:
                 raise ValueError("need cfg= (or a model_dir) or params=")
             ckpt = CheckpointStore(model_dir).load()
-            params = from_checkpoint_leaves(ckpt["params"])
+            params = state_dict_from_leaves(self.model.state_dict(), ckpt["params"])
             step = ckpt["step"]
-        model = copy.deepcopy(self.model)
-        model.load_state_dict(params)
-        return _Engine(model.to(self.device).eval(), step)
+        # the engine never trains, so its Estimator needs no batches
+        est = Estimator(copy.deepcopy(self.model), None,
+                        EstimatorConfig(model_dir=model_dir) if model_dir else None,
+                        feature_cache=self._feature_cache, init_params=params,
+                        device=self.device)
+        est.model.eval()
+        return _Engine(est, est.embed_program(), step)
 
     @property
     def params(self) -> dict:
-        return self._engine.model.state_dict()
+        return self._engine.est.model.state_dict()
+
+    @property
+    def _est(self) -> Estimator:
+        """The live engine's Estimator."""
+        return self._engine.est
+
+    @property
+    def _embed(self):
+        """The live engine's embed program (`_est.embed_program()`)."""
+        return self._engine.embed
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket holding n roots (n > max bucket → max bucket;
@@ -172,9 +197,7 @@ class InferenceRuntime:
 
     def _predict_bucket(self, ids: np.ndarray, bucket: int, eng: _Engine) -> np.ndarray:
         batch, n = self.flow.query_padded(ids, bucket)
-        batch = to_device(batch, self.device)
-        with torch.inference_mode():
-            emb = eng.model.embed(batch)[:n].float().cpu().numpy()
+        emb = eng.embed(batch)[:n].float().cpu().numpy()
         with self._batches_lock:
             self.device_batches += 1
         return emb

@@ -11,7 +11,8 @@ The flags keep the JAX CLI's names. Graph queries run in process against
 the local shard files (`--native` samples through the C++ graph engine).
 `--full-neighbor` serves over the deterministic FullNeighborDataFlow
 (`--max-degree`), whose rows replay bit for bit; otherwise SageDataFlow
-(`--fanouts`, `--seed`). Only the `sage` conv is ported. With
+(`--fanouts`, `--seed`). `--conv` names any conv of `layers.CONVS`, as
+the port's trainer (`tools/train.py --conv`) does. With
 `--registry REG` (a shared dir or tcp://host:port) the servers heartbeat
 into a membership registry. `--replicas N` boots N servers (consecutive
 ports when --port is pinned, ephemeral otherwise), each with its own
@@ -43,9 +44,6 @@ import threading
 
 import numpy as np
 
-_NOT_PORTED_CONV = (
-    "only the sage conv is ported (ROADMAP queue 1 item 4: the conv model zoo)"
-)
 _NOT_PORTED_REPLICATION = (
     "--replication > 1 needs the graph tier's replica groups, which are not "
     "ported (ROADMAP queue 1 item 8)"
@@ -107,8 +105,6 @@ def build_runtime(args, graph=None, device=None, params=None):
     from euler_tpu_torch.models import GraphSAGESupervised
     from euler_tpu_torch.serving import InferenceRuntime
 
-    if args.conv != "sage":
-        raise NotImplementedError(f"--conv {args.conv}: {_NOT_PORTED_CONV}")
     if graph is None:
         graph = Graph.load(args.data, native=None if args.native else False)
     features = args.features.split(",") if args.features else []
@@ -132,7 +128,8 @@ def build_runtime(args, graph=None, device=None, params=None):
             rng=np.random.default_rng(args.seed),
         )
     in_dim = sum(graph.meta.feature_spec(f).dim for f in features)
-    model = GraphSAGESupervised(in_dim=in_dim, dims=dims, label_dim=args.label_dim)
+    model = GraphSAGESupervised(in_dim=in_dim, dims=dims, label_dim=args.label_dim,
+                                conv=args.conv)
     return InferenceRuntime(
         model,
         flow,

@@ -311,11 +311,22 @@ def test_dgi_matches_flax(hydrated):
     _check(jm, DGI(FEAT, DIMS), tree, jb, pb)
 
 
-def test_remat_refused():
-    with pytest.raises(NotImplementedError, match="item 2"):
-        GAE(FEAT, DIMS, remat=True)
-    with pytest.raises(NotImplementedError, match="item 2"):
-        DGI(FEAT, DIMS, remat=True)
+def test_remat_refused(hydrated):
+    """remat is no longer refused: GAE and DGI with remat=True give the
+    loss and grads they give without it."""
+    for cls, args in ((GAE, hydrated["gae"][1]), (DGI, hydrated["dgi"][1])):
+        plain, remat = cls(FEAT, DIMS), cls(FEAT, DIMS, remat=True)
+        remat.load_state_dict(plain.state_dict())
+        assert remat.encoder.remat
+        losses = []
+        for m in (plain, remat):
+            loss = m(*args)[1]
+            loss.backward()
+            losses.append(loss.item())
+        np.testing.assert_allclose(losses[1], losses[0], rtol=1e-6, atol=1e-7)
+        for (name, a), b in zip(plain.named_parameters(), remat.parameters()):
+            np.testing.assert_allclose(b.grad.numpy(), a.grad.numpy(), rtol=1e-6, atol=1e-7,
+                                       err_msg=name)
 
 
 # ---- Estimator steps ---------------------------------------------------------

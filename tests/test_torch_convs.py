@@ -43,6 +43,7 @@ from euler_tpu_torch.estimator import Estimator, EstimatorConfig, stack_batches
 from euler_tpu_torch.graph import Graph, convert_json, native
 from euler_tpu_torch.layers import CONVS
 from euler_tpu_torch.nn import SuperviseModel
+from euler_tpu_torch.nn.base_gnn import call_layer
 from euler_tpu_torch.ops import mp_ops
 from euler_tpu_torch.params import (
     checkpoint_order,
@@ -203,7 +204,8 @@ def flax_convs(batches):
 @pytest.mark.parametrize("case", CASES, ids=[_ids(c) for c in CASES])
 def test_conv_forward_and_grads_match_flax(case, batches, flax_convs):
     """Each conv's output and the grads of its params and of both inputs
-    (a random cotangent) against the flax conv with the same params."""
+    (a random cotangent) against the flax conv with the same params; then
+    under remat (`call_layer`) against itself."""
     conv, kw, kind = case
     _, (pxd, pxs, pblk) = _block_pair(batches, kind)
     params, cot, want, (gp, gxd, gxs) = flax_convs(conv, kw, kind)
@@ -236,6 +238,18 @@ def test_conv_forward_and_grads_match_flax(case, batches, flax_convs):
     if conv == "gat" and kind == "grid" and kw.get("heads", 1) == 1 and not kw:
         # the all-masked row (the absent root) attends to nothing
         assert not got[4].any()
+    # remat: the same numbers, and no draw from torch's generator (the
+    # recompute keeps no RNG state)
+    rng_state = torch.random.get_rng_state()
+    grads = [xd.grad, xs.grad] + [p.grad for p in port.parameters()]
+    port.zero_grad(set_to_none=True)
+    xd, xs = pxd.clone().requires_grad_(), pxs.clone().requires_grad_()
+    again = call_layer(port, True, xd, xs, pblk)
+    again.backward(torch.from_numpy(cot))
+    assert torch.equal(torch.random.get_rng_state(), rng_state)
+    np.testing.assert_allclose(again.detach().numpy(), got.detach().numpy(), rtol=1e-6, atol=1e-7)
+    for a, b in zip([xd.grad, xs.grad] + [p.grad for p in port.parameters()], grads):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6, atol=1e-7)
 
 
 def _mp_inputs():

@@ -334,7 +334,8 @@ def test_graph_classifier_trains_as_jax(trained):
 def test_graph_batches_stack_and_move(graph_dirs, flax_trees):
     """K = 2 calls over `stack_batches` of graph_label_batches train as K
     = 1 (n_graphs stays an int); a GraphBatch moves with dtypes kept; the
-    device flow at K = 2 trains as at K = 1 (one generator a step)."""
+    device flow at K = 2 trains as at K = 1 (one generator a step), and
+    with remat as without."""
     pool = "add"
     _, tree = flax_trees("gin", pool)
     pl = _port_classifier(graph_dirs, tree, pool).train(4, log=False, save=False)
@@ -348,14 +349,15 @@ def test_graph_batches_stack_and_move(graph_dirs, flax_trees):
     assert moved.hop_ids.dtype == torch.int32 and moved.n_graphs == BATCH
     pg = Graph.load(graph_dirs["classed"], native=False)
     losses = {}
-    for k in (1, 2):
+    for k, remat in ((1, False), (2, False), (1, True)):
         flow = DeviceWholeGraphFlow(pg, ["feat"], BATCH, MAX_NODES, MAX_DEGREE, device="cpu")
-        est = Estimator(GraphClassifier(4, "gin", (8, 8), 2, pool), flow,
+        est = Estimator(GraphClassifier(4, "gin", (8, 8), 2, pool, remat=remat), flow,
                         EstimatorConfig(model_dir="unused", steps_per_call=k, seed=3,
                                         log_steps=10**9), device="cpu")
-        losses[k] = est.train(4, log=False, save=False)
+        losses[k, remat] = est.train(4, log=False, save=False)
         assert dataclasses.is_dataclass(est.batch(0)) and est.batch(0).n_graphs == BATCH
-    assert losses[1] == losses[2] and np.isfinite(losses[1]).all()
+    assert losses[1, False] == losses[2, False] and np.isfinite(losses[1, False]).all()
+    assert losses[1, True] == losses[1, False]  # remat recomputes the same numbers
 
 
 @pytest.mark.parametrize("conv,pool", [("gcn", "attention"), ("gated", "mean")])

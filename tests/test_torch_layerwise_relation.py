@@ -243,10 +243,10 @@ def test_device_flow_matches_jax(device_flows, kind):
     assert pf.layout == jf.layout == "dense" and pf.unit_w
     if kind == "relation":
         _same(jf.ttab, pf.ttab)
+    sample = jax.jit(jf.sample)
     for s in range(3):
         key = jax.random.PRNGKey(s)
-        want = jax.jit(jf.sample)(key)
-        _same_fields(want, pf.make_batch(*DRAWS[kind](jf, key)), close=("adjs",))
+        _same_fields(sample(key), pf.make_batch(*DRAWS[kind](jf, key)), close=("adjs",))
 
 
 def test_device_flows_refuse_paged(graphs):

@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from euler_tpu.dataflow import FullNeighborDataFlow as JaxFullNeighborDataFlow
+from euler_tpu.estimator import DeviceFeatureCache as JaxFeatureCache
 from euler_tpu.dataflow import SageDataFlow as JaxSageDataFlow
 from euler_tpu.estimator import EstimatorConfig
 from euler_tpu.graph import Graph as JaxGraph
@@ -21,9 +22,13 @@ from euler_tpu.serving import ModelServer as JaxModelServer
 from euler_tpu.serving import ServingClient as JaxServingClient
 from euler_tpu.serving.runtime import InferenceRuntime as JaxInferenceRuntime
 from euler_tpu.training.checkpoint import CheckpointStore as JaxCheckpointStore
+from euler_tpu_torch.dataflow import FullNeighborDataFlow
 from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, id_batches
+from euler_tpu_torch.estimator import EstimatorConfig as PortConfig
 from euler_tpu_torch.distributed.registry import Registry
-from euler_tpu_torch.graph import write_arrays
+from euler_tpu_torch.graph import Graph, write_arrays
+from euler_tpu_torch.models import GraphSAGESupervised
 from euler_tpu_torch.params import from_checkpoint_leaves, from_flax
 from euler_tpu_torch.serving import InferenceRuntime, ModelServer, ServingClient
 from euler_tpu_torch.tools.serve import build_parser, build_runtime, serve_fleet
@@ -87,6 +92,63 @@ def test_served_embeddings_match_jax(tmp_path):
         assert got.shape == want.shape == (n, DIMS[-1]) and got.dtype == np.float32
         np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
     assert prt.device_batches == jrt.device_batches
+
+
+def _ring_json(n=48, seed=0) -> dict:
+    """tests/test_serving.py's ring graph: n nodes, 4-wide features, edges
+    to the next three."""
+    rng = np.random.default_rng(seed)
+    nodes = [{"id": i + 1, "type": 0, "weight": 1.0, "features": [
+        {"name": "feat", "type": "dense", "value": rng.normal(size=4).tolist()},
+        {"name": "label", "type": "dense", "value": [1.0, 0.0] if i % 2 else [0.0, 1.0]},
+    ]} for i in range(n)]
+    edges = [{"src": i + 1, "dst": (i + d) % n + 1, "type": 0, "weight": 1.0, "features": []}
+             for i in range(n) for d in (1, 2, 3)]
+    return {"nodes": nodes, "edges": edges}
+
+
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
+def test_runtime_serves_through_the_feature_cache(tmp_path, quant):
+    """The twin of tests/test_serving.py:175-205, the production serving
+    configuration (a rows-mode FullNeighborDataFlow + DeviceFeatureCache)
+    for each page type: batches carry int32 rows, the runtime's program
+    is its Estimator's `embed_program()`, predict is bitwise the port's
+    `Estimator.infer` over the same cache and within 1e-5 of the JAX
+    runtime with its cache; `swap` keeps the cache."""
+    gj, ids, bucket = _ring_json(), np.arange(1, 49, dtype=np.uint64), 16
+    jg, pg = JaxGraph.from_json(gj), Graph.from_json(gj)
+    fkw = dict(num_hops=2, max_degree=4, label_feature="label")
+    jflow = JaxFullNeighborDataFlow(jg, ["feat"], feature_mode="rows", **fkw)
+    pflow = FullNeighborDataFlow(pg, ["feat"], feature_mode="rows", **fkw)
+    model = JaxGraphSAGE(dims=[8, 8], label_dim=2)
+    rng = np.random.default_rng(3)
+
+    def dense(i, o):
+        return {"kernel": rng.normal(0, i**-0.5, (i, o)).astype(np.float32),
+                "bias": rng.normal(0, 0.1, o).astype(np.float32)}
+
+    params = {"params": {"net": {"gnn": {"convs_0": {"Dense_0": dense(8, 8)},
+                                         "convs_1": {"Dense_0": dense(16, 8)}}},
+                         "out": dense(8, 2)}}
+    cache = DeviceFeatureCache(pg, ["feat"], quant=quant, device="cpu")
+    prt = InferenceRuntime(GraphSAGESupervised(4, [8, 8], 2), pflow, str(tmp_path),
+                           feature_cache=cache, buckets=(bucket,), params=from_flax(params),
+                           device="cpu")
+    assert prt._embed is prt._est.embed_program() and prt._est.feature_cache is cache
+    batch, _ = pflow.query_padded(ids[:5], bucket)
+    assert all(f.dtype == np.int32 and f.ndim == 1 for f in batch.feats)
+    est = Estimator(GraphSAGESupervised(4, [8, 8], 2), None, PortConfig(model_dir=str(tmp_path)),
+                    feature_cache=cache, init_params=from_flax(params), device="cpu")
+    _, want = est.infer(*id_batches(pflow, ids, bucket))
+    got = prt.predict(ids)
+    np.testing.assert_array_equal(got, want)
+    jrt = JaxInferenceRuntime(model, jflow, EstimatorConfig(model_dir=str(tmp_path)),
+                              feature_cache=JaxFeatureCache(jg, ["feat"], quant=quant),
+                              buckets=(bucket,), params=params)
+    np.testing.assert_allclose(got, jrt.predict(ids), rtol=1e-5, atol=1e-5)
+    prt.swap(params=from_flax(params))
+    assert prt._est.feature_cache is cache
+    np.testing.assert_array_equal(prt.predict(ids[:7]), want[:7])
 
 
 def test_checkpoint_read_side(tmp_path):

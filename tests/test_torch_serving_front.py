@@ -575,7 +575,10 @@ def test_watch_signature_and_reload_watcher(tmp_path):
 
 
 @pytest.mark.parametrize("replicas", [1, 2])
-def test_serve_selftest_on_cpu(replicas, capsys):
+def test_serve_selftest_on_cpu(replicas, capsys, tmp_path):
+    """The selftest, and (once) `--conv gcn` and `--conv gat` checkpoints
+    of the port's trainer served by `build_runtime --conv`: rows bitwise
+    the trainer's restored `Estimator.infer`."""
     argv = ["--selftest", "--device", "cpu", "--replicas", str(replicas)]
     assert serve_tool.main(argv) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
@@ -585,9 +588,33 @@ def test_serve_selftest_on_cpu(replicas, capsys):
         assert out["reload_parity"] is True
     with pytest.raises(NotImplementedError):
         serve_tool.main(["--selftest", "--device", "cpu", "--replication", "2"])
-    with pytest.raises(NotImplementedError, match="sage"):
-        serve_tool.build_runtime(serve_tool.build_parser().parse_args(
-            ["--data", "unused", "--conv", "gat", "--device", "cpu"]))
+    if replicas == 1:
+        for conv in ("gcn", "gat"):
+            _serve_a_trained_conv(tmp_path / conv, conv)
+
+
+def _serve_a_trained_conv(tmp_path, conv):
+    from euler_tpu_torch.datasets.synthetic import random_graph
+    from euler_tpu_torch.estimator import id_batches
+    from euler_tpu_torch.graph import write_arrays
+    from euler_tpu_torch.tools import train as train_tool
+
+    data, model_dir = str(tmp_path / "graph"), str(tmp_path / "ckpt")
+    g = random_graph(num_nodes=60, out_degree=4, feat_dim=8, seed=7)
+    for p, shard in enumerate(g.shards):
+        write_arrays(f"{data}/part_{p}", shard.arrays)
+    g.meta.save(data)
+    common = ["--data", data, "--model-dir", model_dir, "--dims", "8,8", "--conv", conv,
+              "--max-degree", "4", "--device", "cpu"]
+    with redirect_stdout(io.StringIO()):
+        assert train_tool.main(common + ["--total-steps", "3", "--checkpoint-every", "3"]) == 0
+    _, est, _, graph = train_tool.build_trainer(train_tool.build_parser().parse_args(common))
+    assert est.restore() and est.step == 3
+    runtime = serve_tool.build_runtime(serve_tool.build_parser().parse_args(
+        common + ["--full-neighbor", "--label-feature", "label", "--buckets", "16"]))
+    ids = np.arange(1, 41, dtype=np.uint64)
+    _, want = est.infer(*id_batches(runtime.flow, ids, 16))
+    np.testing.assert_array_equal(runtime.predict(ids), want)
 
 
 def test_launch_counts_are_exact_under_threads():

@@ -7,6 +7,7 @@ against JAX's step and `_train_scan`), and checkpoints the two packages
 read from each other.
 """
 
+import functools
 import os
 import sys
 
@@ -18,6 +19,7 @@ import pytest
 import torch
 
 from euler_tpu.dataflow import DeviceSageFlow as JaxDeviceSageFlow
+from euler_tpu.distributed import codec as jcodec
 from euler_tpu.dataflow.base import hydrate_blocks as jax_hydrate_blocks
 from euler_tpu.datasets.synthetic import random_graph as jax_random_graph
 from euler_tpu.estimator import DeviceFeatureCache as JaxFeatureCache
@@ -27,9 +29,11 @@ from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGE
 from euler_tpu.ops.pallas_kernels import gather_weighted_sum as jax_gws
 from euler_tpu_torch.dataflow import DeviceSageFlow, SageDataFlow, hydrate_blocks
 from euler_tpu_torch.datasets import random_graph, skewed_weighted_graph
+from euler_tpu_torch.distributed import codec as pcodec
 from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
 from euler_tpu_torch.estimator import make_optimizer
 from euler_tpu_torch.models import GraphSAGESupervised
+from euler_tpu_torch.nn.heads import sigmoid_binary_cross_entropy
 from euler_tpu_torch.ops import gather_weighted_sum
 from euler_tpu_torch.params import checkpoint_order, from_flax, optimizer_leaves, to_flax_leaf
 from euler_tpu_torch.serving import InferenceRuntime
@@ -68,7 +72,11 @@ def setup():
         mp.setenv("EULER_TPU_PAGE_DTYPE", "f32")
         yield {
             "jg": jg, "pg": pg,
-            "jflow": JaxDeviceSageFlow(jg, **fkw),
+            "jflow": (jflow := JaxDeviceSageFlow(jg, **fkw)),
+            # one jitted sample for the module: a fresh jax.jit retraces
+            # and recompiles the whole draw (~2 s)
+            "jsample": jax.jit(jflow.sample),
+            "hydrated": {},
             "pflow": DeviceSageFlow(pg, **fkw, device="cpu"),
             "jcache": JaxFeatureCache(jg, ["feat"]),
             "pcache": DeviceFeatureCache(pg, ["feat"], device="cpu"),
@@ -89,12 +97,16 @@ def _flax_tree(seed=0):
     }}
 
 
-def _hydrated(setup, key):
-    jb = setup["jcache"].hydrate(jax_hydrate_blocks(jax.jit(setup["jflow"].sample)(key)))
-    pb = setup["pcache"].hydrate(
-        hydrate_blocks(setup["pflow"].make_batch(*_draws(setup["jflow"], key)))
-    )
-    return jb, pb
+def _hydrated(setup, seed: int):
+    """The hydrated batches of PRNGKey(seed) in both packages, made once
+    a module."""
+    if seed not in setup["hydrated"]:
+        key = jax.random.PRNGKey(seed)
+        jb = setup["jcache"].hydrate(jax_hydrate_blocks(setup["jsample"](key)))
+        pb = setup["pcache"].hydrate(
+            hydrate_blocks(setup["pflow"].make_batch(*_draws(setup["jflow"], key))))
+        setup["hydrated"][seed] = jb, pb
+    return setup["hydrated"][seed]
 
 
 def test_skewed_graph_matches_bench():
@@ -112,7 +124,7 @@ def test_skewed_graph_matches_bench():
 
 
 def test_hydrate_blocks_match_jax(setup):
-    jb, pb = _hydrated(setup, jax.random.PRNGKey(1))
+    jb, pb = _hydrated(setup, 1)
     for a, b in zip(jb.masks, pb.masks):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
     for a, b in zip(jb.blocks, pb.blocks):
@@ -124,16 +136,96 @@ def test_hydrate_blocks_match_jax(setup):
         np.testing.assert_array_equal(b.numpy(), np.asarray(a))
 
 
-@pytest.mark.parametrize("quant", ["f32", "bf16"])
+def _planes(cache) -> list[np.ndarray]:
+    """A cache's table (bf16 widened to f32) and, for int8, its scale and
+    zero planes, as numpy: either package's cache."""
+    t = cache.table
+    if cache.quant == "bf16":
+        t = t.float() if isinstance(t, torch.Tensor) else t.astype(jnp.float32)
+    return [np.asarray(p) for p in [t] + ([cache._scale, cache._zero]
+                                          if cache.quant == "int8" else [])]
+
+
+@pytest.mark.parametrize("quant", ["f32", "bf16", "int8"])
 def test_feature_cache_matches_jax(setup, quant):
+    """Tables, int8 scale / zero planes and `stage_chunk_rows` staging
+    bitwise against JAX's cache; gathers bitwise (int8: within 1 ulp, as
+    XLA may contract q·scale + zero to an fma, and within the codec's
+    budget of the f32 rows); `_patch` requantizes as JAX's does."""
     jc = JaxFeatureCache(setup["jg"], ["feat"], quant=quant)
     pc = DeviceFeatureCache(setup["pg"], ["feat"], quant=quant, device="cpu")
-    assert pc.table.dtype == (torch.bfloat16 if quant == "bf16" else torch.float32)
-    np.testing.assert_array_equal(pc.table.float().numpy(), np.asarray(jc.table, np.float32))
+    want_dtype = {"f32": torch.float32, "bf16": torch.bfloat16, "int8": torch.uint8}[quant]
+    assert pc.table.dtype == want_dtype
+    chunked = DeviceFeatureCache(setup["pg"], ["feat"], quant=quant, stage_chunk_rows=64,
+                                 device="cpu")
+    jchunked = JaxFeatureCache(setup["jg"], ["feat"], quant=quant, stage_chunk_rows=64)
+    for a, b, c, d in zip(_planes(pc), _planes(jc), _planes(chunked), _planes(jchunked)):
+        for x in (b, c, d):
+            np.testing.assert_array_equal(a, x)
     rows = np.array([0, 1, 5, 300, 17], np.int32)
     got = pc.gather(torch.from_numpy(rows))
     assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), np.asarray(jc.gather(jnp.asarray(rows))))
+    want = np.asarray(jc.gather(jnp.asarray(rows)))
+    if quant == "int8":
+        np.testing.assert_array_equal(got[0].numpy(), np.zeros(FEAT, np.float32))
+        np.testing.assert_array_max_ulp(got.numpy(), want, maxulp=1)
+        f32 = DeviceFeatureCache(setup["pg"], ["feat"], quant="f32", device="cpu")
+        exact = f32.gather(torch.from_numpy(rows)).numpy()
+        budget = pcodec.quant_error_budget("int8", exact)
+        assert np.all(np.abs(got.numpy() - exact) <= budget[:, None] + 1e-7)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    patch_rows = np.array([3, 9], np.int32)
+    vals = np.random.default_rng(5).normal(size=(2, FEAT)).astype(np.float32)
+    pc._patch(torch.from_numpy(patch_rows), vals)
+    jc._patch(jnp.asarray(patch_rows), vals)
+    for a, b in zip(_planes(pc), _planes(jc)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_feature_cache_dtype_wins_over_quant(setup):
+    """A non-f32 `dtype` wins over `quant`, as in JAX: a bf16 table
+    gathered as bf16."""
+    jc = JaxFeatureCache(setup["jg"], ["feat"], dtype=jnp.bfloat16, quant="int8")
+    pc = DeviceFeatureCache(setup["pg"], ["feat"], dtype=torch.bfloat16, quant="int8",
+                            device="cpu")
+    assert pc.quant == jc.quant == "f32" and pc.table.dtype == torch.bfloat16
+    rows = np.array([0, 2, 299], np.int32)
+    got = pc.gather(torch.from_numpy(rows))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(jc.gather(jnp.asarray(rows)), np.float32))
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "int8"])
+def test_codec_quantize_matches_jax(kind):
+    """The port's copy of `codec.quantize` / `dequantize` /
+    `quant_error_budget` against the JAX package's: int8 q, scale and
+    zero bitwise, bf16 bits equal (torch's round-to-nearest-even against
+    ml_dtypes'), the same budgets; rows far from 0, a constant row and
+    subnormals included."""
+    rng = np.random.default_rng(11)
+    vals = (rng.normal(size=(40, 24)) * rng.uniform(1e-3, 1e3, (40, 1))).astype(np.float32)
+    vals[3] += np.float32(5e4)
+    vals[4] = np.float32(2.5)
+    vals[5, :4] = np.float32(1e-40)
+    got, want = pcodec.quantize(kind, vals), jcodec.quantize(kind, vals)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        if kind == "bf16":
+            assert a.dtype == torch.bfloat16
+            np.testing.assert_array_equal(a.view(torch.int16).numpy().view(np.uint16),
+                                          np.asarray(b).view(np.uint16))
+        else:
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+    back = pcodec.dequantize(kind, got)
+    np.testing.assert_array_equal(back, jcodec.dequantize(kind, want))
+    budget = pcodec.quant_error_budget(kind, vals)
+    np.testing.assert_array_equal(budget, jcodec.quant_error_budget(kind, vals))
+    assert np.all(np.abs(back - vals) <= budget[:, None])
+    with pytest.raises(ValueError):
+        pcodec.dequantize("int8", got[:1])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -160,7 +252,7 @@ def test_gather_weighted_sum_grads_match_jax(dtype):
 
 
 def test_graphsage_loss_metric_and_grads_match_jax(setup):
-    jb, pb = _hydrated(setup, jax.random.PRNGKey(2))
+    jb, pb = _hydrated(setup, 2)
     tree = _flax_tree(seed=1)
     model = JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM)
 
@@ -180,6 +272,70 @@ def test_graphsage_loss_metric_and_grads_match_jax(setup):
     got = [to_flax_leaf(k, named[k].grad) for k in checkpoint_order(named)]
     for a, b in zip(got, jax.tree_util.tree_leaves(jgrads)):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-5)
+
+
+def test_remat_matches_exact(setup, tmp_path):
+    """The twin of tests/test_training.py:196-223: remat=True changes no
+    number. One step's loss and grads under remat against JAX's remat
+    model (1e-5) and against the port without remat (rtol 1e-6 / atol
+    1e-7); then 4 adam steps of the paged lane with the feature cache, at
+    steps_per_call 1 and 2, against 4 steps without remat."""
+    jb, pb = _hydrated(setup, 2)
+    tree = _flax_tree(seed=1)
+    jmodel = JaxGraphSAGE(dims=DIMS, label_dim=LABEL_DIM, remat=True)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p: jmodel.apply(p, jb)[1:4:2], has_aux=True))(tree)
+    grads = []
+    for remat in (False, True):
+        port = GraphSAGESupervised(FEAT, DIMS, LABEL_DIM, remat=remat)
+        port.load_state_dict(from_flax(tree))
+        loss = port(pb)[1]
+        loss.backward()
+        named = dict(port.named_parameters())
+        grads.append([to_flax_leaf(k, named[k].grad) for k in checkpoint_order(named)])
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5, atol=1e-5)
+    for a, b, c in zip(grads[1], grads[0], jax.tree_util.tree_leaves(jgrads)):
+        np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-7)
+        np.testing.assert_allclose(a, np.asarray(c), rtol=1e-5, atol=1e-5)
+
+    def run(remat, k):
+        est = Estimator(GraphSAGESupervised(FEAT, DIMS, LABEL_DIM, remat=remat), setup["pflow"],
+                        EstimatorConfig(model_dir=str(tmp_path), steps_per_call=k, **CFG),
+                        feature_cache=setup["pcache"], init_params=from_flax(tree),
+                        device="cpu")
+        return np.asarray(est.train(4, log=False, save=False)), est.model.state_dict()
+
+    want, want_p = run(False, 1)
+    for k in (1, 2):
+        got, got_p = run(True, k)
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+        for name, v in want_p.items():
+            np.testing.assert_allclose(got_p[name].numpy(), v.numpy(), rtol=1e-6, atol=1e-7,
+                                       err_msg=name)
+
+
+def test_sigmoid_loss_and_grad_match_optax():
+    """`nn.heads.sigmoid_binary_cross_entropy` against
+    optax.sigmoid_binary_cross_entropy under jax.grad: logits spread to
+    +-40 (entries past |x| = 17, where torch's fused BCE-with-logits
+    rounds the gradient to 0), 0/1 labels; loss and gradient within 1e-6
+    relative."""
+    rng = np.random.default_rng(21)
+    x = np.concatenate([rng.uniform(-40, 40, (64, 7)), rng.normal(0, 12, (64, 7))])
+    x[0, :6] = [17.5, -17.5, 40.0, -40.0, 0.0, 25.0]
+    x = x.astype(np.float32)
+    z = (rng.random(x.shape) < 0.3).astype(np.float32)
+    z[0, :4] = 1.0
+    assert (np.abs(x) > 17).sum() > 100
+    loss = functools.partial(optax.sigmoid_binary_cross_entropy, labels=jnp.asarray(z))
+    want, want_g = (np.asarray(a) for a in jax.jit(
+        lambda v: (loss(v), jax.grad(lambda u: jnp.sum(loss(u)))(v)))(jnp.asarray(x)))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = sigmoid_binary_cross_entropy(tx, torch.from_numpy(z))
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-6, atol=1e-12)
+    np.testing.assert_allclose(tx.grad.numpy(), want_g, rtol=1e-6, atol=1e-12)
+    assert tx.grad[0, 0] != 0  # x = 17.5, z = 1: -3.9e-10, not rounded away
 
 
 @pytest.mark.parametrize("name", ["adam", "adagrad", "sgd", "momentum"])

@@ -183,8 +183,9 @@ def test_unported_options_raise(graphs):
         GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=10)
     with pytest.raises(KeyError, match="unknown conv"):
         SuperviseModel(FEAT, "relation", DIMS, 2)
-    with pytest.raises(NotImplementedError, match="remat"):
-        UnsuperviseModel(FEAT, "sage", DIMS, remat=True)
+    # remat is ported: the flag reaches the conv stack
+    assert UnsuperviseModel(FEAT, "sage", DIMS, remat=True).gnn.remat
+    assert GraphSAGEUnsupervised(FEAT, DIMS, remat=True).net.gnn.remat
 
 
 # ---- the models ----------------------------------------------------------
