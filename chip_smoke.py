@@ -373,14 +373,40 @@ Phases, each of which raises (exit code != 0) when it fails:
      (3 forward, 3 recomputed in the backward pass: each checkpointed conv
      call), 1 dx and 2 paged_sample_hop; peak device memory with and
      without remat; calls of 8 steps timed with and without (the port's
-     kernels on the card a step held by profiler record).
+     kernels on the card a step held by profiler record);
+ 29. `scalable_train`, ScalableGNN(dims 128,128) over host HistoryTables
+     ([200 001, 16] and [200 001, 128] f32) on phase 5's graph through
+     ScalableTrainer (batch 1024, fanout 10, adam lr 0.01, 20 steps): no
+     kernel of the port launches (the masked mean is plain PyTorch, as
+     XLA in JAX), finite falling losses; the first 3 steps again on the
+     CPU from the same numpy rng and `flax_init`: losses and the history
+     tables within 1e-4; the JAX test's recipe (tests/test_models.py:
+     193-211, dims 16,16, batch 16, fanout 4, lr 0.05, 40 steps) on this
+     script's copy of its two-cluster graph: the last loss below 0.8 x
+     the first and histories[1] refreshed; the median step, device ms a
+     step, idle share, H2D and D2H bytes a step;
+ 30. `ids_train`, the id-embedding GraphSAGE on phase 5's paged lane with
+     hop ids (DeviceSageFlow(with_hop_ids=True), bf16 plane, the feature
+     cache): GraphSAGESupervised(dims 128,128, encoder_dim 128, max_id the
+     graph's largest id; a 200 064 x 128 id table) through the phase-21
+     checks (20 steps at K = 1 with exactly 2 paged_sample_hop, 3
+     gather_weighted_sum and 3 gather_weighted_sum_dx launches a step:
+     every conv call's x now carries a gradient back to the encoder; ref
+     on the card; 3 sgd steps on the card and on the CPU within 1e-4;
+     K = 16 within 1e-4 of K = 1; timed
+     calls), peak device memory; then GraphSAGEUnsupervised with the same
+     encoder on DeviceUnsupSageFlow(with_hop_ids=True) at phase 16's
+     configuration, 3 steps: finite losses, launches 7 / 9 / 9 a step.
+     The CLI wave also runs `run_model --model scalable_gcn` and
+     `scalable_sage` (each prints its final loss and exits 0).
 The native engine's draws depend on the host's core count (it splits a
 call over its threads and seeds each chunk from its start), so they are
 compared within one machine only; `os.cpu_count()` is printed beside them.
 Then kernel 1 and its dx at the host lane's shapes, at the unsupervised
-step's and at GAT's step's (h_src, F = 128, in each of a step's three
-calls, with GAT's masked softmax weights), each held first against its
-plain version; and the dx kernel at GAT's shapes with repeated slots,
+step's, at GAT's step's (h_src, F = 128, in each of a step's three
+calls, with GAT's masked softmax weights) and at the id-embedding
+step's (the encoder's F = 128 output in each call), each held first
+against its plain version; and the dx kernel at GAT's shapes with repeated slots,
 within 1e-5.
 In phase 3, paged_topk_score is also held bitwise to its plain version
 for dp in {1, 8, 32, 64, 128, 256}, nrows in {1, 127, 1001, 100003}, B in
@@ -622,6 +648,26 @@ ZOO_PER_STEP = {"gae": {HOP_KERNEL: 1 + 3 * len(ZOO_FANOUTS)},
                 "vgae": {HOP_KERNEL: 1 + 3 * len(ZOO_FANOUTS)},
                 "dgi": {HOP_KERNEL: len(ZOO_FANOUTS)}, "rgcn": {}, "fastgcn": {}}
 ZOO_GROUPED = ("gae", "dgi")
+# phase 29: ScalableGNN over host HistoryTables on phase 5's graph at the
+# training cell's widths (the JAX runner's scalable_gcn branch: batch,
+# fanout fanouts[0], ScalableTrainer's adam lr 0.01), then the JAX test's
+# recipe (tests/test_models.py:193-211) on its two-cluster graph
+SCAL_BATCH, SCAL_FANOUT, SCAL_STEPS, SCAL_CPU_STEPS, SCAL_PROFILED = 1024, 10, 20, 3, 5
+SCAL_RECIPE = {"dims": [16, 16], "batch_size": 16, "fanout": 4, "learning_rate": 0.05,
+               "max_id": 64, "steps": 40}
+# phase 30: the id-embedding GraphSAGE (ShallowEncoder(128, max_id) on each
+# hop) on phase 5's paged lane with hop ids; its encoder makes every conv
+# call's x a function of the params, so kernel 1's dx runs at each of the
+# three calls; the unsupervised twin at phase 16's configuration
+IDS_ENCODER_DIM, IDS_CPU_STEPS, IDS_UNSUP_STEPS = 128, 3, 3
+IDS_PER_STEP = {HOP_KERNEL: 2, "gather_weighted_sum": 3, "gather_weighted_sum_dx": 3}
+IDS_UNSUP_PER_STEP = {HOP_KERNEL: 1 + 3 * len(TRAIN_FANOUTS), "gather_weighted_sum": 9,
+                      "gather_weighted_sum_dx": 9}
+# the kernels line's paths of phase 30 and the launch counts each reads
+IDS_PATHS = (("ids_train", "launches"), ("ids_train_k16", "launches_k16"),
+             ("ids_unsup", "launches_unsup"))
+# the CLI wave's scalable runs (host batches only, as the JAX runner's)
+CLI_SCALABLE = ("scalable_gcn", "scalable_sage")
 
 
 def _card_line() -> str:
@@ -3496,7 +3542,7 @@ def serve_tcp(torch, graph, tmp: str, card: str) -> dict:
 
 def _h2d_bytes(batch) -> int:
     """Bytes `to_device` moves for one host batch: each distinct array
-    once, hop_ids left on the host."""
+    once, the int32 hop ids of a non-lean batch among them."""
     import dataclasses
 
     arrays = {}
@@ -3507,8 +3553,7 @@ def _h2d_bytes(batch) -> int:
                 walk(v)
         elif dataclasses.is_dataclass(x):
             for f in dataclasses.fields(x):
-                if f.name != "hop_ids":
-                    walk(getattr(x, f.name))
+                walk(getattr(x, f.name))
         elif isinstance(x, np.ndarray):
             arrays[id(x)] = x.nbytes
 
@@ -4946,12 +4991,13 @@ class _ServeCli:
 
 
 def run_model_cli(torch, tmp: str, graph_dir: str, card: str) -> dict:
-    """Phases 20 and 26 (the six families of the rest of the zoo): `python -m
+    """Phases 20 and 26 (the six families of the rest of the zoo) and the
+    scalable pair of phase 29: `python -m
     euler_tpu_torch.examples.run_model` as processes, on the card, on
     --synthetic data (cora, fb15k for transe, mutag for gin, converted
     once beforehand): each of CLI_RM_MODELS trained with and without
-    --device-flow and CLI_REMAT's with --device-flow --remat (all at
-    once), then the CLI_RM_LATER (model, mode) runs — evaluate transe,
+    --device-flow, CLI_REMAT's with --device-flow --remat and
+    CLI_SCALABLE's on their host batches (all at once), then the CLI_RM_LATER (model, mode) runs — evaluate transe,
     rgcn and fastgcn, infer deepwalk, line, graphsage_unsup, gae, dgi and
     adaptivegcn — on the device-flow runs' dirs, each as soon as its
     training ends: every one exits 0 with its result line. Beside them,
@@ -5022,8 +5068,9 @@ def run_model_cli(torch, tmp: str, graph_dir: str, card: str) -> dict:
     # the trainings the evaluate and infer runs read first, the others
     # meanwhile; the evaluate and infer runs as soon as theirs are done
     first = [(m, f, "train") for m, f, _ in later_jobs]
-    rest = [(m, f, "train") for m in CLI_RM_MODELS for f in ("host", "device")
-            if (m, f, "train") not in first] + [(m, "remat", "train") for m in CLI_REMAT]
+    rest = ([(m, f, "train") for m in CLI_RM_MODELS for f in ("host", "device")
+             if (m, f, "train") not in first] + [(m, "remat", "train") for m in CLI_REMAT]
+            + [(m, "host", "train") for m in CLI_SCALABLE])
     try:
         pending = start(rest)
         trainers = {c: _trainer(conv_args(c) + [
@@ -5042,7 +5089,9 @@ def run_model_cli(torch, tmp: str, graph_dir: str, card: str) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.communicate()
-    if not all("trained" in v for v in trained.values()):
+    # the scalable pair ends on the JAX runner's "final loss: ..." line
+    if not all(("final loss: " if k.split()[0] in CLI_SCALABLE else "trained") in v
+               for k, v in trained.items()):
         raise AssertionError(f"run_model train runs: {trained}")
     return {"phase": "run_model_cli", "card": card, "steps": CLI_RM_STEPS, "train": trained,
             "evaluate_infer": later_out, "train_then_serve": served,
@@ -5300,12 +5349,13 @@ class _NoiseTap:
 
 def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_step: dict,
                   grouped: bool, steps: int, k: int, calls: int, tmp: str, seed: int, card: str,
-                  tag: str, falling: bool = True, cpu_optimizer: str = "adam") -> dict:
+                  tag: str, falling: bool = True, cpu_optimizer: str = "adam",
+                  cpu_steps: int = CPU_STEPS) -> dict:
     """One model on its device flow (phases 21 and 24): `steps` steps in
     mode auto with exactly `per_step` launches a step and finite losses
     (falling: the mean of the last 5 below the first 5's), mode ref on
     the card for REF_STEPS (bitwise batches, losses within 1e-4),
-    CPU_STEPS on the CPU from the card's draws and model noise (bitwise
+    cpu_steps on the CPU from the card's draws and model noise (bitwise
     batches, losses within 1e-4), K = 16 when `grouped` (replays, the
     same launches, losses within 1e-4 of K = 1's), then calls of k steps
     timed. `flows` and `caches` by device ("cuda", "cpu"). cpu_optimizer
@@ -5346,23 +5396,23 @@ def _model_checks(torch, name: str, make_model, flows: dict, caches: dict, per_s
     same_ref = _same_nests(torch, tap_ref.batches, tap.batches, f"{name} auto vs ref")
     err_ref = _assert_close(losses_ref, losses[:REF_STEPS], f"{name} auto vs ref")
     # (c) the port on the CPU, from the card's draws (and its noise)
-    card_losses = losses[:CPU_STEPS]
+    card_losses = losses[:cpu_steps]
     if cpu_optimizer != "adam":
         card_losses = estimator("cuda", cpu_optimizer, optimizer=cpu_optimizer).train(
-            CPU_STEPS, log=False, save=False)
+            cpu_steps, log=False, save=False)
     cpu_flow = flows["cpu"]
-    draws = iter([_to_cpu(torch, d) for d in tap.draws[:CPU_STEPS]])
+    draws = iter([_to_cpu(torch, d) for d in tap.draws[:cpu_steps]])
     cpu_flow.draw_inputs = lambda gen: next(draws)
     cpu_est = estimator("cpu", "cpu", optimizer=cpu_optimizer)
     if noise.draws:
-        noise_cpu = iter([_to_cpu(torch, d) for d in noise.draws[:CPU_STEPS]])
+        noise_cpu = iter([_to_cpu(torch, d) for d in noise.draws[:cpu_steps]])
         cpu_est.model.draw_rngs = lambda gen, rows, device: next(noise_cpu)
-    tap_cpu = _Tap(cpu_flow, CPU_STEPS)
+    tap_cpu = _Tap(cpu_flow, cpu_steps)
     try:
-        losses_cpu = cpu_est.train(CPU_STEPS, log=False, save=False)
+        losses_cpu = cpu_est.train(cpu_steps, log=False, save=False)
     finally:
         tap_cpu.close()  # drops the instance's draw_inputs: the flow's own again
-    same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:CPU_STEPS], f"{name} card vs CPU")
+    same_cpu = _same_nests(torch, tap_cpu.batches, tap.batches[:cpu_steps], f"{name} card vs CPU")
     err_cpu = _assert_close(losses_cpu, card_losses, f"{name} card vs CPU")
     row = {"losses": losses, "launches": launches, "launches_per_step": per_step,
            "ref_on_card": {"batches_equal": same_ref, "losses": losses_ref, "max_rel_err": err_ref},
@@ -5496,6 +5546,200 @@ def zoo_rest_quality(torch, card: str) -> dict:
         raise AssertionError(f"zoo quality out of its band: {out}")
     _expect_launches(launches, {}, "the zoo's quality recipes")
     return res
+
+
+def cluster_graph(n_per: int = 30, seed: int = 0):
+    """tests/test_training.py's `make_cluster_graph` (the JAX ScalableGNN
+    test's graph) built by the port: two feature-separable clusters of
+    n_per nodes with intra-cluster ring edges."""
+    from euler_tpu_torch.graph import Graph
+
+    rng = np.random.default_rng(seed)
+    nodes, edges = [], []
+    for c in range(2):
+        base = c * n_per
+        for i in range(n_per):
+            feat = rng.normal(2.0 * (1 if c == 0 else -1), 1.0, 4).tolist()
+            label = [1.0, 0.0] if c == 0 else [0.0, 1.0]
+            nodes.append({"id": base + i + 1, "type": 0, "weight": 1.0, "features": [
+                {"name": "feat", "type": "dense", "value": feat},
+                {"name": "label", "type": "dense", "value": label}]})
+        for i in range(n_per):
+            for d in (1, 2, 3):
+                edges.append({"src": base + i + 1, "dst": base + (i + d) % n_per + 1,
+                              "type": 0, "weight": 1.0, "features": []})
+    return Graph.from_json({"nodes": nodes, "edges": edges})
+
+
+def _max_id(g) -> int:
+    return int(max(int(np.asarray(sh.node_ids).max(initial=0)) for sh in g.shards))
+
+
+def scalable_train(torch, g, card: str, seed: int) -> dict:
+    """Phase 29: ScalableGNN(dims 128,128) through ScalableTrainer on phase
+    5's graph `g` (see the module docstring)."""
+    from euler_tpu_torch import ops
+    from euler_tpu_torch.models import ScalableGNN, ScalableTrainer
+
+    max_id = _max_id(g)
+
+    def trainer(device: str, graph=g, in_dim=TRAIN_FEAT, dims=TRAIN_DIMS, batch=SCAL_BATCH,
+                fanout=SCAL_FANOUT, lr=0.01, top=max_id):
+        return ScalableTrainer(graph, ScalableGNN(in_dim, dims, 2), ["feat"], max_id=top,
+                               batch_size=batch, fanout=fanout, learning_rate=lr,
+                               rng=np.random.default_rng(seed), device=device)
+
+    t0 = time.perf_counter()
+    tr = trainer("cuda")
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for step in range(SCAL_STEPS):
+        t = time.perf_counter()
+        losses += tr.train(1)
+        times.append((time.perf_counter() - t) * 1e3)
+        if step == SCAL_CPU_STEPS - 1:
+            tables = [h.table.copy() for h in tr.histories]
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    _expect_launches(launches, {}, "ScalableTrainer")
+    if not np.isfinite(losses).all() or not np.mean(losses[-5:]) < np.mean(losses[:5]):
+        raise AssertionError(f"scalable losses not finite and falling: {losses}")
+    if tuple(tr.histories[1].table.shape) != (max_id + 1, TRAIN_DIMS[0]):
+        raise AssertionError(f"history table {tr.histories[1].table.shape}")
+    # the CPU from the same rng and init: losses and tables within 1e-4
+    cpu = trainer("cpu")
+    losses_cpu = cpu.train(SCAL_CPU_STEPS)
+    err = _assert_close(losses_cpu, losses[:SCAL_CPU_STEPS], "scalable card vs CPU")
+    table_err = []
+    for li, (want, got) in enumerate(zip(tables, cpu.histories)):
+        scale = max(float(np.abs(want).max()), 1e-12)
+        e = float(np.abs(got.table - want).max()) / scale
+        if not e <= TRAIN_TOL:
+            raise AssertionError(f"scalable history table {li}: card vs CPU {e} of its scale")
+        table_err.append(e)
+    del cpu, tables
+    # timing: the median step above; device time and idle share over
+    # SCAL_PROFILED steps (each step ends synchronised on its loss)
+    dev, wall_ms = _profile_window(torch, lambda: tr.train(SCAL_PROFILED))
+    busy_ms = sum(dev.values()) / 1e3
+    _, batch = tr._make_batch()  # one step's host arrays (tr is not stepped again)
+    h2d = sum(np.asarray(a).nbytes for v in batch.values()
+              for a in (v if isinstance(v, tuple) else (v,)))
+    d2h = SCAL_BATCH * sum(TRAIN_DIMS) * 4 + 4  # every layer's activations and the loss
+    # the JAX test's recipe on its two-cluster graph
+    r = SCAL_RECIPE
+    small = trainer("cuda", graph=cluster_graph(), in_dim=4, dims=r["dims"],
+                    batch=r["batch_size"], fanout=r["fanout"], lr=r["learning_rate"],
+                    top=r["max_id"])
+    hist = small.train(r["steps"])
+    refreshed = float(np.abs(small.histories[1].table).sum())
+    if not (np.isfinite(hist).all() and hist[-1] < hist[0] * 0.8 and refreshed > 0):
+        raise AssertionError(f"the JAX test's ScalableTrainer rule: {hist[0]} -> {hist[-1]}, "
+                             f"histories[1] sum {refreshed}")
+    res = {"phase": "scalable_train", "card": card, "nodes": TRAIN_NODES, "max_id": max_id,
+           "batch": SCAL_BATCH, "fanout": SCAL_FANOUT, "dims": TRAIN_DIMS, "steps": SCAL_STEPS,
+           "history_tables": [list(h.table.shape) for h in tr.histories],
+           "losses": losses, "launches": launches,
+           "port_on_cpu": {"losses": losses_cpu, "max_rel_err": err,
+                           "table_err_of_scale": table_err},
+           "median_step_ms": statistics.median(times), "min_step_ms": min(times),
+           "max_step_ms": max(times), "profiled_steps": SCAL_PROFILED,
+           "device_ms_per_step": busy_ms / SCAL_PROFILED,
+           "wall_ms_per_step": wall_ms / SCAL_PROFILED,
+           "device_idle_share": 1.0 - busy_ms / wall_ms,
+           "h2d_bytes_per_step": h2d, "d2h_bytes_per_step": d2h,
+           "jax_test_recipe": {**r, "first_loss": hist[0], "last_loss": hist[-1],
+                               "histories_1_abs_sum": refreshed},
+           "seconds": time.perf_counter() - t0, "rtol": TRAIN_TOL}
+    _emit(res)
+    return res
+
+
+def ids_train(torch, g, tmp: str, seed: int, plain_ms: float, card: str) -> dict:
+    """Phase 30: the id-embedding GraphSAGE on phase 5's paged lane with
+    hop ids (see the module docstring); `plain_ms` is phase 5's device ms
+    a step at K = 1, reported beside."""
+    from euler_tpu_torch.dataflow import DeviceSageFlow, DeviceUnsupSageFlow
+    from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+    from euler_tpu_torch.models import GraphSAGESupervised, GraphSAGEUnsupervised
+
+    t0 = time.perf_counter()
+    max_id = _max_id(g)
+    prev_dtype = os.environ.get("EULER_TPU_PAGE_DTYPE")
+    os.environ["EULER_TPU_PAGE_DTYPE"] = "bf16"
+    try:
+        flows = {dev: DeviceSageFlow(g, TRAIN_FANOUTS, TRAIN_BATCH, label_feature="label",
+                                     layout="paged", page_size=PAGE_SIZE, with_hop_ids=True,
+                                     device=dev) for dev in ("cuda", "cpu")}
+        unsup_flow = DeviceUnsupSageFlow(g, TRAIN_FANOUTS, UNSUP_BATCH, num_negs=UNSUP_NEGS,
+                                         layout="paged", page_size=PAGE_SIZE, with_hop_ids=True,
+                                         device="cuda")
+        caches = {dev: DeviceFeatureCache(g, ["feat"], device=dev) for dev in ("cuda", "cpu")}
+    finally:
+        if prev_dtype is None:
+            os.environ.pop("EULER_TPU_PAGE_DTYPE", None)
+        else:
+            os.environ["EULER_TPU_PAGE_DTYPE"] = prev_dtype
+    if not flows["cuda"]._page_w_packed:
+        raise AssertionError("the id lane did not stage a packed weight plane")
+    setup_s = time.perf_counter() - t0
+
+    def model():
+        return GraphSAGESupervised(TRAIN_FEAT, TRAIN_DIMS, 2, encoder_dim=IDS_ENCODER_DIM,
+                                   max_id=max_id)
+
+    table_rows = model().net.encoder.Embedding_0.table.shape[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # card vs CPU by sgd, as LGCN's: adam's sign-like first steps drive the
+    # lane's all-zero-label loss to ~1e-4 by step 3, where its relative
+    # error is the logits' absolute one (7.7e-5 by adam on an H100 80GB
+    # HBM3 at 700 W, near the 1e-4 rule)
+    row = _model_checks(torch, "graphsage_ids", model, flows, caches, IDS_PER_STEP, True,
+                        TRAIN_STEPS, CONV_K, CONV_CALLS, tmp, seed, card, "ids",
+                        cpu_optimizer="sgd", cpu_steps=IDS_CPU_STEPS)
+    peak = torch.cuda.max_memory_allocated()
+    del flows
+    # the unsupervised twin: 3 steps at K = 1
+    cfg = EstimatorConfig(model_dir=os.path.join(tmp, "ids_unsup"), learning_rate=0.01,
+                          optimizer="adam", log_steps=10**9, seed=seed)
+    est = Estimator(GraphSAGEUnsupervised(TRAIN_FEAT, TRAIN_DIMS, encoder_dim=IDS_ENCODER_DIM,
+                                          max_id=max_id),
+                    unsup_flow, cfg, feature_cache=caches["cuda"], device="cuda")
+    unsup_losses, unsup_launches, _ = _run_counted(torch, est, IDS_UNSUP_STEPS)
+    _expect_launches(unsup_launches, {k: n * IDS_UNSUP_STEPS for k, n in IDS_UNSUP_PER_STEP.items()},
+                     "the unsupervised id-embedding lane")
+    if not np.isfinite(unsup_losses).all():
+        raise AssertionError(f"unsupervised id-embedding losses not finite: {unsup_losses}")
+    del est, unsup_flow, caches
+    torch.cuda.empty_cache()
+    res = {"phase": "ids_train", "card": card, "nodes": TRAIN_NODES, "max_id": max_id,
+           "batch": TRAIN_BATCH, "fanouts": TRAIN_FANOUTS, "dims": TRAIN_DIMS,
+           "encoder_dim": IDS_ENCODER_DIM, "id_table": [table_rows, IDS_ENCODER_DIM],
+           "layout": "paged", "page_size": PAGE_SIZE, "steps": TRAIN_STEPS,
+           "supervised": row, "max_memory_allocated_bytes": peak,
+           "plain_lane_device_ms_per_step": plain_ms,
+           "unsupervised": {"batch": UNSUP_BATCH, "num_negs": UNSUP_NEGS,
+                            "steps": IDS_UNSUP_STEPS, "losses": unsup_losses,
+                            "launches": unsup_launches,
+                            "launches_per_step": IDS_UNSUP_PER_STEP},
+           "setup_s": setup_s, "seconds": time.perf_counter() - t0, "rtol": TRAIN_TOL}
+    _emit(res)
+    return {"launches": row["launches"], "launches_k16": row["k16"]["launches"],
+            "launches_unsup": unsup_launches, "result": res}
+
+
+def zoo_last(torch, tmp: str, seed: int, plain_ms: float, card: str) -> dict:
+    """Phases 29 and 30 on one build of phase 5's graph."""
+    from euler_tpu_torch.datasets import skewed_weighted_graph
+
+    g = skewed_weighted_graph(TRAIN_NODES, TRAIN_GRAPH_SEED)
+    scalable = scalable_train(torch, g, card, seed)
+    torch.cuda.empty_cache()
+    ids = ids_train(torch, g, tmp, seed, plain_ms, card)
+    del g
+    torch.cuda.empty_cache()
+    return {"scalable": scalable, **ids}
 
 
 def check_gat_dx(torch, gen) -> dict:
@@ -5675,6 +5919,10 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         zoo = zoo_rest_train(torch, tmp, args.seed, card)
         torch.cuda.empty_cache()
+        # 29-30. ScalableGNN over host history tables; the id-embedding
+        # GraphSAGE on phase 5's lane with hop ids
+        last = zoo_last(torch, tmp, args.seed, grouped["result"]["k1"]["device_ms_per_step"],
+                        card)
     serve_rows = time_kernels(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
     train_rows = time_kernels(torch, gen, gws_shapes(TRAIN_BATCH, TRAIN_FEAT), "train step")
     dx_rows = (time_dx(torch, gen, gws_shapes(128, FEAT_DIM), "bucket-128 predict")
@@ -5706,6 +5954,11 @@ def main(argv=None) -> int:
     gat_rows = time_kernels(torch, gen, gat_shapes, "gat step", attention=True)
     gat_dx_rows = time_dx(torch, gen, gat_shapes, "gat step", attention=True)
     gat_dx_check = check_gat_dx(torch, gen)
+    # the id-embedding step (phase 30): every call gathers the encoder's
+    # F = 128 output, and each call's dx runs
+    ids_shapes = gws_shapes(TRAIN_BATCH, IDS_ENCODER_DIM)
+    ids_rows = time_kernels(torch, gen, ids_shapes, "ids step")
+    ids_dx_rows = time_dx(torch, gen, ids_shapes, "ids step")
 
     def total(rows, key):
         vals = [r[key] for r in rows]
@@ -5741,7 +5994,8 @@ def main(argv=None) -> int:
         "graph_clf": gclf["launches"]["gather_weighted_sum"],
         **{f"zoo_rest_{m}": n["gather_weighted_sum"] for m, n in zoo["launches"].items()},
         "remat_train": remat["launches"]["gather_weighted_sum"],
-        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum"]}
+        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum"],
+        **{path: last[key]["gather_weighted_sum"] for path, key in IDS_PATHS}}
     host_dx_launches = {"train_grouped": grouped["launches"]["gather_weighted_sum_dx"],
                         "train_host": host["launches"]["gather_weighted_sum_dx"],
                         "train_host_grouped": host["grouped_launches"]["gather_weighted_sum_dx"],
@@ -5760,7 +6014,8 @@ def main(argv=None) -> int:
                         **{f"zoo_rest_{m}": n["gather_weighted_sum_dx"]
                            for m, n in zoo["launches"].items()},
                         "remat_train": remat["launches"]["gather_weighted_sum_dx"],
-                        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum_dx"]}
+                        "remat_train_k16": remat["launches_k16"]["gather_weighted_sum_dx"],
+                        **{path: last[key]["gather_weighted_sum_dx"] for path, key in IDS_PATHS}}
     shape_keys = ("shape", "N", "D", "F", "geometry", "ms", "warm_ms", "plain_ms",
                   "library_ms", "bound_ms")
     kernels = [{
@@ -5802,6 +6057,9 @@ def main(argv=None) -> int:
         "gat_step": {k: total(gat_rows, k) for k in ("ms", "plain_ms", "library_ms",
                                                      "bound_ms")},
         "gat_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in gat_rows],
+        "ids_step": {k: total(ids_rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                     "bound_ms")},
+        "ids_shapes": [{k: r[k] for k in shape_keys + ("max_abs_err",)} for r in ids_rows],
     }, {
         "name": "gather_weighted_sum_dx",
         "route": "cuda",
@@ -5832,6 +6090,9 @@ def main(argv=None) -> int:
         "gat_step": {k: total(gat_dx_rows, k) for k in ("ms", "plain_ms", "library_ms",
                                                         "bound_ms")},
         "gat_shapes": [{k: r[k] for k in shape_keys} for r in gat_dx_rows],
+        "ids_step": {k: total(ids_dx_rows, k) for k in ("ms", "plain_ms", "library_ms",
+                                                        "bound_ms")},
+        "ids_shapes": [{k: r[k] for k in shape_keys} for r in ids_dx_rows],
     }]
     # the hop kernel: the sums over the two hops of one train step
     kernels.append({
@@ -5848,7 +6109,8 @@ def main(argv=None) -> int:
                      + gclf["launches"][HOP_KERNEL]
                      + sum(n[HOP_KERNEL] for n in zoo["launches"].values())
                      + sum(n[HOP_KERNEL] for n in zoo["launches_k16"].values())
-                     + remat["launches"][HOP_KERNEL] + remat["launches_k16"][HOP_KERNEL]),
+                     + remat["launches"][HOP_KERNEL] + remat["launches_k16"][HOP_KERNEL]
+                     + sum(last[key][HOP_KERNEL] for _, key in IDS_PATHS)),
         "launches_by_path": {"train": train_launches[HOP_KERNEL],
                              "train_grouped": grouped["launches"][HOP_KERNEL],
                              "unsup_train": unsup["launches"][HOP_KERNEL],
@@ -5863,7 +6125,8 @@ def main(argv=None) -> int:
                              **{f"zoo_rest_{m}_k16": n[HOP_KERNEL]
                                 for m, n in zoo["launches_k16"].items()},
                              "remat_train": remat["launches"][HOP_KERNEL],
-                             "remat_train_k16": remat["launches_k16"][HOP_KERNEL]},
+                             "remat_train_k16": remat["launches_k16"][HOP_KERNEL],
+                             **{path: last[key][HOP_KERNEL] for path, key in IDS_PATHS}},
         "max_abs_err": paged_check["max_abs_err"],
         "check": "bitwise",
         "cases": paged_check["hop_cases"],
@@ -5896,12 +6159,14 @@ def main(argv=None) -> int:
             "launches": (train_launches[name] + unsup["launches"][name]
                          + sum(n[name] for n in convs["launches"].values())
                          + gclf["launches"][name]
-                         + sum(n[name] for n in zoo["launches"].values())),
+                         + sum(n[name] for n in zoo["launches"].values())
+                         + sum(last[key][name] for _, key in IDS_PATHS)),
             "launches_by_path": {"train": train_launches[name],
                                  "unsup_train": unsup["launches"][name],
                                  "conv_train": sum(n[name] for n in convs["launches"].values()),
                                  "graph_clf": gclf["launches"][name],
-                                 "zoo_rest": sum(n[name] for n in zoo["launches"].values())},
+                                 "zoo_rest": sum(n[name] for n in zoo["launches"].values()),
+                                 "ids_train": sum(last[key][name] for _, key in IDS_PATHS)},
             "max_abs_err": paged_check["max_abs_err"],
             "check": "bitwise",
             "ms": total(rows, "ms"),

@@ -8,7 +8,7 @@ sampled neighbors) and hop i ("dst").
 
 Dataflows build batches of numpy arrays on the host; `to_device` moves a
 batch onto a torch device. uint64 node ids stay in numpy: only the int32
-rows and indices, the masks and the f32 arrays become tensors. In
+rows, indices and hop ids, the masks and the f32 arrays become tensors. In
 feature_mode "rows" a batch carries int32 feature rows (row + 1, 0 =
 padding) for a `DeviceFeatureCache`; a lean batch leaves out what
 `hydrate_blocks` rebuilds on the device (masks, edge ids, unit weights)
@@ -55,7 +55,8 @@ class MiniBatch:
     blocks[i] — edges hop i+1 → hop i  (len == num hops)
     root_idx  — int32[B] root node ids
     labels    — optional f32[B, L] supervised targets
-    hop_ids   — optional int32 per-hop node ids (host only)
+    hop_ids   — optional int32 per-hop node ids (id embeddings; moved to
+                the device with the rest of the batch)
     target_idx — whole-graph flows: the hop-0 rows that carry the loss and
                 the metric (labels then has one row a target); None means
                 every hop-0 row is a target
@@ -70,9 +71,7 @@ class MiniBatch:
     target_idx: np.ndarray | torch.Tensor | None = None
 
 
-def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor | None:
-    if a is None:  # a leaf a lean batch leaves out
-        return None
+def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor:
     if isinstance(a, torch.Tensor):
         if pinned and a.device.type == "cpu":
             return a.pin_memory().to(device, non_blocking=True)
@@ -87,7 +86,7 @@ def _tensor(a, device: torch.device, pinned: bool) -> torch.Tensor | None:
 
 def _put_nest(x, put):
     """`put` over the arrays and tensors of a nest of tuples and
-    dataclasses (a Block's ints and None leaves kept)."""
+    dataclasses (a Block's ints and a lean batch's None leaves kept)."""
     if isinstance(x, tuple):
         return tuple(_put_nest(v, put) for v in x)
     if dataclasses.is_dataclass(x):
@@ -99,53 +98,28 @@ def _put_nest(x, put):
 def to_device(batch: MiniBatch, device, pinned: bool = False) -> MiniBatch:
     """The batch with every array as a tensor on `device` (the port's
     counterpart of the JAX `Estimator._put` + `hydrate_blocks`); arrays
-    that already are tensors are moved, or kept where they are. hop_ids
-    stay on the host: no model of the port reads them on the device; the
-    true degrees and target_idx of the full-graph flows move with the
-    rest, and an array the batch holds more than once (the full-graph
-    flow's one node table and block) is moved once. pinned=True stages
-    each host array in page-locked memory and copies it without
-    blocking: the caller must order its use after the current
+    that already are tensors are moved, or kept where they are. The int32
+    hop_ids move too, as the JAX package's batch carries them: an
+    id-embedding model reads them in the step, and a captured step must
+    take them as inputs, not bake one batch's ids in (a lean batch has
+    none). The true degrees and target_idx of the full-graph flows move
+    with the rest, and an array the batch holds more than once (the
+    full-graph flow's one node table and block) is moved once.
+    pinned=True stages each host array in page-locked memory and copies
+    it without blocking: the caller must order its use after the current
     stream's copies (the Prefetcher records an event). A lean batch's
     missing leaves stay None, and its bf16 edge weights stay bf16. The
     layer-wise and relation batches (`LayerwiseBatch`, `RelMiniBatch`)
-    move the same way: every array but their host hop_ids."""
+    move the same way."""
     device = torch.device(device)
     moved = {}  # one copy of an array the batch holds more than once
 
     def put(a):
-        if a is None:
-            return None
         if id(a) not in moved:
             moved[id(a)] = (a, _tensor(a, device, pinned))
         return moved[id(a)][1]
 
-    if not isinstance(batch, MiniBatch):
-        return dataclasses.replace(batch, **{
-            f.name: _put_nest(getattr(batch, f.name), put)
-            for f in dataclasses.fields(batch) if f.name != "hop_ids"})
-
-    blocks = tuple(
-        dataclasses.replace(
-            b,
-            edge_src=put(b.edge_src),
-            edge_dst=put(b.edge_dst),
-            edge_w=put(b.edge_w),
-            mask=put(b.mask),
-            src_deg=put(b.src_deg),
-            dst_deg=put(b.dst_deg),
-        )
-        for b in batch.blocks
-    )
-    return MiniBatch(
-        feats=tuple(put(f) for f in batch.feats),
-        masks=None if batch.masks is None else tuple(put(m) for m in batch.masks),
-        blocks=blocks,
-        root_idx=put(batch.root_idx),
-        labels=None if batch.labels is None else put(batch.labels),
-        hop_ids=batch.hop_ids,
-        target_idx=put(batch.target_idx),
-    )
+    return _put_nest(batch, put)
 
 
 def upgrade_lean_host(batch):

@@ -43,9 +43,13 @@ numbers JAX derives from its key, `make_batch` gives JAX's batch bit for bit
 (tests/test_torch_device_flow.py, tests/test_torch_unsup.py,
 tests/test_torch_skipgram.py, tests/test_torch_kg.py).
 
+`with_hop_ids=True` (DeviceSageFlow and its unsupervised and DGI
+subclasses) adds each hop's int32 node ids to the batch, a gather of the
+staged id plane on the device (pad rows map to -1), for the id
+embedding of GraphSAGE's ShallowEncoder stage.
+
 Not ported yet: `refresh_rows` (ROADMAP queue 1 item 8), `mesh` (item
-6), `with_hop_ids` (item 2), remote-shard staging (item 8), and the
-frontier flows of ScalableGNN (item 4).
+6) and remote-shard staging (item 8).
 """
 
 from __future__ import annotations
@@ -541,21 +545,20 @@ class DeviceSageFlow(DeviceGraphTables):
         *,
         device=None,
     ):
-        """The reference's parameters in its order; `mesh` and
-        `with_hop_ids` are not ported yet. On the CUDA card unless
+        """The reference's parameters in its order; `mesh` is not ported
+        yet. with_hop_ids=True adds every hop's int32 node ids to the
+        batch (`hop_ids`, id -1 on pad rows), what an id-embedding model
+        reads: a gather of the staged id plane on the device, where the
+        host lean wire leaves them out. On the CUDA card unless
         device="cpu"."""
         _refuse_mesh(type(self).__name__, mesh)
-        if with_hop_ids:
-            raise NotImplementedError(
-                f"{type(self).__name__}(with_hop_ids=True) is not ported yet "
-                "(ROADMAP queue 1 item 2: it feeds ShallowEncoder's id embedding)"
-            )
         super().__init__(
             graph, edge_types, max_degree, roots_pool, root_node_type,
             layout=layout, page_size=page_size, device=device,
         )
         self.fanouts = [int(k) for k in fanouts]
         self.batch_size = int(batch_size)
+        self.with_hop_ids = bool(with_hop_ids)
         if label_feature is not None:
             from euler_tpu_torch.estimator.feature_cache import DeviceFeatureCache
 
@@ -600,6 +603,10 @@ class DeviceSageFlow(DeviceGraphTables):
             blocks=tuple(blocks),
             root_idx=self.node_id[feats[0]],
             labels=labels,
+            # pad rows map to id -1; the encoder clips them to row 0, and
+            # hydrate_blocks derives the hop masks from the rows, so a pad
+            # slot's embedding never reaches the aggregation
+            hop_ids=tuple(self.node_id[f] for f in feats) if self.with_hop_ids else None,
         )
 
     def sample(self, generator: torch.Generator) -> MiniBatch:
@@ -1206,7 +1213,10 @@ class DeviceDgiFlow(DeviceSageFlow):
     the corruption permutes each hop's feature rows across the batch —
     on a lean batch a row permutation is DGI's feature shuffle, since
     hydration gathers the permuted rows. The permutations (one a hop)
-    are `draw_inputs` outputs."""
+    are `draw_inputs` outputs. Under with_hop_ids the id plane rides the
+    same permutation as the rows: ids, rows and the masks hydration
+    derives from the rows move together, so no pad slot lands under a
+    valid mask position in the corrupted view."""
 
     def draw_inputs(self, generator: torch.Generator):
         """([B] root rows, the hop draws, one permutation of each hop's
@@ -1222,4 +1232,6 @@ class DeviceDgiFlow(DeviceSageFlow):
     def make_batch(self, roots, hop_draws, perms) -> tuple:
         mb = super().make_batch(roots, hop_draws)
         perm_feats = tuple(f[p] for f, p in zip(mb.feats, perms))
-        return mb, dataclasses.replace(mb, feats=perm_feats)
+        perm_ids = (None if mb.hop_ids is None
+                    else tuple(h[p] for h, p in zip(mb.hop_ids, perms)))
+        return mb, dataclasses.replace(mb, feats=perm_feats, hop_ids=perm_ids)

@@ -27,7 +27,7 @@ class LayerwiseBatch:
     adjs[l]   — f32[N_l, N_{l+1}] weighted adjacency layer l <- l+1
     root_idx  — int32[B] root ids
     labels    — optional f32[B, L]
-    hop_ids   — optional int32 per-layer node ids (host only)
+    hop_ids   — optional int32 per-layer node ids (moved with the rest)
     """
 
     feats: tuple

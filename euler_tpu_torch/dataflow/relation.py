@@ -16,8 +16,8 @@ from euler_tpu_torch.graph.store import DEFAULT_ID
 @dataclasses.dataclass
 class RelMiniBatch:
     """feats[i] f32[N_i, F] and masks[i] bool[N_i] per hop; rel_blocks[i]
-    one Block per relation from hop i+1 into hop i; hop_ids stay on the
-    host."""
+    one Block per relation from hop i+1 into hop i; hop_ids int32 per
+    hop (moved to the device with the rest)."""
 
     feats: tuple
     masks: tuple

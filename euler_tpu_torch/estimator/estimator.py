@@ -8,7 +8,7 @@ returns (embedding, loss, metric_name, metric). Two lanes feed it:
   numpy `MiniBatch`es (`node_batches`, `unsupervised_batches`'s (src,
   pos, negs), a `ResumableSource` or a `Prefetcher`), which go through
   `to_device` → `hydrate_blocks` → the feature cache, `LayerwiseBatch`es
-  and `RelMiniBatch`es (moved by `to_device`, hop_ids kept on the host),
+  and `RelMiniBatch`es (moved by `to_device`, their int32 hop_ids too),
   or dicts of numpy arrays (the skip-gram and KG sources) and `GraphBatch`es
   (`graph_label_batches`), whose arrays are moved as they are (int32 ids
   stay int32);
@@ -74,7 +74,7 @@ from euler_tpu_torch.training.checkpoint import CheckpointStore
 # losses kept on the device before a drain to the host: one live scalar
 # a step would otherwise pin an unbounded number of small buffers
 DRAIN_EVERY = 4096
-# the batch dataclasses `to_device` moves (hop_ids stay on the host)
+# the batch dataclasses `to_device` moves (hop_ids included)
 BATCH_TYPES = (MiniBatch, LayerwiseBatch, RelMiniBatch)
 
 

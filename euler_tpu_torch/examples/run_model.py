@@ -11,6 +11,7 @@
         --device cpu
     python -m euler_tpu_torch.examples.run_model --model rgcn --synthetic --device cpu
     python -m euler_tpu_torch.examples.run_model --model vgae --synthetic --device-flow
+    python -m euler_tpu_torch.examples.run_model --model scalable_gcn --synthetic --device cpu
 
 The JAX runner's flags and defaults, plus `--device` (the CUDA card
 unless `--device cpu`; `--platform cpu` means the same). The families the
@@ -33,7 +34,12 @@ port runs:
                      DeviceWholeGraphFlow staged from it)
   embeddings:        deepwalk node2vec line
   knowledge graph:   transe transh transr transd distmult rotate
-each on the host flow and, with `--device-flow`, on the device flow.
+  scalable:          scalable_gcn scalable_sage (ScalableGNN over host
+                     HistoryTables through ScalableTrainer, fanout
+                     fanouts[0]; in every mode it trains --total-steps and
+                     prints "final loss: ...", as the JAX runner does)
+each on the host flow and, with `--device-flow`, on the device flow (the
+scalable pair has only its host batches).
 Modes, as the JAX runner runs them: train for every family; evaluate
 for the KG family (`kg_rank_eval`), the supervised convs, rgcn, fastgcn
 and adaptivegcn; infer for the embedding family (writes embedding_0.npy
@@ -45,9 +51,8 @@ the evaluate and train_and_evaluate of graphsage_unsup, gae, vgae and
 dgi, which raise a TypeError in the JAX runner (it feeds the pair or
 triple model one MiniBatch), are refused too, and so are the
 graph-classification family's modes but train (the JAX runner feeds
-node ids to the graph-label flow as labels).
-Every other model of the JAX zoo exits with a message naming its
-ROADMAP item.
+node ids to the graph-label flow as labels). The runner trains every
+model of the JAX zoo.
 
 --synthetic uses each dataset's offline stand-in; with raw files under
 $EULER_TPU_DATA the real datasets load.
@@ -75,8 +80,8 @@ GRAPH_CLF = {"gin": ("gin", "mean"), "set2set": ("gin", "set2set"),
 # MiniBatch per arg, so only infer (`model.embed`) runs beside train
 PAIR_MODELS = ("graphsage_unsup", "gae", "vgae", "dgi")
 LAYERWISE_MODELS = ("fastgcn", "adaptivegcn")
-# the JAX zoo's other models and the ROADMAP item each waits for
-NOT_PORTED = {m: "ROADMAP queue 1 item 4 (ScalableGNN)" for m in ("scalable_gcn", "scalable_sage")}
+# the history-embedding pair: ScalableTrainer's own 1-hop loop
+SCALABLE_MODELS = ("scalable_gcn", "scalable_sage")
 
 
 def build_parser():
@@ -129,10 +134,9 @@ def _require_checkpoint(est):
 
 
 def _refuse(name: str) -> None:
-    if name in NOT_PORTED:
-        raise SystemExit(f"model {name!r} is not ported to euler_tpu_torch yet: {NOT_PORTED[name]}")
     known = (sorted(KG_MODELS) + list(EMBEDDING_MODELS) + list(PAIR_MODELS)
-             + list(LAYERWISE_MODELS) + ["rgcn"] + list(CONV_MODELS) + list(GRAPH_CLF))
+             + list(LAYERWISE_MODELS) + ["rgcn"] + list(CONV_MODELS) + list(GRAPH_CLF)
+             + list(SCALABLE_MODELS))
     if name not in known:
         raise SystemExit(f"unknown model {name!r}")
 
@@ -167,7 +171,8 @@ def main(argv=None):
     )
     feature = "feature"
     if args.remat and (name in KG_MODELS or name in EMBEDDING_MODELS
-                       or name in LAYERWISE_MODELS or name == "rgcn"):
+                       or name in LAYERWISE_MODELS or name == "rgcn"
+                       or name in SCALABLE_MODELS):
         print(f"# --remat has no effect for model {name!r} (no conv stack)")
     label_dim = getattr(ds, "num_classes", 2) if ds else 2
     dims = [args.hidden_dim] * args.layers
@@ -263,6 +268,16 @@ def main(argv=None):
         else:
             bf = node_batches(graph, flow, args.batch_size, 0, rng=rng)
         est = Estimator(model, bf, cfg, device=device)
+    elif name in SCALABLE_MODELS:
+        from euler_tpu_torch.models import ScalableGNN, ScalableTrainer
+
+        model = ScalableGNN(graph.meta.feature_spec(feature).dim, dims, label_dim)
+        trainer = ScalableTrainer(graph, model, [feature], max_id=max_id,
+                                  batch_size=args.batch_size, fanout=args.fanouts[0],
+                                  learning_rate=args.learning_rate, rng=rng, device=device)
+        hist = trainer.train(args.total_steps)
+        print(f"final loss: {hist[-1]:.4f}")
+        return 0
     elif name in ("gae", "vgae", "dgi"):
         from euler_tpu_torch.dataflow import SageDataFlow
         from euler_tpu_torch.estimator import DeviceFeatureCache

@@ -23,3 +23,4 @@ from euler_tpu_torch.models.kg import (  # noqa: F401
 )
 from euler_tpu_torch.models.layerwise_models import LayerwiseGCN  # noqa: F401
 from euler_tpu_torch.models.rgcn import RGCNSupervised  # noqa: F401
+from euler_tpu_torch.models.scalable import ScalableGNN, ScalableTrainer  # noqa: F401

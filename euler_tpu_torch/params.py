@@ -76,11 +76,14 @@ def _leaves(tree, prefix=()):
 def from_flax(tree) -> dict[str, torch.Tensor]:
     """The port's state_dict (f32 CPU tensors) from a flax param tree,
     with or without the top-level "params" collection; leaves may be
-    numpy arrays or anything `np.asarray` reads."""
+    numpy arrays or anything `np.asarray` reads, or boxes with an
+    `unbox()` (flax's `nn.Partitioned`, around the id tables)."""
     if set(tree) == {"params"}:
         tree = tree["params"]
     out = {}
     for path, leaf in _leaves(tree):
+        if hasattr(leaf, "unbox"):
+            leaf = leaf.unbox()
         a = np.array(leaf, dtype=np.float32)  # a writable copy
         if path[-1] == "kernel":
             a = _kernel_to_torch(a, path)
@@ -358,7 +361,7 @@ def _orthogonal(key, shape) -> np.ndarray:
     return q.T if rows < cols else q
 
 
-def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
+def flax_init(model: nn.Module, seed: int, *, raw_key: bool = False) -> dict[str, torch.Tensor]:
     """The state_dict of the params the JAX package's Estimator draws for
     the flax twin of `model` at `seed` (see the note above): every weight,
     Conv kernel, GAT attention vector, RelationConv `basis` / `rel_w` and
@@ -369,9 +372,13 @@ def flax_init(model: nn.Module, seed: int) -> dict[str, torch.Tensor]:
     `beta` 1, every bias 0. Raises on any other param. (A model that
     declares rng_collections, like GAE, takes the params key from a wider
     split of the seed's key; with threefry partitionable its first key is
-    the same.)"""
-    k0, k1 = _key_words((np.uint32(0), np.uint32(seed)), 1)
-    key = (k0[0], k1[0])
+    the same.) raw_key=True takes `PRNGKey(seed)` itself as the params
+    key, as `model.init(PRNGKey(seed), batch)` does (ScalableTrainer)."""
+    if raw_key:
+        key = (np.uint32(0), np.uint32(seed))
+    else:
+        k0, k1 = _key_words((np.uint32(0), np.uint32(seed)), 1)
+        key = (k0[0], k1[0])
     out = {}
     for name, t in model.state_dict().items():
         path = _flax_path(name)

@@ -1,8 +1,9 @@
 """The port's GAE / VGAE / DGI family against the JAX package:
 `gae_batches` / `dgi_batches` bitwise from one numpy seed,
 `DeviceGaeFlow` / `DeviceDgiFlow.make_batch` fed JAX's bits and
-permutations bitwise on the dense and the paged layouts (and each drawn
-dst a true neighbour of its src), the models' loss, AUC and grads within
+permutations bitwise on the dense and the paged layouts (DGI's with hop
+ids: the id plane rides the rows' permutation; each drawn dst a true
+neighbour of its src), the models' loss, AUC and grads within
 1e-5 of flax's on `from_flax` params (VGAE fed the normals JAX's
 "reparam" stream draws), 3 adam steps on the device flows within 1e-5 of
 JAX's losses (steps_per_call 1 and 2; VGAE's noise fed from JAX's
@@ -80,6 +81,8 @@ def _same_batch(jb, pb):
         assert (a.n_src, a.n_dst, a.grid) == (b.n_src, b.n_dst, b.grid)
         pairs += [(a.edge_src, b.edge_src), (a.edge_dst, b.edge_dst), (a.edge_w, b.edge_w),
                   (a.mask, b.mask)]
+    assert (jb.hop_ids is None) == (pb.hop_ids is None)
+    pairs += list(zip(jb.hop_ids or (), pb.hop_ids or (), strict=True))
     for a, b in pairs:
         assert (a is None) == (b is None)
         if a is not None:
@@ -160,7 +163,8 @@ FLOWS = {"gae": (JaxDeviceGaeFlow, DeviceGaeFlow, gae_draws),
 @pytest.fixture(scope="module")
 def flows(graphs):
     """(jax flow, port flow, jitted JAX sample) by (kind, weighted,
-    layout), staged under the f32 weight plane."""
+    layout), staged under the f32 weight plane; the DGI flows carry hop
+    ids."""
     made = {}
 
     def get(kind, weighted, layout):
@@ -168,6 +172,8 @@ def flows(graphs):
             jg, pg = graphs[weighted]
             jcls, pcls, _ = FLOWS[kind]
             kw = dict(fanouts=FANOUTS, batch_size=BATCH, layout=layout, page_size=8)
+            if kind == "dgi":  # the id plane rides the rows' permutation
+                kw["with_hop_ids"] = True
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("EULER_TPU_PAGE_DTYPE", "f32")
                 jf, pf = jcls(jg, **kw), pcls(pg, **kw, device="cpu")
@@ -238,13 +244,14 @@ def hydrated(flows, graphs):
 @contextlib.contextmanager
 def recorded_normals():
     """Record what jax.random.normal returns while a flax apply runs
-    eagerly (VGAE's three reparameterisation draws)."""
+    (VGAE's three reparameterisation draws); inside a jitted function the
+    records are its trace's values, which it returns (`vgae_normals`)."""
     seen = []
     normal = jax.random.normal
 
     def spy(*a, **kw):
         out = normal(*a, **kw)
-        seen.append(np.asarray(out))
+        seen.append(out)
         return out
 
     jax.random.normal = spy
@@ -252,6 +259,17 @@ def recorded_normals():
         yield seen
     finally:
         jax.random.normal = normal
+
+
+def vgae_normals(jm, tree, jargs, rngs) -> list:
+    """The normals VGAE's apply draws under `rngs`, from one jitted apply
+    (an eager apply runs op by op, each op compiled on its own)."""
+    def fn(tree, jargs, rngs):
+        with recorded_normals() as seen:
+            jm.apply(tree, *jargs, rngs=rngs)
+        return tuple(seen)
+
+    return [np.asarray(x) for x in jax.jit(fn)(tree, jargs, rngs)]
 
 
 def _check(jm, pm, tree, jargs, pargs, jrngs=None, prngs=None):
@@ -290,8 +308,7 @@ def test_vgae_matches_flax_on_jax_noise(hydrated):
     rngs = {"reparam": jax.random.PRNGKey(4)}
     tree = _random_params(jm, 2, *jb, rngs=rngs)
     assert set(tree["params"]) == {"encoder", "mu_head", "logvar_head"}
-    with recorded_normals() as seen:
-        jm.apply(tree, *jb, rngs=rngs)
+    seen = vgae_normals(jm, tree, jb, rngs)
     assert len(seen) == 3 and seen[0].shape == (BATCH, DIMS[-1])
     eps = torch.from_numpy(np.stack(seen))
     _check(jm, GAE(FEAT, DIMS, variational=True), tree, jb, pb, rngs, {"reparam": eps})
@@ -361,8 +378,7 @@ def test_reparam_noise_is_jax_stream(hydrated):
         def _rngs(step):
             return {"reparam": jax.random.fold_in(jax.random.PRNGKey(9), step)}
 
-    with recorded_normals() as seen:
-        jm.apply(tree, *jb, rngs=Steps._rngs(2))
+    seen = vgae_normals(jm, tree, jb, Steps._rngs(2))
     np.testing.assert_array_equal(jax_reparam_noise(Steps, 2, BATCH).numpy(), np.stack(seen))
 
 

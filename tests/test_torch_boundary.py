@@ -59,6 +59,9 @@ PORTED = [
     "euler_tpu_torch.models.rgcn", "euler_tpu_torch.models.layerwise_models",
     "euler_tpu_torch.models.autoencoders", "euler_tpu_torch.examples.link_quality",
     "euler_tpu_torch.examples.run_model",
+    "euler_tpu_torch.nn.history", "euler_tpu_torch.models.scalable",
+    "euler_tpu_torch.nn.encoders", "euler_tpu_torch.nn.aggregators",
+    "euler_tpu_torch.nn.embedding",
 ]
 
 

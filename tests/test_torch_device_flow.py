@@ -2,9 +2,16 @@
 tables are equal, and `make_batch` fed the random numbers JAX derives
 from its key gives JAX's `sample(key)` MiniBatch leaf for leaf, bitwise —
 dense and paged layouts, weighted and unit-weight graphs, page sizes 8
-and 16, f32 and packed bf16 weight planes, and a hub graph whose rows
-span many pages. The port's own generator is held to the weight
-distribution on a hub.
+and 16, f32 and packed bf16 weight planes (with hop ids), and a hub
+graph whose rows span many pages. The port's own generator is held to
+the weight distribution on a hub.
+
+The id-embedding GraphSAGE: hop ids are the sampled rows' ids (-1 on pad
+rows, whose hydrated masks are False), DGI's id plane rides its rows'
+permutation, `to_device` moves a host batch's hop ids so that each
+replay of a captured step reads its own batch's ids, and
+GraphSAGESupervised(encoder_dim=8, max_id=300) gives JAX's loss and
+grads within 1e-5 and trains through the Estimator at steps_per_call 2-4.
 """
 
 import jax
@@ -14,13 +21,21 @@ import pytest
 import torch
 
 from euler_tpu.dataflow import DeviceSageFlow as JaxDeviceSageFlow
+from euler_tpu.dataflow.base import hydrate_blocks as jax_hydrate_blocks
 from euler_tpu.datasets.synthetic import random_graph as jax_random_graph
 from euler_tpu.graph import Graph as JaxGraph
+from euler_tpu.estimator import DeviceFeatureCache as JaxFeatureCache
 from euler_tpu.graph.builder import build_from_json
+from euler_tpu.models import GraphSAGESupervised as JaxGraphSAGESupervised
 from euler_tpu_torch import ops
-from euler_tpu_torch.dataflow import DeviceSageFlow
+from euler_tpu_torch.dataflow import DeviceDgiFlow, DeviceSageFlow, SageDataFlow, hydrate_blocks
+from euler_tpu_torch.dataflow.base import to_device
 from euler_tpu_torch.datasets import random_graph
+from euler_tpu_torch.estimator import DeviceFeatureCache, Estimator, EstimatorConfig
+from euler_tpu_torch.estimator.graph_step import signature, tensor_leaves, with_leaves
 from euler_tpu_torch.graph import Graph, GraphMeta, GraphStore
+from euler_tpu_torch.models import GraphSAGESupervised
+from euler_tpu_torch.params import checkpoint_order, from_flax, to_flax_leaf
 
 torch.set_num_threads(1)
 
@@ -96,6 +111,9 @@ def assert_same_batch(jb, pb):
     assert len(jb.feats) == len(pb.feats) and len(jb.blocks) == len(pb.blocks)
     pairs = [(a, b) for a, b in zip(jb.feats, pb.feats)]
     pairs += [(jb.root_idx, pb.root_idx), (jb.labels, pb.labels)]
+    assert (jb.hop_ids is None) == (pb.hop_ids is None)
+    if jb.hop_ids is not None:
+        pairs += list(zip(jb.hop_ids, pb.hop_ids, strict=True))
     for a, b in zip(jb.blocks, pb.blocks):
         assert (a.n_src, a.n_dst, a.grid) == (b.n_src, b.n_dst, b.grid)
         assert b.edge_src is None and b.mask is None
@@ -148,7 +166,7 @@ def test_tables_and_batches_match_jax(layout, weighted, page_size, plane, monkey
     monkeypatch.setenv("EULER_TPU_PAGE_DTYPE", plane)
     jg, pg = _random_graphs(weighted)
     jf, pf = _flows(jg, pg, fanouts=FANOUTS, batch_size=BATCH, label_feature="label",
-                    layout=layout, page_size=page_size)
+                    layout=layout, page_size=page_size, with_hop_ids=True)
     assert_same_tables(jf, pf)
     if layout == "paged":
         assert pf._page_w_packed == (weighted and plane == "bf16")
@@ -252,3 +270,124 @@ def test_hub_draws_follow_edge_weights():
     assert total == 20 * 64 * 64
     for nid, cnt in counts.items():
         assert abs(cnt / total - w_of[nid] / sum(w_of.values())) < 0.05, nid
+
+
+# ---- hop ids and the id-embedding GraphSAGE ----------------------------------
+
+
+def test_hop_ids_are_the_rows_ids():
+    """Each hop's ids are the ids of its rows, -1 on pad rows, whose
+    hydrated masks are False (so a pad slot's embedding never reaches the
+    aggregation); DGI's corrupted batch permutes the id plane with its
+    rows."""
+    graph = _hub_json()
+    # every fifth ring node has no out-edge: its fanout slots are pad rows
+    graph["edges"] = [e for e in graph["edges"] if e["src"] == 0 or e["src"] % 5]
+    pg = Graph.from_json(graph)
+    ids = pg.shards[0].node_ids
+    node_id = np.full(len(ids) + 1, -1, np.int32)
+    node_id[1:] = ids.astype(np.int64).astype(np.int32)
+    flow = DeviceSageFlow(pg, fanouts=[4, 3], batch_size=16, label_feature="label",
+                          with_hop_ids=True, layout="paged", page_size=8, device="cpu")
+    mb = flow.sample(torch.Generator().manual_seed(0))
+    hb = hydrate_blocks(mb)
+    assert len(mb.hop_ids) == 3
+    for h, (rows, ids) in enumerate(zip(mb.feats, mb.hop_ids)):
+        assert ids.dtype == torch.int32
+        np.testing.assert_array_equal(ids.numpy(), node_id[rows.numpy()])
+        if h:
+            assert torch.equal(hb.masks[h], rows > 0)
+    assert (mb.feats[2] == 0).any()  # the ring's rows pad past their degree
+    dgi = DeviceDgiFlow(pg, fanouts=[4], batch_size=16, with_hop_ids=True, device="cpu")
+    real, fake = dgi.sample(torch.Generator().manual_seed(1))
+    assert not torch.equal(real.hop_ids[1], fake.hop_ids[1])
+    for b in (real, fake):
+        for rows, ids in zip(b.feats, b.hop_ids):
+            np.testing.assert_array_equal(ids.numpy(), node_id[rows.numpy()])
+
+
+def test_to_device_moves_hop_ids_for_each_replay():
+    """A non-lean host batch's hop ids become int32 tensors, so a captured
+    step (StepGraph copies new inputs into the tensor leaves it captured)
+    embeds each replay's own ids; host ids would stay baked in as the
+    first batch's."""
+    _, pg = _random_graphs(True)
+    flow = SageDataFlow(pg, ["feat"], fanouts=[3, 2], label_feature="label",
+                        rng=np.random.default_rng(0))
+    b1, b2 = (to_device(flow.query(pg.sample_node(8, rng=np.random.default_rng(s))), "cpu")
+              for s in (1, 2))
+    for b in (b1, b2):
+        assert all(isinstance(h, torch.Tensor) and h.dtype == torch.int32 for h in b.hop_ids)
+    assert signature(b1) == signature(b2)
+    torch.manual_seed(0)
+    model = GraphSAGESupervised(8, [8, 8], 2, encoder_dim=8, max_id=300)
+    static = [t.clone() for t in tensor_leaves(b1)]
+    captured = with_leaves(b1, iter(static))
+    for s, t in zip(static, tensor_leaves(b2)):  # a replay's input copy
+        s.copy_(t)
+    for h, ids in enumerate(b2.hop_ids):
+        assert torch.equal(captured.hop_ids[h], ids)
+    with torch.no_grad():
+        got, want, first = model.embed(captured), model.embed(b2), model.embed(b1)
+    assert torch.equal(got, want) and not torch.equal(got, first)
+
+
+def _encoder_tree(module, batch, seed):
+    """Seeded normals in the shapes of the flax tree (the id table and
+    the Denses at a quarter of lecun's scale): no flax init compiled."""
+    shapes = jax.eval_shape(module.init, jax.random.PRNGKey(0), batch)
+    import flax.linen as nn
+
+    rng = np.random.default_rng(seed)
+
+    def leaf(s):
+        fan_in = int(np.prod(s.shape[:-1])) if len(s.shape) > 1 else 0
+        std = 0.25 * fan_in**-0.5 if 4 < fan_in < 300 else 0.1
+        return rng.normal(0, std, s.shape).astype(np.float32)
+
+    return jax.tree_util.tree_map(leaf, nn.meta.unbox(shapes))
+
+
+def test_encoder_stage_matches_jax(tmp_path):
+    """GraphSAGESupervised(encoder_dim=8, max_id=300) on one hydrated
+    device-flow batch with hop ids (fed JAX's draws): loss, metric and
+    grads within 1e-5 of flax's, the id table's among them; then the
+    Estimator trains on the port's flow at steps_per_call 2 and 4."""
+    jg, pg = _random_graphs(True)
+    jf, pf = _flows(jg, pg, fanouts=[3, 2], batch_size=8, label_feature="label",
+                    layout="paged", page_size=8, with_hop_ids=True)
+    jc, pc = JaxFeatureCache(jg, ["feat"]), DeviceFeatureCache(pg, ["feat"], device="cpu")
+    key = jax.random.PRNGKey(3)
+    jb = jax.jit(lambda k: jc.hydrate(jax_hydrate_blocks(jf.sample(k))))(key)
+    pb = pc.hydrate(hydrate_blocks(pf.make_batch(*jax_draws(jf, key))))
+    jm = JaxGraphSAGESupervised(dims=[8, 8], label_dim=2, encoder_dim=8, max_id=300)
+    tree = _encoder_tree(jm, jb, 1)
+    assert tree["params"]["net"]["encoder"]["Embedding_0"]["table"].shape == (384, 8)
+
+    def loss_fn(p):
+        _, loss, _, metric = jm.apply(p, jb)
+        return loss, metric
+
+    (jloss, jmetric), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(tree)
+    pm = GraphSAGESupervised(8, [8, 8], 2, encoder_dim=8, max_id=300)
+    sd = from_flax(jax.tree_util.tree_map(np.asarray, tree))
+    assert set(sd) == set(pm.state_dict())
+    pm.load_state_dict(sd)
+    _, loss, _, metric = pm(pb)
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(metric.item(), float(jmetric), rtol=1e-5, atol=1e-5)
+    named = dict(pm.named_parameters())
+    got = [to_flax_leaf(k, named[k].grad) for k in checkpoint_order(named)]
+    want = jax.tree_util.tree_leaves(jgrads)
+    assert len(got) == len(want) == 9
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-5)
+    assert np.abs(got[checkpoint_order(named).index("net.encoder.Embedding_0.table")]).sum() > 0
+    for k in (2, 4):
+        est = Estimator(GraphSAGESupervised(8, [8, 8], 2, encoder_dim=8, max_id=300), pf,
+                        EstimatorConfig(model_dir=str(tmp_path / f"k{k}"), learning_rate=0.05,
+                                        log_steps=10**9, steps_per_call=k),
+                        feature_cache=pc, device="cpu")
+        losses = est.train(total_steps=8, log=False, save=False)
+        assert len(losses) == 8 and np.isfinite(losses).all()

@@ -88,6 +88,9 @@ def test_step_inputs_round_trip_through_static_buffers():
             s.copy_(t)
         assert all(torch.equal(a, b) for a, b in zip(tensor_leaves(y), leaves))
     (b,) = batch
-    assert len(tensor_leaves(batch)) == 3 + 3 + 2 * 4 + 2  # feats, masks, blocks, root, labels
+    # feats, masks, blocks, root, labels, and the hop ids, which a
+    # captured step must take as inputs like the rest of the batch
+    assert len(tensor_leaves(batch)) == 3 + 3 + 2 * 4 + 2 + 3
+    assert all(h.dtype == torch.int32 for h in b.hop_ids)
     assert signature(batch) != signature((dataclasses.replace(b, feats=b.feats[:2]),))
     assert signature(draws) != signature((draws[0], (draws[1][0], torch.rand(15, 3))))

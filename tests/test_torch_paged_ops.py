@@ -6,6 +6,7 @@ The CUDA kernels themselves run only on a card; `chip_smoke.py` holds
 them bitwise against the same plain versions there.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,11 @@ from euler_tpu_torch import ops
 from euler_tpu_torch.ops import paged
 
 torch.set_num_threads(1)
+
+# the JAX side as one jitted program a call (op by op, each op would
+# compile on its own); integer work, so the same bits either way
+_jit_gather = jax.jit(lambda flat, fidx, impl: jpk.paged_gather(jpk._as_lane_rows(flat), fidx, impl),
+                      static_argnums=2)
 
 
 def _i32(a) -> torch.Tensor:
@@ -54,7 +60,7 @@ def test_paged_gather_matches_jax(dtype):
             else rng.normal(size=700)).astype(dtype)
     fidx = rng.integers(0, 700, (37, 10)).astype(np.int32)
     fidx[0, :2] = [0, 699]  # first and last element
-    want = np.asarray(jpk.paged_gather(jpk._as_lane_rows(jnp.asarray(flat)), jnp.asarray(fidx), "xla"))
+    want = np.asarray(_jit_gather(jnp.asarray(flat), jnp.asarray(fidx), "xla"))
     t2d = paged.as_lane_rows(torch.from_numpy(flat))
     np.testing.assert_array_equal(t2d.numpy(), np.asarray(jpk._as_lane_rows(jnp.asarray(flat))))
     got = ops.paged_gather(t2d, torch.from_numpy(fidx)).numpy()
@@ -67,7 +73,7 @@ def test_paged_gather_matches_jax_interpret():
     rng = np.random.default_rng(1)
     flat = rng.integers(0, 1000, 300).astype(np.int32)
     fidx = rng.integers(0, 300, (8, 1)).astype(np.int32)
-    want = np.asarray(jpk.paged_gather(jpk._as_lane_rows(jnp.asarray(flat)), jnp.asarray(fidx), "interpret"))
+    want = np.asarray(_jit_gather(jnp.asarray(flat), jnp.asarray(fidx), "interpret"))
     got = ops.paged_gather(paged.as_lane_rows(torch.from_numpy(flat)), torch.from_numpy(fidx))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -75,7 +81,7 @@ def test_paged_gather_matches_jax_interpret():
 def test_paged_gather_clamps_like_xla():
     flat = np.arange(256, dtype=np.int32)
     fidx = np.array([[255, 256, 10**6]], np.int32)
-    want = np.asarray(jpk.paged_gather(jpk._as_lane_rows(jnp.asarray(flat)), jnp.asarray(fidx), "xla"))
+    want = np.asarray(_jit_gather(jnp.asarray(flat), jnp.asarray(fidx), "xla"))
     got = ops.paged_gather_ref(paged.as_lane_rows(torch.from_numpy(flat)), torch.from_numpy(fidx))
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -95,7 +101,7 @@ def test_pack_bf16_words_matches_jax():
     rng = np.random.default_rng(2)
     for n in (1, 7, 300):
         x = _bf16_values(rng, n)
-        want = np.asarray(jpk.pack_bf16_words(jnp.asarray(x)))
+        want = np.asarray(jax.jit(jpk.pack_bf16_words)(jnp.asarray(x)))
         got = paged.pack_bf16_words(torch.from_numpy(x))
         assert got.dtype == torch.int32
         np.testing.assert_array_equal(_bits(got), want)
@@ -107,10 +113,11 @@ def test_paged_gather_dequant_matches_jax(impl):
     # interpret mode emulates one row DMA per draw: one draw a row
     n, shape = (600, (41, 10)) if impl == "xla" else (256, (8, 1))
     x = _bf16_values(rng, n)
-    words = jpk._as_lane_rows(jpk.pack_bf16_words(jnp.asarray(x)))
+    words = jax.jit(lambda a: jpk._as_lane_rows(jpk.pack_bf16_words(a)))(jnp.asarray(x))
     fidx = rng.integers(0, len(x), shape).astype(np.int32)
     fidx.reshape(-1)[:3] = [0, 1, len(x) - 1]  # even, odd, last logical element
-    want = np.asarray(jpk.paged_gather_dequant(words, jnp.asarray(fidx), impl))
+    want = np.asarray(jax.jit(jpk.paged_gather_dequant, static_argnums=2)(
+        words, jnp.asarray(fidx), impl))
     got = ops.paged_gather_dequant(_i32(words), torch.from_numpy(fidx)).numpy()
     assert got.dtype == np.float32
     np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
@@ -123,7 +130,7 @@ def test_paged_cdf_count_and_page_search_match_jax(P):
     flat_q, bound, ps, npages, r = _cdf_inputs(rng, P, deg, 6)
     iters = int(npages.max()).bit_length() + 1
     pstart, npg = ps[:-1].astype(np.int32), npages.astype(np.int32)
-    want_pg = np.asarray(jpk.paged_page_search(
+    want_pg = np.asarray(jax.jit(jpk.paged_page_search, static_argnums=4)(
         jnp.asarray(bound), jnp.asarray(pstart), jnp.asarray(npg), jnp.asarray(r), iters
     ))
     got_pg = ops.paged_page_search(
@@ -134,7 +141,8 @@ def test_paged_cdf_count_and_page_search_match_jax(P):
     page = (pstart[:, None] + np.minimum(want_pg, np.maximum(npg[:, None] - 1, 0))).astype(np.int32)
     page = np.minimum(page, len(bound) - 1)
     q2d = jpk._as_lane_rows(jnp.asarray(flat_q))
-    want = np.asarray(jpk.paged_cdf_count(q2d, jnp.asarray(page), jnp.asarray(r), P, "xla"))
+    want = np.asarray(jax.jit(jpk.paged_cdf_count, static_argnums=(3, 4))(
+        q2d, jnp.asarray(page), jnp.asarray(r), P, "xla"))
     got = ops.paged_cdf_count(_i32(q2d), torch.from_numpy(page), _i32(r), P)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
@@ -148,7 +156,8 @@ def test_paged_cdf_count_matches_jax_interpret():
     flat_q, _, ps, npages, r = _cdf_inputs(rng, P, np.array([5, 12, 3]), 1)
     page = np.minimum(ps[:-1, None] + rng.integers(0, 2, (3, 1)), len(flat_q) // P - 1).astype(np.int32)
     q2d = jpk._as_lane_rows(jnp.asarray(flat_q))
-    want = np.asarray(jpk.paged_cdf_count(q2d, jnp.asarray(page), jnp.asarray(r), P, "interpret"))
+    want = np.asarray(jax.jit(jpk.paged_cdf_count, static_argnums=(3, 4))(
+        q2d, jnp.asarray(page), jnp.asarray(r), P, "interpret"))
     got = ops.paged_cdf_count(_i32(q2d), torch.from_numpy(page), _i32(r), P)
     np.testing.assert_array_equal(got.numpy(), want)
 

@@ -6,9 +6,9 @@ the host flow and on the device flow (`--device-flow`);
 train_and_evaluate and evaluate for sage, rgcn and fastgcn, evaluate for
 the KG family, infer for the embedding family, sage, graphsage_unsup,
 gae, dgi and adaptivegcn, each exiting 0 on `--synthetic` data; the
-modes the JAX runner refuses (or cannot run) and the models the port
-does not run exit with a message (an unported model names its ROADMAP
-item)."""
+modes the JAX runner refuses (or cannot run) and unknown models exit
+with a message; scalable_gcn and scalable_sage train (ScalableTrainer)
+and print their final loss, in every mode, as the JAX runner does."""
 
 import os
 
@@ -20,7 +20,7 @@ from euler_tpu.examples.run_model import build_parser as jax_build_parser
 from euler_tpu_torch.examples.run_model import (
     GRAPH_CLF,
     KG_MODELS,
-    NOT_PORTED,
+    SCALABLE_MODELS,
     build_parser,
     main,
 )
@@ -73,6 +73,17 @@ def test_train_exits_zero(cache, model, flow, capsys):
         extra += ["--p", "0.5", "--q", "2"]
     assert _run(cache, model, *extra) == 0
     assert "trained 2 steps; final loss" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("model", ["scalable_gcn", "scalable_sage"])
+def test_scalable_families_train_exit_zero(cache, model, capsys):
+    """The JAX smoke's scalable_gcn run (tests/test_datasets_examples.py):
+    ScalableTrainer over the stand-in's host HistoryTables, 2 steps,
+    `final loss: <finite>` and exit 0; --device-flow is ignored, as the
+    JAX runner ignores it."""
+    assert _run(cache, model, "--device-flow") == 0
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert line.startswith("final loss: ") and np.isfinite(float(line.split()[-1]))
 
 
 @pytest.mark.parametrize("flow", ["host", "device"])
@@ -139,17 +150,16 @@ def test_modes_the_jax_runner_refuses_exit_with_a_message(cache, tmp_path, model
               "--mode", mode, "--model-dir", str(tmp_path), *STEPS])
 
 
-def test_refusals(cache, tmp_path):
+def test_refusals(cache, tmp_path, capsys):
     with pytest.raises(SystemExit, match="no checkpoint"):
         main(["--model", "transe", "--dataset", "fb15k", "--mode", "evaluate", "--model-dir",
               str(tmp_path), *STEPS])
-    for model, item in sorted(NOT_PORTED.items()):
-        with pytest.raises(SystemExit, match="ROADMAP queue 1 item") as e:
-            _run(cache, model)
-        assert item in str(e.value)
-    with pytest.raises(SystemExit, match="item 4 .ScalableGNN"):
-        _run(cache, "scalable_gcn")
-    assert set(NOT_PORTED) == {"scalable_gcn", "scalable_sage"}
+    # the scalable pair, the last models the port refused, train: in any
+    # mode, as the JAX runner's branch does, ending on its loss line
+    assert set(SCALABLE_MODELS) == {"scalable_gcn", "scalable_sage"}
+    for model in sorted(SCALABLE_MODELS):
+        assert _run(cache, model, mode="evaluate") == 0
+        assert "final loss: " in capsys.readouterr().out
     with pytest.raises(SystemExit, match="unknown model"):
         _run(cache, "nope")
     with pytest.raises(SystemExit, match="item 6"):

@@ -2,7 +2,8 @@
 and the batch sources, walks, KG evaluations and graph builders of the
 link-prediction families, the graph-label queries and the mutag
 stand-in, the layer-wise, relation and auto-encoder families' flows,
-batches and models) take the JAX package's parameters in its order
+batches and models, the ScalableGNN family and its HistoryTable, the
+encoders, the aggregators and the embedding-table functions) take the JAX package's parameters in its order
 and under its names, so a caller's positional arguments mean the
 same thing in both packages. Port-only parameters (`device`) are
 keyword-only. The one deliberate difference: the torch modules take their
@@ -95,6 +96,17 @@ from euler_tpu.serving import ModelServer as JaxModelServer
 from euler_tpu.serving import ServingClient as JaxServingClient
 from euler_tpu.serving import ServingRouter as JaxServingRouter
 from euler_tpu.serving import TenantQuota as JaxTenantQuota
+from euler_tpu.models import ScalableGNN as JaxScalableGNN
+from euler_tpu.models import ScalableTrainer as JaxScalableTrainer
+from euler_tpu.nn import embedding as jax_embedding
+from euler_tpu.nn import aggregators as jax_aggregators
+from euler_tpu.nn.encoders import ShallowEncoder as JaxShallowEncoder
+from euler_tpu.nn.encoders import SparseEmbedding as JaxSparseEmbedding
+from euler_tpu.nn.history import HistoryTable as JaxHistoryTable
+from euler_tpu_torch.models import ScalableGNN, ScalableTrainer
+from euler_tpu_torch.nn import aggregators, embedding
+from euler_tpu_torch.nn.encoders import ShallowEncoder, SparseEmbedding
+from euler_tpu_torch.nn.history import HistoryTable
 from euler_tpu_torch.dataflow import (
     DeviceDgiFlow,
     DeviceGaeFlow,
@@ -272,13 +284,27 @@ PAIRS = [
     (DeviceLayerwiseFlow, JaxDeviceLayerwiseFlow),
     (DeviceGaeFlow, JaxDeviceGaeFlow),
     (DeviceDgiFlow, JaxDeviceDgiFlow),
+    (HistoryTable, JaxHistoryTable),
+    (ScalableGNN, JaxScalableGNN),
+    (ScalableTrainer, JaxScalableTrainer),
+    (SparseEmbedding, JaxSparseEmbedding),
+    (ShallowEncoder, JaxShallowEncoder),
+    *((getattr(aggregators, n), getattr(jax_aggregators, n))
+      for n in ("MeanAggregator", "GCNAggregator", "MeanPoolAggregator", "MaxPoolAggregator",
+                "AttentionAggregator")),
+    *((getattr(embedding, n), getattr(jax_embedding, n))
+      for n in ("embedding_update", "embedding_add", "embedding_moving_average",
+                "partitioned_lookup", "partitioned_update")),
 ]
 # the torch modules' input width, which flax infers at init
 IN_DIM_FIRST = (SAGEConv, GCNConv, GATConv, GraphConv, APPNPConv, SGCNConv, TAGConv, ARMAConv,
                 GINConv, AGNNConv, DNAConv, GatedGraphConv, GeniePathConv, LGCNConv,
                 Pooling, AttentionPool, Set2SetPool, GraphClassifier,
                 GNNNet, GraphSAGESupervised, SuperviseModel, UnsuperviseModel,
-                GraphSAGEUnsupervised, RelationConv, RGCNSupervised, LayerwiseGCN, GAE, DGI)
+                GraphSAGEUnsupervised, RelationConv, RGCNSupervised, LayerwiseGCN, GAE, DGI,
+                ScalableGNN, ShallowEncoder, aggregators.MeanAggregator,
+                aggregators.GCNAggregator, aggregators.MeanPoolAggregator,
+                aggregators.MaxPoolAggregator, aggregators.AttentionAggregator)
 # flax.linen.Module's own dataclass fields
 FLAX_FIELDS = ("parent", "name")
 

@@ -99,10 +99,12 @@ def _flax_tree(seed=0):
 
 def _hydrated(setup, seed: int):
     """The hydrated batches of PRNGKey(seed) in both packages, made once
-    a module."""
+    a module (JAX's hydration as one jitted program: op by op, each gather
+    and mask would compile on its own)."""
     if seed not in setup["hydrated"]:
         key = jax.random.PRNGKey(seed)
-        jb = setup["jcache"].hydrate(jax_hydrate_blocks(setup["jsample"](key)))
+        jcache = setup["jcache"]
+        jb = jax.jit(lambda b: jcache.hydrate(jax_hydrate_blocks(b)))(setup["jsample"](key))
         pb = setup["pcache"].hydrate(
             hydrate_blocks(setup["pflow"].make_batch(*_draws(setup["jflow"], key))))
         setup["hydrated"][seed] = jb, pb
@@ -240,7 +242,7 @@ def test_gather_weighted_sum_grads_match_jax(dtype):
     def f(x_, w_):
         return jnp.sum(jax_gws(x_, jnp.asarray(slots), w_, "xla") * g)
 
-    jdx, jdw = jax.grad(f, argnums=(0, 1))(jx, jnp.asarray(w))
+    jdx, jdw = jax.jit(jax.grad(f, argnums=(0, 1)))(jx, jnp.asarray(w))
     tx = torch.from_numpy(x).to(torch.bfloat16 if dtype == "bf16" else torch.float32)
     tx.requires_grad_(True)
     tw = torch.from_numpy(w).requires_grad_(True)

@@ -4,9 +4,10 @@
 weighted and unit edges, the global negative CDF), `SuperviseModel`,
 `UnsuperviseModel` and `GraphSAGEUnsupervised` (loss, metric and grads
 within 1e-5 on `from_flax` params; JAX's SAGEConv on its plain segment-op
-path), a few Estimator steps on the device flow (steps_per_call 1 and 2)
-and on the host source within 1e-4 of JAX's losses, and the options not
-ported yet, which raise naming their ROADMAP item.
+path; and with the ShallowEncoder stage over the batches' hop ids), a
+few Estimator steps on the device flow (steps_per_call 1 and 2) and on
+the host source within 1e-4 of JAX's losses, and the options not ported
+yet, which raise naming their ROADMAP item.
 """
 
 import jax
@@ -76,6 +77,8 @@ def _same_batch(jb, pb):
         assert (a.n_src, a.n_dst, a.grid) == (b.n_src, b.n_dst, b.grid)
         pairs += [(a.edge_src, b.edge_src), (a.edge_dst, b.edge_dst), (a.edge_w, b.edge_w),
                   (a.mask, b.mask)]
+    assert (jb.hop_ids is None) == (pb.hop_ids is None)
+    pairs += list(zip(jb.hop_ids or (), pb.hop_ids or (), strict=True))
     for a, b in pairs:
         assert (a is None) == (b is None)
         if a is not None:
@@ -140,14 +143,15 @@ def _flows(graphs, weighted, layout, **kw):
 @pytest.fixture(scope="module")
 def flows(graphs):
     """(jax flow, port flow, jitted JAX sample) by (weighted, layout),
-    staged once for the module under the f32 weight plane."""
+    staged once for the module under the f32 weight plane, with hop ids
+    (each of the three batches carries its own)."""
     made = {}
 
     def get(weighted, layout):
         if (weighted, layout) not in made:
             with pytest.MonkeyPatch.context() as mp:
                 mp.setenv("EULER_TPU_PAGE_DTYPE", "f32")
-                jf, pf = _flows(graphs, weighted, layout, root_node_type=0)
+                jf, pf = _flows(graphs, weighted, layout, root_node_type=0, with_hop_ids=True)
             made[weighted, layout] = (jf, pf, jax.jit(jf.sample))
         return made[weighted, layout]
 
@@ -175,12 +179,17 @@ def test_unsup_flow_matches_jax(flows, layout, weighted):
 
 def test_unported_options_raise(graphs):
     jg, pg = graphs[False]
-    with pytest.raises(NotImplementedError, match="item 2"):
-        DeviceUnsupSageFlow(pg, FANOUTS, BATCH, with_hop_ids=True, device="cpu")
+    # with_hop_ids and the encoder stage are ported: the flags reach the
+    # flow, whose three batches each carry their ids, and the model
+    flow = DeviceUnsupSageFlow(pg, FANOUTS, BATCH, with_hop_ids=True, device="cpu")
+    assert flow.with_hop_ids
+    assert all(len(b.hop_ids) == len(FANOUTS) + 1
+               for b in flow.sample(torch.Generator().manual_seed(0)))
+    model = GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=10)
+    assert model.net.encoder.max_id == 10 and model.net.encoder.dim == 8
+    assert model.net.gnn.convs[0].in_dim == 8
     with pytest.raises(NotImplementedError, match="item 6"):
         DeviceUnsupSageFlow(pg, FANOUTS, BATCH, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 4"):
-        GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=10)
     with pytest.raises(KeyError, match="unknown conv"):
         SuperviseModel(FEAT, "relation", DIMS, 2)
     # remat is ported: the flag reaches the conv stack
@@ -245,6 +254,30 @@ def test_graphsage_unsupervised_matches_jax(hydrated):
     jb, pb, *_ = hydrated
     _check_grads(JaxUnsup(dims=DIMS), GraphSAGEUnsupervised(FEAT, DIMS), _gnn_tree("net", 1),
                  jb, pb)
+
+
+def test_graphsage_unsupervised_encoder_matches_jax(hydrated, tmp_path):
+    """The encoder stage (ShallowEncoder(8, max_id=300) on every hop of
+    src, pos and negs, over their own hop ids): loss, metric and grads
+    within 1e-5, the id table's among them; 4 Estimator steps at
+    steps_per_call 2 give finite losses."""
+    jb, pb, *_ = hydrated
+    rng = np.random.default_rng(7)
+    tree = _gnn_tree("net", 8)
+    tree["params"]["net"]["gnn"]["convs_0"]["Dense_0"]["kernel"] = rng.normal(
+        0, 0.25 * 16**-0.5, (16, DIMS[0])).astype(np.float32)
+    tree["params"]["net"]["encoder"] = {
+        "Embedding_0": {"table": rng.normal(0, 0.1, (384, 8)).astype(np.float32)},
+        "Dense_0": {"kernel": rng.normal(0, 0.25 * FEAT**-0.5, (FEAT, 8)).astype(np.float32),
+                    "bias": rng.normal(0, 0.1, 8).astype(np.float32)}}
+    _check_grads(JaxUnsup(dims=DIMS, encoder_dim=8, max_id=300),
+                 GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=300), tree, jb, pb)
+    # the Estimator trains it on the flow's hop ids at steps_per_call 2, as JAX's test does
+    _, _, _, pf, _, pc = hydrated
+    est = Estimator(GraphSAGEUnsupervised(FEAT, DIMS, encoder_dim=8, max_id=300), pf,
+                    EstimatorConfig(model_dir=str(tmp_path), steps_per_call=2, **CFG),
+                    feature_cache=pc, device="cpu")
+    assert np.isfinite(est.train(4, log=False, save=False)).all()
 
 
 def test_heads_match_jax(hydrated):
